@@ -1,0 +1,43 @@
+"""Validity bitmasks: packed little-endian uint32 words, 1 = valid.
+
+cudf's layout (bit r % 32 of word r / 32). ``pack`` goes through K3
+(``ops/cuda_kernels.bitmask_pack``): a warp-ballot kernel on CUDA
+tensors, its plain reshape-and-weighted-sum version on CPU tensors.
+torch has no uint32 shifts, so ``unpack`` widens the words to int64.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+BITS_PER_WORD = 32
+
+
+def num_words(n_rows: int) -> int:
+    return (n_rows + BITS_PER_WORD - 1) // BITS_PER_WORD
+
+
+def pack(valid: torch.Tensor) -> torch.Tensor:
+    """bool (N,) -> uint32 words (num_words(N),), LSB-first, padding 0."""
+    from ..ops.cuda_kernels import bitmask_pack
+    return bitmask_pack(valid.to(torch.bool))
+
+
+def unpack(words: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """uint32 words -> bool (n_rows,)."""
+    w64 = words.to(torch.int64)
+    lanes = torch.arange(BITS_PER_WORD, dtype=torch.int64,
+                         device=words.device)
+    bits = (w64[:, None] >> lanes[None, :]) & 1
+    return bits.reshape(-1)[:n_rows].to(torch.bool)
+
+
+def pack_host(valid: np.ndarray) -> np.ndarray:
+    """Host-side (numpy) pack, LSB-first per 32-bit word."""
+    n = valid.shape[0]
+    w = num_words(n)
+    padded = np.zeros(w * 32, dtype=np.uint32)
+    padded[:n] = valid.astype(np.uint32)
+    weights = np.uint32(1) << np.arange(32, dtype=np.uint32)
+    return (padded.reshape(w, 32) * weights).sum(axis=1, dtype=np.uint32)

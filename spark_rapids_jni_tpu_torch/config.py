@@ -1,0 +1,42 @@
+"""Environment knobs this slice reads.
+
+The reference resolves knobs in three tiers (env > tuned winner > code
+default); the tuning tier is not ported yet, so every knob here is an
+environment read with a code default. The route knobs keep the
+reference's names: ``SRT_JOIN_METHOD`` (``auto``/``xla``/``cuda``) and
+``SRT_DENSE_GROUPBY`` (``auto``/``scatter``/``onehot``/``cuda``), with
+``cuda`` in place of the reference's ``pallas``. ``SRT_METRICS`` turns
+span recording on.
+"""
+
+from __future__ import annotations
+
+import os
+
+
+def env_str(name: str, default: str) -> str:
+    """String env knob: unset -> ``default``, otherwise the raw value."""
+    v = os.environ.get(name)
+    return default if v is None else v
+
+
+def env_bool(name: str, default: bool) -> bool:
+    """Tolerant bool env knob: unset/blank or unrecognized -> default."""
+    v = os.environ.get(name, "").strip().lower()
+    if v in ("1", "true", "yes", "on"):
+        return True
+    if v in ("0", "false", "no", "off"):
+        return False
+    return default
+
+
+def join_method() -> str:
+    return env_str("SRT_JOIN_METHOD", "auto")
+
+
+def dense_groupby_mode() -> str:
+    return env_str("SRT_DENSE_GROUPBY", "auto")
+
+
+def metrics_enabled() -> bool:
+    return env_bool("SRT_METRICS", False)

@@ -1,0 +1,139 @@
+"""Sortable-key normalization, stable multi-key sorts and row ranking.
+
+Port of ``spark_rapids_jni_tpu/ops/keys.py``. The reference maps every
+column to uint32 sort lanes for XLA's multi-operand ``lax.sort``. torch
+sorts one key at a time and lacks unsigned 32/64-bit arithmetic, so here
+each column maps to ONE int64 key whose SIGNED order equals the value
+order (the unsigned lane order with the sign bit flipped):
+
+- signed integers widen to int64; uint64 flips its sign bit;
+- floats take the IEEE total-order transform on their bit patterns
+  (NaN sorts greatest, -NaN least, as in the reference);
+- descending order is ``~key`` (bitwise not is an order-reversing
+  bijection on int64).
+
+A multi-column order is a least-significant-first chain of stable sorts
+(``torch.sort(stable=True)``), which equals the reference's
+lexicographic sort with its trailing row-index tiebreak: ties keep input
+order, so ``head(k)`` after a sort with ties picks the same rows.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+from ..columnar import Column, Table
+from ..types import TypeId
+from ..utils.errors import expects, fail
+from ..utils.floatbits import float32_to_bits, float64_to_bits
+from ..obs import traced
+
+_SIGN64 = -(1 << 63)  # int64 with only the sign bit set
+_MAX64 = (1 << 63) - 1
+_MAX32 = (1 << 31) - 1
+
+
+@traced("keys.sort_key")
+def sort_key(col: Column, *, descending: bool = False) -> torch.Tensor:
+    """One int64 key per row whose signed order is the column's value
+    order (null slots carry storage junk; callers add a null plane)."""
+    tid = col.dtype.id
+    data = col.data
+    if tid == TypeId.FLOAT64:
+        b = float64_to_bits(data)
+        key = torch.where(b < 0, b ^ _MAX64, b)
+    elif tid == TypeId.FLOAT32:
+        b = float32_to_bits(data)
+        key = torch.where(b < 0, b ^ _MAX32, b).to(torch.int64)
+    elif not col.dtype.is_fixed_width:
+        fail(f"sort_key does not support {col.dtype!r}")
+    elif data.dtype == torch.uint64:
+        key = data.view(torch.int64) ^ _SIGN64
+    else:
+        key = data.to(torch.int64)
+    return ~key if descending else key
+
+
+def null_plane(col: Column, *, nulls_first: bool = True) -> torch.Tensor:
+    """0/1 int64 key putting nulls first (0 for null) or last."""
+    valid = col.valid_bool().to(torch.int64)
+    return valid if nulls_first else 1 - valid
+
+
+def stable_lexsort(keys: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Stable permutation sorting rows by ``keys`` (first most
+    significant): a chain of stable sorts from the least significant
+    key up."""
+    expects(len(keys) > 0, "need at least one sort key")
+    n = keys[0].shape[0]
+    perm = torch.arange(n, dtype=torch.int64, device=keys[0].device)
+    for k in reversed(list(keys)):
+        order = torch.sort(k[perm], stable=True).indices
+        perm = perm[order]
+    return perm
+
+
+@traced("keys.lexsort_indices")
+def lexsort_indices(columns: Sequence[Column],
+                    descending: Optional[Sequence[bool]] = None,
+                    nulls_first: Optional[Sequence[bool]] = None
+                    ) -> torch.Tensor:
+    """Stable multi-column sort permutation (first column most
+    significant), nulls first by default (cudf's BEFORE)."""
+    n_cols = len(columns)
+    expects(n_cols > 0, "need at least one sort column")
+    descending = list(descending or [False] * n_cols)
+    nulls_first = list(nulls_first or [True] * n_cols)
+    keys: List[torch.Tensor] = []
+    for col, desc, nf in zip(columns, descending, nulls_first):
+        if col.validity is not None:
+            keys.append(null_plane(col, nulls_first=nf))
+        keys.append(sort_key(col, descending=desc))
+    return stable_lexsort(keys)
+
+
+@traced("keys.row_ranks")
+def row_ranks(tables: Sequence[Table], *, nulls_equal: bool = False
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense group ids of row tuples across tables sharing a schema.
+
+    Returns ``(sorted_ranks, perm)``: ``perm`` is the stable sort
+    permutation over the concatenated row space (table 0's rows first)
+    and ``sorted_ranks`` the nondecreasing group id at each sorted
+    position. ``nulls_equal=False`` (join semantics) puts every row with
+    a null key in a group of its own; ``True`` (GROUP BY) groups nulls.
+    """
+    expects(len(tables) > 0, "need at least one table")
+    schema0 = [(c.dtype.id, c.dtype.scale) for c in tables[0].columns]
+    for t in tables[1:]:
+        expects([(c.dtype.id, c.dtype.scale) for c in t.columns] == schema0,
+                "key tables must share a schema")
+    total = sum(t.num_rows for t in tables)
+    expects(total < 2**31, "combined rank input must stay under 2^31 rows")
+    keys: List[torch.Tensor] = []
+    any_null = None
+    for ci in range(len(schema0)):
+        cols = [t.columns[ci] for t in tables]
+        key = torch.cat([sort_key(c) for c in cols])
+        if any(c.validity is not None for c in cols):
+            valid = torch.cat([c.valid_bool() for c in cols])
+            keys.append(valid.to(torch.int64))
+            keys.append(torch.where(valid, key, 0))
+            any_null = ~valid if any_null is None else any_null | ~valid
+        else:
+            keys.append(key)
+    if not nulls_equal and any_null is not None:
+        iota = torch.arange(1, total + 1, dtype=torch.int64,
+                            device=keys[0].device)
+        keys.append(torch.where(any_null, iota, 0))
+    perm = stable_lexsort(keys)
+    new_group = torch.zeros(total, dtype=torch.bool, device=perm.device)
+    if total:
+        new_group[0] = True
+        for k in keys:
+            sk = k[perm]
+            new_group[1:] |= sk[1:] != sk[:-1]
+    sorted_ranks = torch.cumsum(new_group.to(torch.int64), 0) - 1
+    return sorted_ranks, perm

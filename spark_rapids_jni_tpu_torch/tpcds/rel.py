@@ -1,0 +1,538 @@
+"""Named-column relations with deferred row masks, and the fused runner.
+
+Port of the single-device core of ``spark_rapids_jni_tpu/tpcds/rel.py``.
+
+**Deferred row masks.** A ``Rel`` carries an optional device bool mask
+over its physical rows instead of compacting after every filter or
+join. Filters AND into the mask; dense joins and groupbys consume and
+produce masks; only materialization (``compact`` / ``to_df``) pays the
+one data-dependent host sync (the live-row count).
+
+**The fused runner, eagerly.** The reference traces a whole plan into
+one XLA program. PyTorch runs eagerly, so ``run_fused`` runs the plan
+once with the planner flag (``_FUSED_TRACING``) set: routes are chosen
+host-side from VERIFIED ingest stats exactly as in the reference, no
+operator may sync, and an operator that needs a data-dependent general
+kernel raises ``FusedFallback``; the runner then counts
+``rel.fused_fallbacks`` and re-runs the plan on the general sort-merge
+kernels. That is the reference's planner semantics, not a device
+fallback. The reference's jit, AOT cache and plan caches have no
+counterpart here.
+
+**Trusted ingest stats.** ``value_range``/``unique`` are advisory;
+before a plan uses them they are verified once per column against the
+device data (memoized on the column). ``rel_from_df`` computes them
+exactly on the host and trusts them by construction.
+
+**Dictionary-encoded strings.** String columns ingest as int64 codes
+over a host-side sorted dictionary, so code order is string order and
+no string bytes reach the plan; ``to_df`` decodes.
+
+The partitioned (mesh), morsel, batched, result-cache and report layers
+are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..columnar import Column, Table, bitmask
+from ..columnar.strings import dictionary_encode
+from ..obs import (count, count_dispatch, count_host_sync, set_attrs, span)
+from ..ops import gather, sorted_order
+from ..ops.fused_pipeline import MAX_DENSE_WIDTH
+from ..types import INT8, DType, TypeId
+from ..utils.device import resolve_device
+from ..utils.errors import expects
+
+
+class FusedFallback(Exception):
+    """Raised while a fused plan runs when an operator needs a
+    data-dependent general kernel; run_fused catches it and re-runs the
+    plan on the general paths."""
+
+
+_FUSED_TRACING = False  # True only while run_fused runs a plan fused
+
+
+def _dispatch(name: str, *args, **kwargs):
+    """The core's one doorway into the operator library."""
+    from .oplib import registry as _registry
+    return _registry.dispatch(name, *args, **kwargs)
+
+
+# --------------------------------------------------------------------------
+# Trusted ingest stats: verify once, then plan host-side without syncs
+# --------------------------------------------------------------------------
+
+def _verify_ingest_stats(col: Column) -> "tuple[bool, bool]":
+    """(range_ok, unique_ok) for a column's advisory ingest stats,
+    verified against the device data ONCE and memoized on the column."""
+    flags = getattr(col, "_stats_flags", None)
+    if flags is not None:
+        return flags
+    if (col.value_range is None or col.data is None
+            or col.validity is not None or not col.dtype.is_integral):
+        flags = (False, False)
+    else:
+        lo, hi = col.value_range
+        width = int(hi) - int(lo) + 1
+        if width > MAX_DENSE_WIDTH:
+            flags = (False, False)  # the dense planner can never use it
+        else:
+            with span("rel.verify_stats", rows=col.size, width=width):
+                count_dispatch("rel.verify_stats")
+                count_host_sync("rel.verify_stats")
+                k64 = col.data.to(torch.int64) - int(lo)
+                inb = (k64 >= 0) & (k64 < width)
+                ok_r = bool(inb.all())
+                ok_u = False
+                if col.unique and ok_r:
+                    counts = torch.zeros(width, dtype=torch.int32,
+                                         device=k64.device)
+                    counts.index_add_(0, k64, torch.ones_like(
+                        k64, dtype=torch.int32))
+                    ok_u = bool((counts <= 1).all())
+                flags = (ok_r, ok_u)
+                if not ok_r:
+                    count("rel.stale_stats")
+    col._stats_flags = flags
+    return flags
+
+
+def _trust(col: Column, unique: bool = False) -> Column:
+    """Mark a column built mid-plan whose stats hold by construction."""
+    col._stats_flags = (col.value_range is not None, unique)
+    return col
+
+
+def _trusted_range(col: Column) -> "Optional[tuple[int, int]]":
+    """value_range when it is verified (or verifiable now); None under
+    the planner flag for unverified stats -- the caller falls back."""
+    if (col.value_range is None or col.data is None
+            or col.validity is not None or not col.dtype.is_integral):
+        return None
+    flags = getattr(col, "_stats_flags", None)
+    if flags is None:
+        if _FUSED_TRACING:
+            return None
+        flags = _verify_ingest_stats(col)
+    return col.value_range if flags[0] else None
+
+
+def _trusted_unique(col: Column) -> bool:
+    flags = getattr(col, "_stats_flags", None)
+    return bool(flags and flags[1])
+
+
+class Rel:
+    """A named relation with masked (deferred-compaction) semantics.
+
+    ``mask`` is an optional device bool vector over the PHYSICAL rows of
+    ``table``; None means every row is live. ``dicts`` maps
+    dictionary-encoded column names to their sorted category arrays.
+    ``pending_sort``/``limit`` record a terminal sort and row limit,
+    applied at materialization over just the live rows."""
+
+    def __init__(self, table: Table, names: Sequence[str],
+                 mask: Optional[torch.Tensor] = None,
+                 dicts: Optional[Dict[str, np.ndarray]] = None,
+                 pending_sort: Optional[tuple] = None,
+                 limit: Optional[int] = None):
+        expects(table.num_columns == len(names),
+                "one name per column required")
+        expects(len(set(names)) == len(names),
+                f"duplicate column names: {sorted(names)}")
+        self.table = table
+        self.names = list(names)
+        self.mask = mask
+        self.dicts = dict(dicts) if dicts else {}
+        self.pending_sort = pending_sort
+        self.limit = limit
+
+    @property
+    def num_rows(self) -> int:
+        return self.table.num_rows
+
+    @property
+    def device(self) -> torch.device:
+        return self.table.columns[0].device
+
+    def col(self, name: str) -> Column:
+        plain = self._flush_sort()
+        return plain.table.columns[plain.names.index(name)]
+
+    def data(self, name: str) -> torch.Tensor:
+        return self.col(name).data
+
+    def _sub_dicts(self, names) -> dict:
+        return {n: v for n, v in self.dicts.items() if n in names}
+
+    def _flush_sort(self) -> "Rel":
+        """Apply a deferred terminal sort in-plan (dead rows last). Only
+        reached when an op follows sort()."""
+        if self.pending_sort is None:
+            return self
+        by, desc = self.pending_sort
+        cols = [self.table.columns[self.names.index(n)] for n in by]
+        if self.mask is None:
+            order = sorted_order(Table(cols), list(desc))
+            out = Rel(gather(self.table, order), self.names,
+                      dicts=self.dicts)
+        else:
+            dead_key = Column(INT8, self.num_rows,
+                              (~self.mask).to(torch.int8))
+            order = sorted_order(Table([dead_key] + cols),
+                                 [False] + list(desc))
+            out = Rel(gather(self.table, order), self.names,
+                      mask=self.mask[order], dicts=self.dicts)
+        if self.limit is not None:
+            # rows are ordered dead-last: the physical head is the live head
+            k = min(self.limit, out.num_rows)
+            head = torch.arange(k, dtype=torch.int64, device=self.device)
+            out = Rel(gather(out.table, head), out.names,
+                      mask=None if out.mask is None else out.mask[:k],
+                      dicts=out.dicts)
+        return out
+
+    def select(self, *names: str) -> "Rel":
+        plain = self._flush_sort()
+        return Rel(Table([plain.col(n) for n in names]), names,
+                   mask=plain.mask, dicts=plain._sub_dicts(names))
+
+    def with_column(self, name: str, col: Column) -> "Rel":
+        plain = self._flush_sort()
+        return Rel(Table(list(plain.table.columns) + [col]),
+                   plain.names + [name], mask=plain.mask, dicts=plain.dicts)
+
+    def rename(self, **renames: str) -> "Rel":
+        names = [renames.get(n, n) for n in self.names]
+        dicts = {renames.get(k, k): v for k, v in self.dicts.items()}
+        ps = self.pending_sort
+        if ps is not None:
+            ps = ([renames.get(n, n) for n in ps[0]], ps[1])
+        return Rel(self.table, names, mask=self.mask, dicts=dicts,
+                   pending_sort=ps, limit=self.limit)
+
+    def filter(self, mask) -> "Rel":
+        """Deferred filter: ANDs into the row mask, no compaction."""
+        plain = self._flush_sort()
+        keep = mask.to(torch.bool)
+        keep = keep if plain.mask is None else (plain.mask & keep)
+        return Rel(plain.table, plain.names, mask=keep, dicts=plain.dicts)
+
+    def sum_where(self, values, where=None) -> torch.Tensor:
+        """Masked sum of a per-physical-row expression (0-d tensor)."""
+        sel = None if where is None else where.to(torch.bool)
+        if self.mask is not None:
+            sel = self.mask if sel is None else (sel & self.mask)
+        if sel is None:
+            return values.sum()
+        return torch.where(sel, values, 0).sum()
+
+    def count_where(self, where=None) -> torch.Tensor:
+        """Count of live rows matching ``where`` (0-d int64 tensor)."""
+        sel = None if where is None else where.to(torch.bool)
+        if self.mask is not None:
+            sel = self.mask if sel is None else (sel & self.mask)
+        if sel is None:
+            return torch.full((), self.num_rows, dtype=torch.int64,
+                              device=self.device)
+        return sel.sum(dtype=torch.int64)
+
+    # -- materialization ---------------------------------------------------
+
+    def compact(self) -> "Rel":
+        """Materialize: drop masked-out rows (THE data-dependent host
+        sync), then apply a deferred terminal sort over the live rows,
+        then the limit. Raises FusedFallback under the planner flag --
+        the fused runner materializes once, at the end."""
+        if (self.mask is None and self.pending_sort is None
+                and self.limit is None):
+            return self
+        if _FUSED_TRACING:
+            raise FusedFallback("compaction inside a fused plan")
+        with span("rel.compact", rows=self.num_rows,
+                  masked=self.mask is not None):
+            datas = [c.data for c in self.table.columns]
+            valids = [None if c.validity is None else c.valid_bool()
+                      for c in self.table.columns]
+            n = self.num_rows
+            if self.mask is not None:
+                count_host_sync("rel.compact")
+                count_dispatch("rel.compact", 2)
+                n = int(self.mask.sum())
+                set_attrs(live_rows=n)
+            sort_keys, desc = (), ()
+            if self.pending_sort is not None:
+                count_dispatch("rel.sort", 2)
+                by, d = self.pending_sort
+                sort_keys = tuple(self.names.index(b) for b in by)
+                desc = tuple(d)
+            dtypes = tuple(c.dtype for c in self.table.columns)
+            out_d, out_v = _materialize_program(
+                datas, valids, self.mask, n, dtypes, sort_keys, desc,
+                self.limit)
+            if self.limit is not None:
+                n = min(self.limit, n)
+            cols = [Column(dt, n, d, v)
+                    for dt, d, v in zip(dtypes, out_d, out_v)]
+            return Rel(Table(cols), self.names, dicts=self.dicts)
+
+    def to_df(self):
+        import pandas as pd
+        out = self.compact()
+        frame = {}
+        for n in out.names:
+            vals = out.col(n).to_pylist()
+            if n in out.dicts:
+                cats = out.dicts[n]
+                vals = [None if v is None else cats[v] for v in vals]
+            frame[n] = vals
+        return pd.DataFrame(frame)
+
+    # -- joins and grouped aggregation --------------------------------------
+
+    def join(self, other: "Rel", left_on: Sequence[str],
+             right_on: Sequence[str], how: str = "inner") -> "Rel":
+        """Equi-join; the result carries every column of both sides
+        (``semi``/``anti`` keep left columns only; ``left`` marks
+        unmatched right columns null). Pair order is planner-dependent;
+        callers that need an order sort the result."""
+        expects(how in ("inner", "left", "semi", "anti"),
+                f"unsupported join type {how!r}")
+        with span("rel.join", how=how, keys=",".join(left_on),
+                  left_rows=self.num_rows, right_rows=other.num_rows):
+            return _dispatch("join", self._flush_sort(), other._flush_sort(),
+                             list(left_on), list(right_on), how)
+
+    def groupby(self, keys: Sequence[str], aggs: Sequence[tuple]) -> "Rel":
+        """``aggs`` = [(value_col, agg_name, out_name), ...]; the result is
+        the unique keys then the aggregates, in ascending key order."""
+        with span("rel.groupby", keys=",".join(keys),
+                  rows=self.num_rows, n_aggs=len(aggs)):
+            return _dispatch("groupby", self._flush_sort(), list(keys),
+                             [tuple(a) for a in aggs])
+
+    # -- ordering / shaping ------------------------------------------------
+
+    def sort(self, by: Sequence[str],
+             descending: Optional[Sequence[bool]] = None) -> "Rel":
+        """Deferred stable sort, applied at materialization over the live
+        rows; a following relational op flushes it into the plan."""
+        plain = self._flush_sort()
+        desc = list(descending or [False] * len(by))
+        return Rel(plain.table, plain.names, mask=plain.mask,
+                   dicts=plain.dicts, pending_sort=(list(by), desc))
+
+    def concat(self, other: "Rel") -> "Rel":
+        """Row-wise union of fixed-width non-null columns with equal
+        schemas; masks concatenate, so it stays fused."""
+        a = self._flush_sort()
+        b = other._flush_sort()
+        expects(a.names == b.names, "concat needs equal schemas")
+        for n in a.names:
+            dl, dr = a.dicts.get(n), b.dicts.get(n)
+            expects((dl is None) == (dr is None)
+                    and (dl is None or dl is dr or np.array_equal(dl, dr)),
+                    f"concat of {n!r} needs a shared string dictionary")
+        cols = []
+        for x, y in zip(a.table.columns, b.table.columns):
+            expects(x.dtype.id == y.dtype.id,
+                    "concat supports matching fixed-width columns")
+            expects(x.validity is None and y.validity is None,
+                    "concat supports non-null columns")
+            cols.append(Column(x.dtype, x.size + y.size,
+                               torch.cat([x.data, y.data])))
+        if a.mask is None and b.mask is None:
+            mask = None
+        else:
+            ml = (torch.ones(a.num_rows, dtype=torch.bool, device=a.device)
+                  if a.mask is None else a.mask)
+            mr = (torch.ones(b.num_rows, dtype=torch.bool, device=b.device)
+                  if b.mask is None else b.mask)
+            mask = torch.cat([ml, mr])
+        return Rel(Table(cols), a.names, mask=mask, dicts=a.dicts)
+
+    def head(self, n: int) -> "Rel":
+        """First ``n`` live rows: a deferred limit after sort(), a static
+        slice on an unsorted unmasked rel; an unsorted masked rel has no
+        defined first rows, so it compacts first (or leaves the fused
+        route)."""
+        if self.pending_sort is not None:
+            k = n if self.limit is None else min(n, self.limit)
+            return Rel(self.table, self.names, mask=self.mask,
+                       dicts=self.dicts, pending_sort=self.pending_sort,
+                       limit=min(k, self.num_rows))
+        if self.mask is not None:
+            if _FUSED_TRACING:
+                raise FusedFallback("head() on an unsorted masked rel")
+            return self.compact().head(n)
+        k = min(n, self.num_rows)
+        idx = torch.arange(k, dtype=torch.int64, device=self.device)
+        return Rel(gather(self.table, idx), self.names, dicts=self.dicts)
+
+
+# --------------------------------------------------------------------------
+# The fused runner: one plan run + one materialization per query
+# --------------------------------------------------------------------------
+
+def _fusable_rel(rel: Rel) -> bool:
+    return all(c.data is not None and c.dtype.is_fixed_width
+               for c in rel.table.columns)
+
+
+def _live_indices(mask: torch.Tensor, n: int) -> torch.Tensor:
+    """Ascending indices of the ``n`` True rows of ``mask`` without a
+    second sync (``nonzero`` would read the count again): each live row
+    scatters its row number to its exclusive-prefix position."""
+    pos = torch.cumsum(mask.to(torch.int64), 0) - 1
+    dst = torch.where(mask, pos, n)
+    out = torch.empty(n + 1, dtype=torch.int64, device=mask.device)
+    out[dst] = torch.arange(mask.shape[0], dtype=torch.int64,
+                            device=mask.device)
+    return out[:n]
+
+
+def _materialize_program(datas, valids, mask, n: int, dtypes: tuple,
+                         sort_keys: tuple, descending: tuple,
+                         limit: Optional[int]):
+    """Compact by the row mask (``n`` = its live count, read by the
+    caller's one sync), apply the terminal sort over the n LIVE rows,
+    slice the limit, and pack validity (K3) -- the reference's second
+    dispatch. ``valids`` are dense bool vectors or None."""
+    idx = None if mask is None else _live_indices(mask, n)
+    out_d = [d if idx is None else d[idx] for d in datas]
+    out_v = [None if v is None else (v if idx is None else v[idx])
+             for v in valids]
+    if sort_keys:
+        cols = []
+        for ci in sort_keys:
+            v = out_v[ci]
+            cols.append(Column(dtypes[ci], n, out_d[ci],
+                               None if v is None else bitmask.pack(v)))
+        order = sorted_order(Table(cols), list(descending))
+        out_d = [d[order] for d in out_d]
+        out_v = [None if v is None else v[order] for v in out_v]
+    if limit is not None and limit < n:
+        out_d = [d[:limit] for d in out_d]
+        out_v = [None if v is None else v[:limit] for v in out_v]
+    return out_d, [None if v is None else bitmask.pack(v) for v in out_v]
+
+
+def _check_device(rels: "dict[str, Rel]", dev: torch.device) -> None:
+    for name, r in rels.items():
+        for c in r.table.columns:
+            expects(c.data is None or c.data.device.type == dev.type,
+                    f"rel {name!r} lies on {c.data.device}, not {dev}")
+
+
+def run_fused(plan, rels: "dict[str, Rel]", device=None) -> Rel:
+    """Execute ``plan(rels) -> Rel`` with the planner flag set, then
+    materialize once: at most one data-dependent host sync per query
+    (counter-asserted through ``rel.host_syncs``).
+
+    ``device`` names where ``rels`` live: ``cuda`` unless the caller
+    passes another (the tests pass ``"cpu"``); without a GPU and without
+    a device this raises. When a plan needs a general kernel the run
+    counts ``rel.fused_fallbacks`` and re-runs the plan eagerly on the
+    general sort-merge kernels: slower, never wrong."""
+    global _FUSED_TRACING
+    dev = resolve_device(device)
+    _check_device(rels, dev)
+    pname = getattr(plan, "__name__", "plan").lstrip("_")
+    for name in sorted(rels):
+        if not _fusable_rel(rels[name]) or rels[name].mask is not None:
+            count("rel.fused_fallbacks")
+            return plan(rels).compact()
+        for c in rels[name].table.columns:
+            _trusted_range(c)  # verify advisory stats once (memoized)
+    _FUSED_TRACING = True
+    try:
+        with span("rel.fused_program", query=pname):
+            out = plan(rels)
+    except FusedFallback:
+        out = None
+    finally:
+        _FUSED_TRACING = False
+    if out is None:
+        count("rel.fused_fallbacks")
+        count(f"rel.fused_fallbacks.{pname}")
+        return plan(rels).compact()
+    count_dispatch("rel.fused_program")
+    cols = out.table.columns
+    datas = [c.data for c in cols]
+    valids = [None if c.validity is None else c.valid_bool() for c in cols]
+    if out.pending_sort is None:
+        sort_keys, descending = (), ()
+    else:
+        by, desc = out.pending_sort
+        sort_keys = tuple(out.names.index(n) for n in by)
+        descending = tuple(desc)
+    limit = out.limit
+    dtypes = tuple(c.dtype for c in cols)
+    if (out.mask is None and not sort_keys and limit is None
+            and all(v is None for v in valids)):
+        return Rel(out.table, out.names, dicts=out.dicts)
+    n = out.num_rows
+    if out.mask is not None:
+        count_host_sync("rel.mask_count")
+        n = int(out.mask.sum())
+    with span("rel.materialize", live_rows=n):
+        out_d, out_v = _materialize_program(
+            datas, valids, out.mask, n, dtypes, sort_keys, descending,
+            limit)
+    count_dispatch("rel.materialize")
+    if limit is not None:
+        n = min(limit, n)
+    return Rel(Table([Column(dt, n, d, v)
+                      for dt, d, v in zip(dtypes, out_d, out_v)]),
+               out.names, dicts=out.dicts)
+
+
+def _trust_ingest(col: Column) -> Column:
+    """Mark an ingest's exact host stats VERIFIED by construction."""
+    if col.value_range is not None and col.validity is None:
+        _trust(col, unique=bool(col.unique))
+    return col
+
+
+def rel_from_df(df, device=None) -> Rel:
+    """pandas frame -> Rel on ``device`` (``cuda`` unless the caller
+    passes another). Numeric columns upload directly (int32 widens to
+    int64); string/object columns are dictionary-encoded (int64 codes +
+    a host-side sorted category array). Ingest stats are computed
+    exactly on the host and trusted. String columns with nulls need the
+    byte-level STRING column, which this slice does not carry: they
+    raise."""
+    import pandas as pd
+    dev = resolve_device(device)
+    names, cols, dicts = [], [], {}
+    for name in df.columns:
+        s = df[name]
+        names.append(name)
+        if pd.api.types.is_numeric_dtype(s.dtype):
+            arr = np.ascontiguousarray(s.to_numpy())
+            if arr.dtype == np.int32:
+                arr = arr.astype(np.int64)
+        else:
+            arr, cats = dictionary_encode(s)
+            expects(not (arr < 0).any(),
+                    f"string column {name!r} has nulls: the STRING column "
+                    "type is not ported yet")
+            dicts[name] = cats
+        cols.append(_trust_ingest(Column.from_numpy(arr, device=dev)))
+    return Rel(Table(cols), names, dicts=dicts)
+
+
+def numeric(col_data) -> Column:
+    """Wrap a computed tensor as a non-null INT64/FLOAT64 column."""
+    t = torch.as_tensor(col_data)
+    if t.dtype.is_floating_point:
+        return Column(DType(TypeId.FLOAT64), int(t.shape[0]),
+                      t.to(torch.float64))
+    expects(not t.dtype.is_complex, f"numeric() cannot wrap {t.dtype}")
+    return Column(DType(TypeId.INT64), int(t.shape[0]), t.to(torch.int64))

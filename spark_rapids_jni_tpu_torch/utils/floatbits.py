@@ -1,0 +1,21 @@
+"""Bit-exact float <-> integer reinterpretation.
+
+The reference needs an arithmetic IEEE-754 bit extraction because its
+TPU backend cannot bitcast from float64. PyTorch reinterprets storage
+directly on every device (``Tensor.view(dtype)``), so the extraction
+is one view here.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def float64_to_bits(x: torch.Tensor) -> torch.Tensor:
+    """float64 -> int64 holding the IEEE-754 bit pattern."""
+    return x.contiguous().view(torch.int64)
+
+
+def float32_to_bits(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> int32 holding the IEEE-754 bit pattern."""
+    return x.contiguous().view(torch.int32)

@@ -21,6 +21,8 @@ os.environ["XLA_FLAGS"] = (
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running tests (multi-process coordination)")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device and nvcc (the port's kernels)")
 
 import pytest
 
