@@ -19,20 +19,22 @@ started together, then linked.
 
 Each wrapper takes its plain PyTorch version for CPU tensors only. For a
 CUDA tensor it launches the kernel on the current stream or raises:
-there is no fallback. ``LAUNCHES`` counts kernel launches per kernel
-name, bumped only where a wrapper launches.
+there is no fallback. ``LAUNCHES`` counts the ``__global__`` launches
+per kernel name, bumped only where a wrapper launches: K1 launches its
+build and then its probe (one launch when the build side is empty), K2
+and K3 one each.
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
-import threading
-import time
+import tempfile
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -51,7 +53,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # same width cap as the reference's PALLAS_GROUPBY_MAX_WIDTH.
 RAGGED_MAX_WIDTH = 1 << 13
 
-# launches per kernel name (K1 "hash_join_probe", K2
+# __global__ launches per kernel name (K1 "hash_join_probe", K2
 # "ragged_groupby_sum_count", K3 "bitmask_pack")
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
 
@@ -70,81 +72,61 @@ def _nvcc() -> str:
     raise CudfLikeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-class KernelLibrary:
-    """The built kernel library, compiled and loaded once per process."""
+def library_path() -> Path:
+    """Where the library built from the current sources and flags lives
+    (its ``nvcc`` output sits beside it, with the suffix ``.log``)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return BUILD_DIR / f"libsrt_torch_kernels-{h.hexdigest()[:16]}.so"
 
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._lib: Optional[ctypes.CDLL] = None
-        self.build_seconds: Optional[float] = None
-        self.build_log = ""
-        self.path: Optional[Path] = None
 
-    def digest(self) -> str:
-        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for name in SOURCES:
-            h.update(name.encode())
-            h.update((CSRC / name).read_bytes())
-        return h.hexdigest()[:16]
-
-    def build(self) -> Path:
-        """Compile every source in parallel, link one .so; reuse a
-        library already built from identical sources and flags."""
-        out = BUILD_DIR / f"libsrt_torch_kernels-{self.digest()}.so"
-        if out.exists():
-            return out
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        nvcc = _nvcc()
-        tag = f"{os.getpid()}"
-        objs, procs = [], []
-        for name in SOURCES:
-            obj = BUILD_DIR / f"{Path(name).stem}-{tag}.o"
-            objs.append(obj)
-            procs.append(subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        logs, failed = [], []
-        for name, p in zip(SOURCES, procs):
-            text, _ = p.communicate()
-            logs.append(f"== {name}\n{text}")
-            if p.returncode != 0:
-                failed.append(name)
-        self.build_log = "\n".join(logs)
-        if failed:
-            raise CudfLikeError(f"nvcc failed for {failed}:\n{self.build_log}")
-        tmp = BUILD_DIR / f"libsrt_torch_kernels-{tag}.so.tmp"
-        link = subprocess.run(
-            [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+def _build(out: Path) -> None:
+    """Compile every source with its own ``nvcc``, all started together,
+    link them into ``out`` and write the compilers' output beside it."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{Path(name).stem}.o" for name in SOURCES]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        if link.returncode != 0:
-            raise CudfLikeError(f"nvcc link failed:\n{link.stdout}")
-        os.replace(tmp, out)
-        for obj in objs:
-            obj.unlink(missing_ok=True)
-        return out
-
-    def get(self) -> ctypes.CDLL:
-        with self._lock:
-            if self._lib is None:
-                t0 = time.perf_counter()
-                self.path = self.build()
-                lib = ctypes.CDLL(str(self.path))
-                vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-                lib.srt_hash_join_probe.argtypes = [
-                    vp, vp, ll, vp, vp, ll, vp, vp, i, vp, vp, vp]
-                lib.srt_ragged_groupby_sum_count.argtypes = [
-                    vp, vp, vp, ll, i, vp, vp, vp]
-                lib.srt_bitmask_pack.argtypes = [vp, ll, vp, ll, vp]
-                for fn in (lib.srt_hash_join_probe,
-                           lib.srt_ragged_groupby_sum_count,
-                           lib.srt_bitmask_pack):
-                    fn.restype = ctypes.c_int
-                self._lib = lib
-                self.build_seconds = time.perf_counter() - t0
-            return self._lib
+            for name, obj in zip(SOURCES, objs)]
+        logs = [f"== {name}\n{p.communicate()[0]}"
+                for name, p in zip(SOURCES, procs)]
+        failed = [n for n, p in zip(SOURCES, procs) if p.returncode != 0]
+        if not failed:
+            link = subprocess.run(
+                [nvcc, "-shared", "-o", f"{tmp}/lib.so", *map(str, objs)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            logs.append(f"== link\n{link.stdout}")
+            failed = ["link"] if link.returncode != 0 else []
+        log = "\n".join(logs)
+        out.with_suffix(".log").write_text(log)
+        if failed:
+            raise CudfLikeError(f"nvcc failed for {failed}:\n{log}")
+        os.replace(f"{tmp}/lib.so", out)
 
 
-KERNELS = KernelLibrary()
+@functools.lru_cache(maxsize=None)
+def kernels() -> ctypes.CDLL:
+    """The kernel library, built at first use (or reused when one built
+    from identical sources and flags exists) and bound once per process."""
+    out = library_path()
+    if not out.exists():
+        _build(out)
+    lib = ctypes.CDLL(str(out))
+    vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.srt_hash_join_probe.argtypes = [
+        vp, vp, ll, vp, vp, ll, vp, vp, i, vp, vp, vp]
+    lib.srt_ragged_groupby_sum_count.argtypes = [
+        vp, vp, vp, ll, i, vp, vp, vp]
+    lib.srt_bitmask_pack.argtypes = [vp, ll, vp, ll, vp]
+    for fn in (lib.srt_hash_join_probe, lib.srt_ragged_groupby_sum_count,
+               lib.srt_bitmask_pack):
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def _stream(device: torch.device) -> int:
@@ -294,12 +276,12 @@ def hash_join_probe(build_keys: torch.Tensor, probe_keys: torch.Tensor,
     expects(cap < 2**31, "hash table capacity exceeds int32")
     slot_row = torch.full((cap,), -1, dtype=torch.int32, device=dev)
     slot_key = torch.empty(cap, dtype=torch.int64, device=dev)
-    rc = KERNELS.get().srt_hash_join_probe(
+    rc = kernels().srt_hash_join_probe(
         bkeys.data_ptr(), _ptr(blive), n_build, pkeys.data_ptr(),
         _ptr(plive), n_probe, slot_row.data_ptr(), slot_key.data_ptr(),
         cap, idx.data_ptr(), found.data_ptr(), _stream(dev))
     _check(rc, "hash_join_probe")
-    LAUNCHES["hash_join_probe"] += 1
+    LAUNCHES["hash_join_probe"] += 2 if n_build else 1  # build, probe
     return idx, found
 
 
@@ -345,7 +327,7 @@ def ragged_groupby_sum_count(slots: torch.Tensor, live: torch.Tensor,
     counts = torch.zeros(width, dtype=torch.int32, device=dev)
     if n == 0:
         return sums, counts
-    rc = KERNELS.get().srt_ragged_groupby_sum_count(
+    rc = kernels().srt_ragged_groupby_sum_count(
         s.data_ptr(), lv.data_ptr(), v.data_ptr(), n, width,
         sums.data_ptr(), counts.data_ptr(), _stream(dev))
     _check(rc, "ragged_groupby_sum_count")
@@ -381,7 +363,7 @@ def bitmask_pack(valid: torch.Tensor) -> torch.Tensor:
     words = torch.empty(n_words, dtype=torch.uint32, device=dev)
     if n_words == 0:
         return words
-    rc = KERNELS.get().srt_bitmask_pack(v.data_ptr(), n, words.data_ptr(),
+    rc = kernels().srt_bitmask_pack(v.data_ptr(), n, words.data_ptr(),
                                         n_words, _stream(dev))
     _check(rc, "bitmask_pack")
     LAUNCHES["bitmask_pack"] += 1

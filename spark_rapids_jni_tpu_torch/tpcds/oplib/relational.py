@@ -100,11 +100,10 @@ def presence_membership(left, right, lk: Column, rk: Column, how: str):
     return left.filter(found if how == "semi" else ~found)
 
 
-def dense_build_map(rel, key: Column):
-    """Broadcast-map build over a rel's (possibly masked) rows; None
-    when the dense path cannot be proven applicable. Under the planner
-    flag it builds without device checks from trusted stats or gives up
-    the route, never syncing."""
+def dense_key_range(key: Column):
+    """(lo, hi) of a build key that the dense path may take: non-null,
+    integral, not proven duplicate, with a trusted range no wider than
+    MAX_DENSE_WIDTH; else None. Uniqueness may still need proving."""
     if key.validity is not None or key.data is None \
             or not key.dtype.is_integral:
         return None
@@ -112,6 +111,16 @@ def dense_build_map(rel, key: Column):
         return None  # ingest already proved duplicates
     rng = _rel._trusted_range(key)
     if rng is None or (rng[1] - rng[0] + 1) > MAX_DENSE_WIDTH:
+        return None
+    return rng
+
+
+def dense_build_map(rel, key: Column):
+    """Broadcast-map build over a rel's (possibly masked) rows; None
+    when the dense path cannot be proven applicable. Under the planner
+    flag it builds without device checks from trusted stats or gives up
+    the route, never syncing."""
+    if dense_key_range(key) is None:
         return None
     if _rel._trusted_unique(key):
         return build_dense_map(key, rel.mask, check_range=False,
@@ -154,8 +163,11 @@ def dense_join(left, right, left_on, right_on, how: str):
     if lk.validity is not None or lk.data is None \
             or not lk.dtype.is_integral:
         return None
-    dmap = dense_build_map(right, rk)
-    if dmap is None:
+    # a key proven unique from trusted stats needs no map yet: K1 builds
+    # its own table, so only the gather route below builds one
+    rng = dense_key_range(rk) if _rel._trusted_unique(rk) else None
+    dmap = None if rng is not None else dense_build_map(right, rk)
+    if rng is None and dmap is None:
         if how in ("semi", "anti"):
             out = presence_membership(left, right, lk, rk, how)
             if out is not None:
@@ -163,6 +175,7 @@ def dense_join(left, right, left_on, right_on, how: str):
                 set_attrs(route="presence_bitmap")
                 return out
         return None
+    lo, hi = rng if rng is not None else (dmap.lo, dmap.lo + dmap.width - 1)
     count(f"rel.route.join.dense.{how}")
     # probe route (ops/join.join_probe_method): the direct-address
     # gather or K1 -- same (idx, found) contract, equal outputs
@@ -171,12 +184,15 @@ def dense_join(left, right, left_on, right_on, how: str):
     set_attrs(probe=method)
     if method == "cuda":
         from ...ops.cuda_kernels import hash_join_probe
-        k64 = rk.data.to(torch.int64) - dmap.lo
-        blive = (k64 >= 0) & (k64 < dmap.width)
+        k64 = rk.data.to(torch.int64)
+        blive = (k64 >= lo) & (k64 <= hi)
         if right.mask is not None:
             blive = blive & right.mask
         idx, found = hash_join_probe(rk.data, lk.data, build_live=blive)
     else:
+        if dmap is None:
+            dmap = build_dense_map(rk, right.mask, check_range=False,
+                                   check_unique=False)
         idx, found = dense_lookup(dmap, lk.data)
     if how == "semi":
         return left.filter(found)

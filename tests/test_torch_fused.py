@@ -114,6 +114,24 @@ def test_forced_kernel_routes_run_the_plain_versions(state, monkeypatch):
     assert stats.get("rel.route.join.cuda_degraded", 0) == 0, stats
 
 
+@pytest.mark.parametrize("method", ["cuda", "xla"])
+def test_only_the_gather_probe_builds_a_dense_map(state, monkeypatch,
+                                                  method):
+    # K1 builds its own hash table: on its route a build key proven
+    # unique from trusted stats gets no direct-address map
+    from spark_rapids_jni_tpu_torch.tpcds.oplib import relational
+    _, rels, want = state
+    built = []
+    real = relational.build_dense_map
+    monkeypatch.setattr(relational, "build_dense_map",
+                        lambda *a, **k: built.append(1) or real(*a, **k))
+    monkeypatch.setenv("SRT_JOIN_METHOD", method)
+    for q in ("q3", "q6", "q8"):
+        got = run_fused(PLANS[q], rels, device="cpu").to_df()
+        assert_frames_match(got, want[q], q)
+    assert (len(built) == 0) == (method == "cuda"), built
+
+
 def test_onehot_route_equals_reference(state, monkeypatch):
     _, rels, want = state
     monkeypatch.setenv("SRT_DENSE_GROUPBY", "onehot")
