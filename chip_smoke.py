@@ -6,7 +6,7 @@
 In order, it:
 
 1. prints the card (``nvidia-smi --query-gpu=name,power.limit``) and
-   builds the CUDA kernels K1-K3 from ``spark_rapids_jni_tpu_torch/csrc``
+   builds the CUDA kernels K1-K6 from ``spark_rapids_jni_tpu_torch/csrc``
    with ``nvcc`` (one process per source, all started together), timing
    the build;
 2. holds each kernel against its plain PyTorch version on the card at
@@ -25,8 +25,32 @@ In order, it:
 5. requires every result to equal the port's pandas oracle (integers
    exact, floats within rtol=1e-9, atol=1e-9: atomic float sums change
    the accumulation order), ``rel.fused_fallbacks == 0`` and at least one
-   launch of each kernel during q1-q10;
-6. prints the ``kernels`` JSON line, the card again, and as the last line
+   launch of each of K1-K3 during q1-q10;
+6. hashing (BASELINE config 1): a seeded 10,000,000-row table of int32,
+   int64, float64, float32, bool, date32, decimal64, decimal128 and a
+   0-32-byte UTF-8 STRING column, 10% nulls each, the floats with +-0.0,
+   +-inf and NaNs of three payloads. With the counts set to 0 just
+   before, it runs ``murmur3_table`` (four K4 and three K5 launches),
+   ``xxhash64_table``, ``hive_hash_table`` (over the columns HiveHash
+   takes: no decimals) and ``murmur3_table`` over store_sales'
+   (ss_item_sk, ss_customer_sk) from step 3 (two K5 launches), and
+   reads the counts just after. It requires every K4/K5 call to equal
+   its plain version on its inputs, the first 1,000,000 rows of every
+   hash to equal the same call with the table on the CPU, and every
+   valid NaN row of a float column to hash like the canonical NaN; it
+   prints rows/s of each table hash;
+7. row conversion (BASELINE config 2, the 32-column ``TestTables.java``
+   schema, 200-byte rows): 1,000,000 rows all valid; 1,000,000 rows with
+   1% nulls per column; 12,000,000 rows with nulls (two batches below
+   2 GB: 10,737,408 and 1,262,592 rows); 1,000,000 rows plus two
+   nullable STRING columns (the torch route). With the counts set to 0
+   just before ``convert_to_rows`` of the four and read just after, it
+   requires K6 to have been launched (four times), each K6 call to equal
+   ``pack_rows_plain`` byte for byte, and ``convert_from_rows`` to give
+   back every valid value (float NaN payloads byte for byte) and every
+   validity bit; it prints ms and GB/s of row bytes both ways;
+8. prints the ``kernels`` JSON line (K1-K6, each with its launches on
+   its own path), the card again, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Every kernel time is device time from CUDA events, the median of 10 runs
@@ -36,11 +60,14 @@ time, one PyTorch library call's time where one computes the same
 function, and the bound: the larger of the bytes the function must move
 over the card's 3.35 TB/s and its operations over 67 T/s, or, for K2,
 the updates of its busiest slot at one shared-memory atomic per SM
-clock. The ``kernels`` line sums each kernel over its q1-q10 calls.
+clock. The ``kernels`` line sums each kernel over its calls on its
+path: K1-K3 over q1-q10, K4 and K5 over the hashing step, K6 over the
+row-conversion step.
 
-``--profile`` adds one warm run per query under ``torch.profiler``: the
-device time of its kernels, the device's idle share of the warm wall
-time, and the kernels that took most of it.
+``--profile`` adds one warm run of each query, table hash and row
+conversion under ``torch.profiler``: the device time of its kernels, the
+device's idle share of the warm wall time, and the kernels that took
+most of it.
 
 It uses the first visible card only. It imports nothing of JAX nor of
 the JAX package. Without a CUDA device, or outside a checkout of the
@@ -64,8 +91,13 @@ import warnings
 import numpy as np
 import torch
 
+from spark_rapids_jni_tpu_torch import types as T
+from spark_rapids_jni_tpu_torch.columnar import Column, Table, bitmask
+from spark_rapids_jni_tpu_torch.columnar.strings import byte_matrix
 from spark_rapids_jni_tpu_torch.obs import kernel_stats, stats_since
 from spark_rapids_jni_tpu_torch.ops import cuda_kernels as K
+from spark_rapids_jni_tpu_torch.ops import hashing, hive_hash
+from spark_rapids_jni_tpu_torch.ops import row_conversion as rc
 from spark_rapids_jni_tpu_torch.tpcds import PLANS, QUERIES, generate
 from spark_rapids_jni_tpu_torch.tpcds.rel import rel_from_df, run_fused
 
@@ -73,7 +105,11 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate
 SCALAR_OPS_PER_S = 67e12     # H100 SXM rate outside the tensor cores
 PALLAS = "spark_rapids_jni_tpu/ops/pallas_kernels.py"
 SF, SEED, REPS = 1000, 7, 10  # the main path's scale, its seed, timing runs
-NAMES = ("hash_join_probe", "ragged_groupby_sum_count", "bitmask_pack")
+Q_NAMES = ("hash_join_probe", "ragged_groupby_sum_count", "bitmask_pack")
+HASH_NAMES = ("murmur3_int32", "murmur3_int64")
+ROW_NAMES = ("pack_rows",)
+NAMES = Q_NAMES + HASH_NAMES + ROW_NAMES
+HASH_ROWS, HASH_CPU_ROWS = 10_000_000, 1_000_000
 # the wrappers as the port defines them (the recording pass swaps the
 # module's names for recorders that call these)
 WRAPPERS = {name: getattr(K, name) for name in NAMES}
@@ -178,6 +214,31 @@ def k3_cost(valid):
         f"{n} bool -> {(n + 31) // 32} uint32 words"
 
 
+def k4_cost(blocks, seeds):
+    """Bytes: block and seed read, hash written (12 B a row); about 16
+    integer operations a row."""
+    n = int(blocks.numel())
+    return 12 * n, 16 * n, 0, f"{n} int32 blocks"
+
+
+def k5_cost(values, seeds):
+    """Bytes: value and seed read, hash written (16 B a row); about 24
+    integer operations a row."""
+    n = int(values.numel())
+    return 16 * n, 24 * n, 0, f"{n} int64 values"
+
+
+def k6_cost(columns, widths, validity):
+    """Bytes: every column value and validity word read once, the row
+    image written once; a few integer operations per output word."""
+    n = int(columns[0].numel())
+    size = K.pack_plan(tuple(widths))[0]
+    nullable = sum(v is not None for v in validity)
+    return (n * sum(widths) + nullable * 4 * ((n + 31) // 32) + n * size,
+            n * size, 0, f"{n} rows x {len(widths)} columns ({nullable} "
+            f"with validity) -> {size} B rows")
+
+
 def k2_library(slots, live, values, width):
     """One int64 ``index_add_`` of the live in-range values (the sums
     only: no single call also counts)."""
@@ -204,7 +265,27 @@ SPECS = {
         source="spark_rapids_jni_tpu_torch/csrc/bitmask_pack.cu",
         replaces=f"{PALLAS}:184", plain=K.bitmask_pack_plain,
         cost=k3_cost, library=None, plain_reps=REPS),
+    "murmur3_int32": dict(
+        source="spark_rapids_jni_tpu_torch/csrc/murmur3.cu",
+        replaces=f"{PALLAS}:81", plain=K.murmur3_int32_plain,
+        cost=k4_cost, library=None, plain_reps=REPS),
+    "murmur3_int64": dict(
+        source="spark_rapids_jni_tpu_torch/csrc/murmur3.cu",
+        replaces=f"{PALLAS}:144", plain=K.murmur3_int64_plain,
+        cost=k5_cost, library=None, plain_reps=REPS),
+    "pack_rows": dict(
+        source="spark_rapids_jni_tpu_torch/csrc/pack_rows.cu",
+        replaces=f"{PALLAS}:311", plain=K.pack_rows_plain,
+        cost=k6_cost, library=None, plain_reps=3),
 }
+
+
+def _launches(name: str, args: tuple) -> int:
+    """The ``__global__`` launches one wrapper call on ``args`` makes."""
+    if name == "hash_join_probe":
+        return 0 if not args[1].numel() else 2 if args[0].numel() else 1
+    first = args[0][0] if name == "pack_rows" else args[0]
+    return 1 if first.numel() else 0
 
 
 def _outputs(out) -> list:
@@ -291,10 +372,10 @@ def recording(calls: list, query: list):
             setattr(K, name, WRAPPERS[name])
 
 
-def main_path_kernels(calls: list, launches: dict, log) -> dict:
-    """Hold every recorded main-path call against its plain version;
-    sum each kernel's times and bounds over its calls."""
-    per_call: dict = {name: [] for name in NAMES}
+def path_kernels(calls: list, launches: dict, names: tuple, log) -> dict:
+    """Hold every recorded call of a path against its plain version; sum
+    each kernel's times and bounds over its calls."""
+    per_call: dict = {name: [] for name in names}
     for q, name, args in calls:
         r = measure(name, args) | {"query": q}
         per_call[name].append(r)
@@ -303,12 +384,11 @@ def main_path_kernels(calls: list, launches: dict, log) -> dict:
         log(f"  {q} {name} on {r['shape']}: kernel_ms={r['ms']:.4f} "
             f"plain_ms={r['plain_ms']:.4f}{lib} "
             f"bound_ms={r['bound_ms']:.4g} ({r['bound_by']})")
-    recorded = {name: sum(2 if name == "hash_join_probe"
-                          and args[0].numel() else 1
+    recorded = {name: sum(_launches(name, args)
                           for _, n, args in calls if n == name)
-                for name in NAMES}
-    _require(all(recorded[n] == launches.get(n, 0) for n in NAMES),
-             f"recorded launches {recorded} != main path's {launches}")
+                for name in names}
+    _require(all(recorded[n] == launches.get(n, 0) for n in names),
+             f"recorded launches {recorded} != the path's {launches}")
     totals = {}
     for name, rs in per_call.items():
         by = {"bytes": 0.0, "operations": 0.0}
@@ -362,39 +442,46 @@ def _count_syncs(fn):
     return out, sum("synchroniz" in str(w.message).lower() for w in caught)
 
 
-def profile_queries(rels, dev, per_query: dict, log) -> None:
-    """One warm run per query under ``torch.profiler``: the device time
-    of its CUDA kernels, its share of the unprofiled warm wall time, and
-    the kernels that took most of it."""
+def profile_run(fn, wall: float, label: str, log) -> dict:
+    """One warm run of ``fn`` under ``torch.profiler``: the device time of
+    its CUDA kernels, its share of ``wall`` (the unprofiled warm wall
+    time, ms), and the kernels that took most of it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us = e.time_range.elapsed_us()
+            n, t = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, t + us)
+    busy_ms = sum(t for _, t in by_name.values()) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    r = {"device_busy_ms": busy_ms if by_name else None,
+         "device_kernels": sum(n for n, _ in by_name.values()),
+         "top_kernels": [{"name": k[:90], "launches": n, "ms": t / 1e3}
+                         for k, (n, t) in top],
+         "device_idle_share": (None if not by_name
+                               else max(0.0, 1.0 - busy_ms / wall))}
+    idle = r["device_idle_share"]
+    log(f"{label}: profile device_busy_ms="
+        f"{'not measured' if not by_name else f'{busy_ms:.3f}'} "
+        f"kernels={r['device_kernels']} idle_share="
+        f"{'not measured' if idle is None else f'{idle:.3f}'} top="
+        + json.dumps([(t['name'][:48], t['launches'], round(t['ms'], 3))
+                      for t in r["top_kernels"]]))
+    return r
+
+
+def profile_queries(rels, dev, per_query: dict, log) -> None:
+    """``profile_run`` of one warm run per query."""
     for q in QUERIES:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            run_fused(PLANS[q], rels, device=dev)
-            torch.cuda.synchronize()
-        by_name: dict = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                us = e.time_range.elapsed_us()
-                n, t = by_name.get(e.name, (0, 0.0))
-                by_name[e.name] = (n + 1, t + us)
-        busy_ms = sum(t for _, t in by_name.values()) / 1e3
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
-        r = per_query[q]
-        r["device_busy_ms"] = busy_ms if by_name else None
-        r["device_kernels"] = sum(n for n, _ in by_name.values())
-        r["top_kernels"] = [{"name": k[:90], "launches": n, "ms": t / 1e3}
-                            for k, (n, t) in top]
-        idle = (None if not by_name
-                else max(0.0, 1.0 - busy_ms / r["warm_ms"]))
-        r["device_idle_share"] = idle
-        log(f"{q}: profile device_busy_ms="
-            f"{'not measured' if not by_name else f'{busy_ms:.3f}'} "
-            f"kernels={r['device_kernels']} idle_share="
-            f"{'not measured' if idle is None else f'{idle:.3f}'} top="
-            + json.dumps([(t['name'][:48], t['launches'], round(t['ms'], 3))
-                          for t in r["top_kernels"]]))
+        per_query[q] |= profile_run(
+            lambda q=q: run_fused(PLANS[q], rels, device=dev),
+            per_query[q]["warm_ms"], q, log)
 
 
 def run_main_path(dev, sf: float, seed: int, log,
@@ -473,11 +560,332 @@ def run_main_path(dev, sf: float, seed: int, log,
         f"(oracle_s={time.perf_counter() - t0:.3f})")
     _require(stats.get("rel.fused_fallbacks", 0) == 0,
              f"fused fallbacks: {stats}")
-    for name in NAMES:
+    for name in Q_NAMES:
         _require(launches.get(name, 0) > 0,
                  f"kernel {name} was not launched on the main path")
     return {"per_query": per_query, "launches": launches, "rows": rows,
-            "generate_s": gen_s, "ingest_s": ingest_s}, calls
+            "generate_s": gen_s, "ingest_s": ingest_s}, calls, rels
+
+
+# --------------------------------------------------------------------------
+# Hashing and row conversion through the port's entry points
+# --------------------------------------------------------------------------
+
+# +-0.0, +-inf, NaN 0x7ff8..., 0xfff8... and 0x7ff0...01, as int64 bits
+F64_SPECIALS = (0, -2**63, 0x7FF0000000000000, -0x10000000000000,
+                0x7FF8000000000000, -0x8000000000000, 0x7FF0000000000001)
+F32_SPECIALS = (0, -2**31, 0x7F800000, -0x800000, 0x7FC00000, -0x400000,
+                0x7F800001)  # +-0.0, +-inf, NaN 0x7fc00000, 0xffc00000, sNaN
+# 2-byte UTF-8 units of the STRING column (ASCII pairs and é ü ж ß)
+UTF8_UNITS = [b"ab", b"Zq", b"09", b"  ", "é".encode(), "ü".encode(),
+              "ж".encode(), "ß".encode()]
+
+
+def wall_ms(fn, reps: int = 3) -> float:
+    """Median host time of ``fn()`` ending in a synchronise, after one
+    warm-up run."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _valid_words(dev, gen, n: int, null_share: float):
+    if not null_share:
+        return None
+    return bitmask.pack(torch.rand(n, generator=gen, device=dev)
+                        >= null_share)
+
+
+def _with_specials(x: torch.Tensor, bits, every: int) -> torch.Tensor:
+    """``x`` with every ``every``-th row set to the IEEE patterns
+    ``bits`` in turn."""
+    ints = x.view(torch.int64 if x.dtype == torch.float64 else torch.int32)
+    at = torch.arange(0, x.numel(), every, device=x.device)
+    pats = torch.tensor(bits, dtype=ints.dtype, device=x.device)
+    ints[at] = pats[torch.arange(at.numel(), device=x.device) % len(bits)]
+    return x
+
+
+def string_column(dev, gen, n: int, null_share: float) -> Column:
+    """0-32 bytes of UTF-8 a row (2-byte units, odd lengths end in an
+    ASCII byte); a null row holds no bytes."""
+    valid = torch.rand(n, generator=gen, device=dev) >= null_share
+    lens = torch.where(valid, torch.randint(0, 33, (n,), generator=gen,
+                                            device=dev), 0)
+    offsets = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(lens, 0, out=offsets[1:])
+    chars = torch.empty(int(offsets[-1]), dtype=torch.uint8, device=dev)
+    units = lens // 2
+    row = torch.repeat_interleave(torch.arange(n, device=dev), units)
+    first = torch.cumsum(units, 0) - units
+    pos = offsets[row] + 2 * (torch.arange(row.numel(), device=dev)
+                              - first[row])
+    table = torch.tensor([list(u) for u in UTF8_UNITS], dtype=torch.uint8,
+                         device=dev)
+    pick = table[torch.randint(0, len(UTF8_UNITS), (row.numel(),),
+                               generator=gen, device=dev)]
+    chars[pos], chars[pos + 1] = pick[:, 0], pick[:, 1]
+    odd = torch.nonzero(lens % 2 == 1)[:, 0]
+    chars[offsets[odd + 1] - 1] = torch.randint(
+        0x61, 0x7B, (odd.numel(),), generator=gen, device=dev,
+        dtype=torch.uint8)
+    return Column(T.STRING, n, None, bitmask.pack(valid), children=(
+        Column(T.INT32, n + 1, offsets.to(torch.int32)),
+        Column(T.UINT8, int(chars.numel()), chars)))
+
+
+def _randint(dev, gen, n, lo, hi, dtype=torch.int64):
+    return torch.randint(lo, hi, (n,), generator=gen, device=dev,
+                         dtype=dtype)
+
+
+def hash_table(dev, gen, n: int) -> Table:
+    """The hashing step's table: int32, int64, float64, float32, bool,
+    date32, decimal64, decimal128, STRING; 10% nulls in every column."""
+    def col(dt, data):
+        return Column(dt, n, data, _valid_words(dev, gen, n, 0.1))
+    f64 = torch.randn(n, generator=gen, device=dev, dtype=torch.float64)
+    f32 = torch.randn(n, generator=gen, device=dev, dtype=torch.float32)
+    lo = _randint(dev, gen, n, -2**63, 2**63 - 1)
+    hi = torch.where(torch.rand(n, generator=gen, device=dev) < 0.5,
+                     lo >> 63, _randint(dev, gen, n, -2**40, 2**40))
+    return Table([
+        col(T.INT32, _randint(dev, gen, n, -2**31, 2**31, torch.int32)),
+        col(T.INT64, _randint(dev, gen, n, -2**63, 2**63 - 1)),
+        col(T.FLOAT64, _with_specials(f64 * 1e6, F64_SPECIALS, 97)),
+        col(T.FLOAT32, _with_specials(f32 * 1e3, F32_SPECIALS, 89)),
+        col(T.BOOL8, _randint(dev, gen, n, 0, 2, torch.int8)),
+        col(T.TIMESTAMP_DAYS, _randint(dev, gen, n, -30000, 30000,
+                                       torch.int32)),
+        col(T.decimal64(-2), _randint(dev, gen, n, -10**15, 10**15)),
+        col(T.decimal128(-2), torch.stack([lo, hi], dim=1)),
+        string_column(dev, gen, n, 0.1)])
+
+
+def head_on_cpu(col: Column, m: int) -> Column:
+    """The first ``m`` rows of a column, on the CPU."""
+    s = rc.slice_rows(col, 0, m)
+    return Column(s.dtype, m, None if s.data is None else s.data.cpu(),
+                  None if s.validity is None else s.validity.cpu(),
+                  children=tuple(head_on_cpu(c, c.size)
+                                 for c in s.children))
+
+
+HIVE_COLUMNS = (0, 1, 2, 3, 4, 5, 8)  # HiveHash has no decimal route
+
+
+def run_hashing(dev, gen, rels: dict, log, profile: bool = False):
+    """Step 6: the table hashes, their K4/K5 launches and checks."""
+    t0 = time.perf_counter()
+    table = hash_table(dev, gen, HASH_ROWS)
+    hive_t = Table([table.columns[i] for i in HIVE_COLUMNS])
+    ss = rels["store_sales"]
+    ss_t = Table([ss.col("ss_item_sk"), ss.col("ss_customer_sk")])
+    torch.cuda.synchronize()
+    log(f"hashing: {HASH_ROWS} rows generated on the card in "
+        f"{time.perf_counter() - t0:.3f} s; store_sales {ss_t.num_rows} "
+        "rows")
+    fns = {"murmur3_table": lambda: hashing.murmur3_table(table),
+           "xxhash64_table": lambda: hashing.xxhash64_table(table),
+           "hive_hash_table": lambda: hive_hash.hive_hash_table(hive_t),
+           "murmur3_table(store_sales keys)":
+               lambda: hashing.murmur3_table(ss_t)}
+    calls, query = [], ["hashing"]
+    K.reset_launch_counts()
+    with recording(calls, query):
+        out = {name: fn() for name, fn in fns.items()}
+        torch.cuda.synchronize()
+    launches = {n: K.LAUNCHES[n] for n in HASH_NAMES}
+    log(f"hashing launches: {json.dumps(launches)}")
+    _require(launches == {"murmur3_int32": 4, "murmur3_int64": 3 + 2},
+             f"hashing launched {launches}, want K4 4 and K5 3 + 2")
+    rates = {}
+    for name, fn in fns.items():
+        ms = wall_ms(fn)
+        rows = ss_t.num_rows if "store_sales" in name else HASH_ROWS
+        rates[name] = {"ms": ms, "rows_per_s": rows / ms * 1e3}
+        log(f"hashing {name}: {rows} rows in {ms:.3f} ms = "
+            f"{rows / ms * 1e3:.4g} rows/s")
+        if profile:
+            rates[name] |= profile_run(fn, ms, f"hashing {name}", log)
+
+    # the first rows, with the tables on the CPU
+    m = HASH_CPU_ROWS
+    cpu_t = Table([head_on_cpu(c, m) for c in table.columns])
+    cpu_hive = Table([cpu_t.columns[i] for i in HIVE_COLUMNS])
+    cpu_ss = Table([head_on_cpu(c, m) for c in ss_t.columns])
+    want = {"murmur3_table": hashing.murmur3_table(cpu_t),
+            "xxhash64_table": hashing.xxhash64_table(cpu_t),
+            "hive_hash_table": hive_hash.hive_hash_table(cpu_hive),
+            "murmur3_table(store_sales keys)":
+                hashing.murmur3_table(cpu_ss)}
+    for name, w in want.items():
+        _require(torch.equal(out[name][:m].cpu(), w),
+                 f"{name}: the card's first {m} rows differ from the CPU's")
+    log(f"hashing: the first {m} rows of every hash equal the CPU's")
+
+    # every NaN hashes like the canonical NaN
+    for ci in (2, 3):
+        col = table.columns[ci]
+        nan = torch.isnan(col.data) & col.valid_bool()
+        canon = torch.full((1,), float("nan"), dtype=col.data.dtype,
+                           device=dev)
+        one = Column(col.dtype, 1, canon)
+        for fn in (hashing.murmur3_column, hashing.xxhash64_column,
+                   hive_hash.hive_hash_column):
+            h = fn(col)
+            _require(bool(nan.any()) and bool((h[nan] == fn(one)[0]).all()),
+                     f"{fn.__name__}: a NaN of {col.dtype!r} hashes unlike "
+                     "the canonical NaN")
+        log(f"hashing: {int(nan.sum())} valid NaN rows of {col.dtype!r} "
+            "hash like the canonical NaN (murmur3, xxhash64, hive)")
+    return {"rates": rates, "launches": launches}, calls
+
+
+# (label, rows, null share per column, STRING columns); the third splits
+# into two batches below 2 GB: 10,737,408 and 1,262,592 rows of 200 B
+ROW_CASES = [("1M rows, all valid", 1_000_000, 0.0, 0),
+             ("1M rows, 1% nulls", 1_000_000, 0.01, 0),
+             ("12M rows, 1% nulls", 12_000_000, 0.01, 0),
+             ("1M rows + 2 STRING columns", 1_000_000, 0.01, 2)]
+ROW_SCHEMA = [T.INT64, T.FLOAT64, T.INT32, T.BOOL8, T.FLOAT32, T.INT8,
+              T.decimal32(-3), T.decimal64(-8)] * 4  # TestTables.java
+
+
+def rows_table(dev, gen, n: int, null_share: float, strings: int) -> Table:
+    """The 32-column TestTables schema (plus ``strings`` STRING
+    columns); the floats carry NaN payloads, +-0.0 and +-inf."""
+    def data(dt):
+        if dt.id == T.TypeId.FLOAT64:
+            return _with_specials(torch.randn(
+                n, generator=gen, device=dev, dtype=torch.float64),
+                F64_SPECIALS, 101)
+        if dt.id == T.TypeId.FLOAT32:
+            return _with_specials(torch.randn(
+                n, generator=gen, device=dev, dtype=torch.float32),
+                F32_SPECIALS, 103)
+        if dt.id == T.TypeId.BOOL8:
+            return _randint(dev, gen, n, 0, 2, torch.int8)
+        info = torch.iinfo(dt.to_torch())
+        return _randint(dev, gen, n, info.min, info.max, dt.to_torch())
+    cols = [Column(dt, n, data(dt), _valid_words(dev, gen, n, null_share))
+            for dt in ROW_SCHEMA]
+    cols += [string_column(dev, gen, n, 0.1) for _ in range(strings)]
+    return Table(cols)
+
+
+def _same_columns(got: Table, want: Table) -> bool:
+    """Every validity bit and every valid value (bytes) equal."""
+    for a, b in zip(got.columns, want.columns):
+        ok = b.valid_bool()
+        if not torch.equal(a.valid_bool(), ok):
+            return False
+        if b.dtype.id == T.TypeId.STRING:
+            (ma, la), (mb, lb) = byte_matrix(a, 32), byte_matrix(b, 32)
+            if not (torch.equal(la[ok], lb[ok])
+                    and torch.equal(ma[ok], mb[ok])):
+                return False
+        elif not torch.equal(K.as_bytes(a.data)[ok], K.as_bytes(b.data)[ok]):
+            return False
+    return True
+
+
+def run_row_conversion(dev, gen, log, profile: bool = False):
+    """Step 7: convert_to_rows / convert_from_rows, K6's launches and
+    the round trip."""
+    cases = ROW_CASES
+    tables = [rows_table(dev, gen, n, nulls, s) for _, n, nulls, s in cases]
+    torch.cuda.synchronize()
+    calls, query = [], ["rows"]
+    before = kernel_stats()
+    K.reset_launch_counts()
+    with recording(calls, query):
+        rows = [rc.convert_to_rows(t) for t in tables]
+        torch.cuda.synchronize()
+    launches = {n: K.LAUNCHES[n] for n in ROW_NAMES}
+    routes = {k: v for k, v in stats_since(before).items()
+              if k.startswith("row_conversion.route.")}
+    log(f"row conversion launches: {json.dumps(launches)} routes: "
+        f"{json.dumps(routes, sort_keys=True)}")
+    want = sum(len(b) for b, case in zip(rows, cases) if not case[3])
+    _require(launches["pack_rows"] == want,
+             f"K6 launched {launches['pack_rows']} times, want {want}: one "
+             "per batch of each fixed-width table")
+    _require(routes == {"row_conversion.route.pack_rows": 3,
+                        "row_conversion.route.torch": 1},
+             f"row-conversion routes {routes}")
+    step = rc.max_rows_per_batch(200)
+    n_big = cases[2][1]
+    _require([b.size for b in rows[2]] == [step, n_big - step],
+             f"{n_big} rows split as {[b.size for b in rows[2]]}, want "
+             f"{[step, n_big - step]}")
+    results = []
+    for (label, n, _, _), t, batches in zip(cases, tables, rows):
+        schema = t.schema()
+        start = 0
+        for b in batches:
+            back = rc.convert_from_rows(b, schema)
+            part = Table([rc.slice_rows(c, start, start + b.size)
+                          for c in t.columns])
+            _require(_same_columns(back, part),
+                     f"{label}: the round trip lost a value or a bit")
+            start += b.size
+        del back, part
+        nbytes = sum(int(b.child.size) for b in batches)
+        to_ms = wall_ms(lambda: rc.convert_to_rows(t))
+        from_ms = wall_ms(lambda: [rc.convert_from_rows(b, schema)
+                                   for b in batches])
+        r = {"case": label, "rows": n, "batches": [b.size for b in batches],
+             "row_bytes": nbytes, "to_rows_ms": to_ms,
+             "from_rows_ms": from_ms,
+             "to_rows_gb_s": nbytes / to_ms / 1e6,
+             "from_rows_gb_s": nbytes / from_ms / 1e6}
+        results.append(r)
+        log(f"rows {label}: round trip exact; {nbytes} row bytes in "
+            f"{len(batches)} batch(es); to_rows {to_ms:.3f} ms "
+            f"({r['to_rows_gb_s']:.1f} GB/s), from_rows {from_ms:.3f} ms "
+            f"({r['from_rows_gb_s']:.1f} GB/s)")
+        if profile:
+            r["to_rows_profile"] = profile_run(
+                lambda: rc.convert_to_rows(t), to_ms, f"to_rows {label}", log)
+            r["from_rows_profile"] = profile_run(
+                lambda: [rc.convert_from_rows(b, schema) for b in batches],
+                from_ms, f"from_rows {label}", log)
+    del rows, tables
+    return {"cases": results, "launches": launches, "routes": routes}, calls
+
+
+def kernel_entries(totals: dict, launches: dict, names: tuple, path: str,
+                   card: str, stress: list, log) -> list:
+    """The ``kernels`` line's entries of one path's kernels."""
+    out = []
+    for name in names:
+        t, spec = totals[name], SPECS[name]
+        lib = ("none (no single PyTorch call computes it)"
+               if t["library_ms"] is None
+               else f"{t['library_ms']:.4f} (int64 index_add_, sums only)")
+        log(f"kernel {name}: {path} calls={t['calls']} "
+            f"launches={launches[name]} kernel_ms={t['ms']:.4f} "
+            f"plain_ms={t['plain_ms']:.4f} bound_ms={t['bound_ms']:.4g} "
+            f"({t['bound_by']}) library_ms={lib} [{card}]")
+        out.append({
+            "name": name, "route": "cuda", "source": spec["source"],
+            "replaces": spec["replaces"], "launches": launches[name],
+            "calls": t["calls"], "path": path,
+            "max_abs_err": max([t["max_abs_err"]] + [
+                r["max_abs_err"] for r in stress if r["name"] == name]),
+            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")},
+            "stress": [{k: r[k] for k in (
+                "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")} for r in stress if r["name"] == name]})
+    return out
 
 
 def main(argv=None) -> int:
@@ -485,7 +893,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None,
                     help="directory for the build log and a JSON report")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one warm run of each query")
+                    help="also profile one warm run of each query, table "
+                    "hash and row conversion")
     args = ap.parse_args(argv)
     # one card: the device count printed at the end is the one used
     os.environ["CUDA_VISIBLE_DEVICES"] = \
@@ -524,41 +933,46 @@ def main(argv=None) -> int:
             f"kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f}{lib} "
             f"bound_ms={r['bound_ms']:.4g} ({r['bound_by']}) [{card}]")
 
-    main_path, calls = run_main_path(dev, SF, SEED, log,
-                                     profile=args.profile)
+    main_path, calls, rels = run_main_path(dev, SF, SEED, log,
+                                           profile=args.profile)
     log("main-path kernel calls, each equal to its plain version on the "
         "inputs q1-q10 gave it:")
-    totals = main_path_kernels(calls, main_path["launches"], log)
+    totals = path_kernels(calls, main_path["launches"], Q_NAMES, log)
     del calls
-    kernels = []
-    for name in NAMES:
-        t, spec = totals[name], SPECS[name]
-        launches = main_path["launches"][name]
-        lib = ("none (no single PyTorch call computes it)"
-               if t["library_ms"] is None
-               else f"{t['library_ms']:.4f} (int64 index_add_, sums only)")
-        log(f"kernel {name}: q1-q10 calls={t['calls']} launches={launches} "
-            f"kernel_ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} "
-            f"bound_ms={t['bound_ms']:.4g} ({t['bound_by']}) "
-            f"library_ms={lib} [{card}]")
-        kernels.append({
-            "name": name, "route": "cuda", "source": spec["source"],
-            "replaces": spec["replaces"], "launches": launches,
-            "calls": t["calls"],
-            "max_abs_err": max([t["max_abs_err"]] + [
-                r["max_abs_err"] for r in stress if r["name"] == name]),
-            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                 "library_ms")},
-            "stress": [{k: r[k] for k in (
-                "shape", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")} for r in stress if r["name"] == name]})
+
+    t0 = time.perf_counter()
+    hashed, calls = run_hashing(dev, gen, rels, log, args.profile)
+    del rels
+    log("hashing kernel calls, each equal to its plain version:")
+    totals |= path_kernels(calls, hashed["launches"], HASH_NAMES, log)
+    del calls
+    hashed["step_s"] = time.perf_counter() - t0
+    log(f"hashing step: {hashed['step_s']:.3f} s")
+
+    t0 = time.perf_counter()
+    rows, calls = run_row_conversion(dev, gen, log, args.profile)
+    log("row-conversion kernel calls, each equal to its plain version:")
+    totals |= path_kernels(calls, rows["launches"], ROW_NAMES, log)
+    del calls
+    rows["step_s"] = time.perf_counter() - t0
+    log(f"row-conversion step: {rows['step_s']:.3f} s")
+
+    kernels = (
+        kernel_entries(totals, main_path["launches"], Q_NAMES, "q1-q10",
+                       card, stress, log)
+        + kernel_entries(totals, hashed["launches"], HASH_NAMES, "hashing",
+                         card, stress, log)
+        + kernel_entries(totals, rows["launches"], ROW_NAMES,
+                         "row conversion", card, stress, log))
     if args.out:
         with open(os.path.join(args.out, "chip_smoke_report.json"),
                   "w") as f:
             json.dump({"card": card, "sms": Card.sms, "sm_hz": Card.sm_hz,
                        "build_s": build_s, "stress": stress,
-                       "main_path_kernels": totals, "main_path": main_path,
-                       "sf": SF, "seed": SEED}, f, indent=1, sort_keys=True)
+                       "path_kernels": totals, "main_path": main_path,
+                       "hashing": hashed, "row_conversion": rows,
+                       "sf": SF, "seed": SEED}, f, indent=1, sort_keys=True,
+                      default=str)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

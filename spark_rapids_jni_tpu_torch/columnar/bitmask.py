@@ -4,6 +4,8 @@ cudf's layout (bit r % 32 of word r / 32). ``pack`` goes through K3
 (``ops/cuda_kernels.bitmask_pack``): a warp-ballot kernel on CUDA
 tensors, its plain reshape-and-weighted-sum version on CPU tensors.
 torch has no uint32 shifts, so ``unpack`` widens the words to int64.
+``pack_bytes``/``unpack_bytes`` are the row format's per-row validity
+bytes: bit ``c % 8`` of byte ``c / 8`` is column ``c``.
 """
 
 from __future__ import annotations
@@ -31,6 +33,29 @@ def unpack(words: torch.Tensor, n_rows: int) -> torch.Tensor:
                          device=words.device)
     bits = (w64[:, None] >> lanes[None, :]) & 1
     return bits.reshape(-1)[:n_rows].to(torch.bool)
+
+
+def pack_bytes(valid: torch.Tensor, n_fields: int) -> torch.Tensor:
+    """bool (N, n_fields) -> uint8 (N, ceil(n_fields / 8)), 8 fields a
+    byte, LSB-first, padding bits 0."""
+    n = valid.shape[0]
+    nbytes = (n_fields + 7) // 8
+    bits = torch.zeros((n, nbytes * 8), dtype=torch.int32,
+                       device=valid.device)
+    bits[:, :n_fields] = valid.to(torch.int32)
+    weights = torch.ones(8, dtype=torch.int32, device=valid.device) \
+        << torch.arange(8, dtype=torch.int32, device=valid.device)
+    return (bits.reshape(n, nbytes, 8) * weights).sum(dim=2) \
+        .to(torch.uint8)
+
+
+def unpack_bytes(vbytes: torch.Tensor, n_fields: int) -> torch.Tensor:
+    """Inverse of :func:`pack_bytes`: uint8 (N, nbytes) -> bool
+    (N, n_fields)."""
+    n, nbytes = vbytes.shape
+    lanes = torch.arange(8, dtype=torch.int32, device=vbytes.device)
+    bits = (vbytes.to(torch.int32)[:, :, None] >> lanes) & 1
+    return bits.reshape(n, nbytes * 8)[:, :n_fields].to(torch.bool)
 
 
 def pack_host(valid: np.ndarray) -> np.ndarray:

@@ -1,7 +1,11 @@
-"""Device-resident columns: a data tensor, optional packed validity.
+"""Device-resident columns: a data tensor, optional packed validity,
+optional children.
 
-Mirrors ``spark_rapids_jni_tpu/columnar/column.py`` for the fixed-width
-single-lane types this slice carries. ``value_range``/``unique`` are the
+Mirrors ``spark_rapids_jni_tpu/columnar/column.py``: fixed-width columns
+hold ``data`` ((N, 2) int64 [lo, hi] for DECIMAL128); STRING and LIST
+columns hold no data and two children, int32 offsets (N + 1) and a byte
+child (uint8 chars for STRING, int8 bytes for LIST), like cudf's
+strings and lists columns. ``value_range``/``unique`` are the
 host-side ingest stats (Parquet-chunk-style min/max and a primary-key
 signal) that the dense planner trusts once verified; ``_stats_flags``
 memoizes that verification as (range_ok, unique_ok).
@@ -9,13 +13,14 @@ memoizes that verification as (range_ok, unique_ok).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from ..types import DType, TypeId, SIZE_TYPE_MAX
+from ..types import (DType, TypeId, SIZE_TYPE, SIZE_TYPE_MAX, INT8, INT32,
+                     LIST, STRING, UINT8, decimal128)
 from ..utils.errors import expects
 from . import bitmask
 
@@ -61,8 +66,9 @@ def np_to_dtype(np_dtype) -> DType:
 
 @dataclass
 class Column:
-    """A device column: ``data`` (N,) in the storage dtype and optional
-    ``validity`` (packed uint32 words; None = all valid)."""
+    """A device column: ``data`` (N,) in the storage dtype (None for
+    STRING and LIST), optional ``validity`` (packed uint32 words; None =
+    all valid) and ``children`` (offsets, bytes) for STRING and LIST."""
 
     dtype: DType
     size: int
@@ -70,13 +76,20 @@ class Column:
     validity: Optional[torch.Tensor] = None
     value_range: Optional[Tuple[int, int]] = None
     unique: Optional[bool] = None
+    children: Tuple["Column", ...] = field(default_factory=tuple)
 
     @staticmethod
     def from_numpy(values: np.ndarray, valid: Optional[np.ndarray] = None,
-                   *, device: torch.device) -> "Column":
-        """Host -> device, with the exact host ingest stats."""
+                   dtype: Optional[DType] = None, *,
+                   device: torch.device) -> "Column":
+        """Host -> device, with the exact host ingest stats. ``dtype``
+        names the logical type (BOOL8, a date, a decimal with its scale)
+        where the numpy dtype does not."""
         values = np.asarray(values)
-        dt = np_to_dtype(values.dtype)
+        dt = dtype if dtype is not None else np_to_dtype(values.dtype)
+        expects(dt.is_fixed_width and dt.storage_lanes == 1,
+                f"from_numpy builds single-lane fixed-width columns, not "
+                f"{dt!r} (DECIMAL128: decimal128_from_ints)")
         expects(values.ndim == 1, "columns are 1-D")
         expects(values.nbytes <= SIZE_TYPE_MAX,
                 "single column buffer must stay below 2GB")
@@ -85,19 +98,95 @@ class Column:
         if not host.flags.writeable:  # torch tensors need writable memory
             host = host.copy()
         data = torch.from_numpy(host).to(device)
-        vwords = None
         if valid is not None:
             valid = np.asarray(valid, dtype=bool)
             expects(valid.shape == values.shape, "validity shape mismatch")
-            if not valid.all():
-                vwords = torch.from_numpy(bitmask.pack_host(valid)).to(device)
         vrange, uniq = host_ingest_stats(values, valid)
-        return Column(dt, int(values.shape[0]), data, vwords,
+        return Column(dt, int(values.shape[0]), data,
+                      pack_validity(valid, device),
                       value_range=vrange, unique=uniq)
+
+    @staticmethod
+    def decimal128_from_ints(values: Sequence[Optional[int]], scale: int = 0,
+                             *, device: torch.device) -> "Column":
+        """DECIMAL128 from unscaled Python ints (``v * 10**scale``); None
+        is null. Storage is (N, 2) int64 [lo, hi] two's-complement words."""
+        n = len(values)
+        data = np.zeros((n, 2), np.uint64)
+        valid = np.ones(n, bool)
+        for i, v in enumerate(values):
+            if v is None:
+                valid[i] = False
+                continue
+            expects(-(1 << 127) <= v < (1 << 127),
+                    "decimal128 unscaled value out of 128-bit range")
+            u = v & ((1 << 128) - 1)
+            data[i, 0] = u & 0xFFFFFFFFFFFFFFFF
+            data[i, 1] = u >> 64
+        return Column(decimal128(scale), n,
+                      torch.from_numpy(data.view(np.int64)).to(device),
+                      pack_validity(valid, device))
+
+    @staticmethod
+    def strings_from_list(strings: Sequence[Optional[Union[bytes, str]]],
+                          *, device: torch.device) -> "Column":
+        """STRING from host values (str as UTF-8, or bytes); None is
+        null and holds no bytes."""
+        bufs = [b"" if s is None else
+                s.encode("utf-8") if isinstance(s, str) else bytes(s)
+                for s in strings]
+        valid = np.array([s is not None for s in strings], bool)
+        offsets = np.zeros(len(bufs) + 1, dtype=SIZE_TYPE)
+        np.cumsum([len(b) for b in bufs], out=offsets[1:])
+        chars = np.frombuffer(b"".join(bufs), dtype=np.uint8)
+        return Column.strings_from_arrays(offsets, chars, valid,
+                                          device=device)
+
+    @staticmethod
+    def strings_from_arrays(offsets: np.ndarray, chars: np.ndarray,
+                            valid: Optional[np.ndarray] = None, *,
+                            device: torch.device) -> "Column":
+        """STRING from host int32 offsets (N + 1), uint8 chars and an
+        optional bool validity."""
+        offsets = np.asarray(offsets)
+        expects(offsets.ndim == 1 and offsets.shape[0] >= 1,
+                "offsets need N + 1 entries")
+        expects(int(offsets[-1]) <= SIZE_TYPE_MAX,
+                "chars buffer must stay below 2GB")
+        n = int(offsets.shape[0]) - 1
+        off = torch.from_numpy(offsets.astype(SIZE_TYPE)).to(device)
+        chr_ = torch.from_numpy(np.array(chars, dtype=np.uint8)).to(device)
+        return Column(STRING, n, None, pack_validity(valid, device),
+                      children=(Column(INT32, n + 1, off),
+                                Column(UINT8, int(chr_.shape[0]), chr_)))
+
+    @staticmethod
+    def list_of_int8(child_bytes: torch.Tensor,
+                     offsets: torch.Tensor) -> "Column":
+        """``list<int8>``, the row-batch type of ``convert_to_rows``, on
+        the device of its tensors."""
+        child = Column(INT8, int(child_bytes.shape[0]),
+                       child_bytes.view(torch.int8))
+        off = Column(INT32, int(offsets.shape[0]), offsets.to(torch.int32))
+        return Column(LIST, int(offsets.shape[0]) - 1, None,
+                      children=(off, child))
+
+    @property
+    def offsets(self) -> "Column":
+        expects(self.dtype.id in (TypeId.LIST, TypeId.STRING),
+                "no offsets child")
+        return self.children[0]
+
+    @property
+    def child(self) -> "Column":
+        expects(self.dtype.id in (TypeId.LIST, TypeId.STRING),
+                "no element child")
+        return self.children[1]
 
     @property
     def device(self) -> torch.device:
-        return self.data.device
+        return (self.data if self.data is not None
+                else self.children[0].data).device
 
     def valid_bool(self) -> torch.Tensor:
         """Validity as a dense bool vector (all-True if no mask)."""
@@ -106,16 +195,52 @@ class Column:
         return bitmask.unpack(self.validity, self.size)
 
     def to_numpy(self) -> "tuple[np.ndarray, np.ndarray]":
-        """Device -> host: (values, valid_bool). Null slots hold junk."""
+        """Device -> host: (values, valid_bool). Null slots hold junk;
+        DECIMAL128 values are (N, 2) int64 [lo, hi]."""
+        expects(self.data is not None,
+                f"to_numpy reads fixed-width columns, not {self.dtype!r}")
         values = self.data.cpu().numpy()
         valid = (np.ones(self.size, np.bool_) if self.validity is None
                  else self.valid_bool().cpu().numpy())
         return values, valid
 
     def to_pylist(self) -> list:
+        """Host values, None for nulls: str for STRING, bytes for LIST,
+        ``decimal.Decimal`` for DECIMAL128."""
+        valid = self.valid_bool().cpu().numpy()
+        if self.dtype.id in (TypeId.STRING, TypeId.LIST):
+            offs = self.offsets.data.cpu().numpy()
+            raw = self.child.data.cpu().numpy().tobytes()
+            items = [raw[offs[i]:offs[i + 1]] for i in range(self.size)]
+            if self.dtype.id == TypeId.STRING:
+                items = [b.decode("utf-8") for b in items]
+            return [v if ok else None for v, ok in zip(items, valid)]
+        if self.dtype.id == TypeId.DECIMAL128:
+            import decimal
+            ctx = decimal.Context(prec=45)  # 38 digits must not round
+            words = self.data.cpu().numpy().view(np.uint64)
+            out = []
+            for (lo, hi), ok in zip(words, valid):
+                u = (int(hi) << 64) | int(lo)
+                u = u - (1 << 128) if u >= (1 << 127) else u
+                out.append(decimal.Decimal(u).scaleb(self.dtype.scale, ctx)
+                           if ok else None)
+            return out
         values, valid = self.to_numpy()
         return [v.item() if ok else None for v, ok in zip(values, valid)]
 
     def __repr__(self) -> str:
         return (f"Column({self.dtype!r}, size={self.size}, "
                 f"nulls={self.validity is not None})")
+
+
+def pack_validity(valid: Optional[np.ndarray], device: torch.device
+           ) -> Optional[torch.Tensor]:
+    """Packed validity words of a host bool mask on ``device``; None when
+    there is no mask or every row is valid."""
+    if valid is None:
+        return None
+    valid = np.asarray(valid, dtype=bool)
+    if valid.all():
+        return None
+    return torch.from_numpy(bitmask.pack_host(valid)).to(device)

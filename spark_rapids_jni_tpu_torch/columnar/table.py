@@ -31,6 +31,10 @@ class Table:
     def column(self, i: int) -> Column:
         return self.columns[i]
 
+    def schema(self) -> list:
+        """The columns' ``DType``s, in order."""
+        return [c.dtype for c in self.columns]
+
     def __iter__(self):
         return iter(self.columns)
 

@@ -1,15 +1,20 @@
-"""Hand-written Hopper kernels K1-K3, their wrappers and plain versions.
+"""Hand-written Hopper kernels K1-K6, their wrappers and plain versions.
 
-The reference's Pallas kernels on the fused q1-q10 path
-(``spark_rapids_jni_tpu/ops/pallas_kernels.py``) become CUDA C++ under
-``csrc/``:
+The reference's Pallas kernels (``spark_rapids_jni_tpu/ops/
+pallas_kernels.py``) become CUDA C++ under ``csrc/``:
 
 - K1 ``hash_join_probe`` (``csrc/hash_join_probe.cu``) replaces
   ``_hash_join_probe`` / ``hash_join_probe_pallas``;
 - K2 ``ragged_groupby_sum_count`` (``csrc/ragged_groupby.cu``) replaces
   ``_ragged_groupby`` / ``ragged_groupby_sum_count_pallas``;
 - K3 ``bitmask_pack`` (``csrc/bitmask_pack.cu``) replaces
-  ``bitmask_pack_pallas``.
+  ``bitmask_pack_pallas``;
+- K4 ``murmur3_int32`` and K5 ``murmur3_int64`` (``csrc/murmur3.cu``)
+  replace ``murmur3_int32_pallas`` and ``murmur3_int64_pallas``
+  (``murmur3_int64_table`` chains K5 over columns as
+  ``murmur3_int64_table_pallas`` does);
+- K6 ``pack_rows`` (``csrc/pack_rows.cu``) replaces
+  ``_pack_rows_compiled`` / ``pack_rows_pallas``, with real validity.
 
 The sources compile with ``nvcc`` for ``sm_90a`` into one shared library
 with a plain C interface, at first use, into ``target/torch_kernels/``
@@ -21,8 +26,9 @@ Each wrapper takes its plain PyTorch version for CPU tensors only. For a
 CUDA tensor it launches the kernel on the current stream or raises:
 there is no fallback. ``LAUNCHES`` counts the ``__global__`` launches
 per kernel name, bumped only where a wrapper launches: K1 launches its
-build and then its probe (one launch when the build side is empty), K2
-and K3 one each.
+build and then its probe (one launch when the build side is empty), the
+others one each. A call with no rows launches nothing (a zero-block grid
+is a launch error).
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import collections
 import ctypes
 import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -44,7 +51,8 @@ from ..utils.errors import CudfLikeError, expects
 from .join import hash_table_capacity
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("hash_join_probe.cu", "ragged_groupby.cu", "bitmask_pack.cu")
+SOURCES = ("hash_join_probe.cu", "ragged_groupby.cu", "bitmask_pack.cu",
+           "murmur3.cu", "pack_rows.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "target" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -53,8 +61,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # same width cap as the reference's PALLAS_GROUPBY_MAX_WIDTH.
 RAGGED_MAX_WIDTH = 1 << 13
 
+# K6's plan travels by value in the kernel's parameters, sized for at
+# most this many columns (csrc/pack_rows.cu kMaxCols)
+PACK_MAX_COLS = 64
+
 # __global__ launches per kernel name (K1 "hash_join_probe", K2
-# "ragged_groupby_sum_count", K3 "bitmask_pack")
+# "ragged_groupby_sum_count", K3 "bitmask_pack", K4 "murmur3_int32", K5
+# "murmur3_int64", K6 "pack_rows")
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
 
 
@@ -123,8 +136,14 @@ def kernels() -> ctypes.CDLL:
     lib.srt_ragged_groupby_sum_count.argtypes = [
         vp, vp, vp, ll, i, vp, vp, vp]
     lib.srt_bitmask_pack.argtypes = [vp, ll, vp, ll, vp]
+    lib.srt_murmur3_int32.argtypes = [vp, vp, vp, ll, vp]
+    lib.srt_murmur3_int64.argtypes = [vp, vp, vp, ll, vp]
+    pll, pi = ctypes.POINTER(ll), ctypes.POINTER(i)
+    lib.srt_pack_rows.argtypes = [pll, pll, pi, i, pi, pi, i, i, i, ll, vp,
+                                  vp]
     for fn in (lib.srt_hash_join_probe, lib.srt_ragged_groupby_sum_count,
-               lib.srt_bitmask_pack):
+               lib.srt_bitmask_pack, lib.srt_murmur3_int32,
+               lib.srt_murmur3_int64, lib.srt_pack_rows):
         fn.restype = ctypes.c_int
     return lib
 
@@ -176,6 +195,15 @@ def _mul_u32(x: torch.Tensor, c: int) -> torch.Tensor:
     return (lo + hi) & _U32
 
 
+def fmix32(k: torch.Tensor) -> torch.Tensor:
+    """Murmur3's 32-bit finalizer on int64 lanes holding uint32 values."""
+    k = k ^ (k >> 16)
+    k = _mul_u32(k, 0x85EBCA6B)
+    k = k ^ (k >> 13)
+    k = _mul_u32(k, 0xC2B2AE35)
+    return k ^ (k >> 16)
+
+
 def probe_hash(keys: torch.Tensor) -> torch.Tensor:
     """The reference's ``_probe_hash`` (murmur3 fmix32 of
     lo ^ hi * 0x85EBCA6B over the key's uint32 lanes), in int64 lanes
@@ -183,12 +211,7 @@ def probe_hash(keys: torch.Tensor) -> torch.Tensor:
     k64 = keys.to(torch.int64)
     lo = k64 & _U32
     hi = (k64 >> 32) & _U32  # arithmetic shift, masked = logical shift
-    k = lo ^ _mul_u32(hi, 0x85EBCA6B)
-    k = k ^ (k >> 16)
-    k = _mul_u32(k, 0x85EBCA6B)
-    k = k ^ (k >> 13)
-    k = _mul_u32(k, 0xC2B2AE35)
-    return k ^ (k >> 16)
+    return fmix32(lo ^ _mul_u32(hi, 0x85EBCA6B))
 
 
 def hash_join_probe_plain(build_keys: torch.Tensor, probe_keys: torch.Tensor,
@@ -368,3 +391,199 @@ def bitmask_pack(valid: torch.Tensor) -> torch.Tensor:
     _check(rc, "bitmask_pack")
     LAUNCHES["bitmask_pack"] += 1
     return words
+
+
+# --------------------------------------------------------------------------
+# K4, K5: Spark murmur3 of one 4-byte block / one 8-byte value per row
+# --------------------------------------------------------------------------
+
+def rotl32(x: torch.Tensor, r: int) -> torch.Tensor:
+    """Rotate left on int64 lanes holding uint32 values."""
+    return ((x << r) | (x >> (32 - r))) & _U32
+
+
+def murmur3_mix(h: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """One murmur3 block round (Spark ``mixK1`` then ``mixH1``) on int64
+    lanes holding uint32 values."""
+    k = _mul_u32(rotl32(_mul_u32(k, 0xCC9E2D51), 15), 0x1B873593)
+    h = rotl32(h ^ k, 13)
+    return (_mul_u32(h, 5) + 0xE6546B64) & _U32
+
+
+def as_int32(x: torch.Tensor) -> torch.Tensor:
+    """int64 lanes holding uint32 values -> int32 with the same bits."""
+    return ((x & _U32) ^ 0x80000000).sub_(0x80000000).to(torch.int32)
+
+
+def murmur3_int32_plain(blocks: torch.Tensor, seeds: torch.Tensor
+                        ) -> torch.Tensor:
+    """Plain PyTorch K4 in int64 lanes."""
+    h = murmur3_mix(seeds.to(torch.int64) & _U32,
+                    blocks.to(torch.int64) & _U32)
+    return as_int32(fmix32(h ^ 4))
+
+
+def murmur3_int64_plain(values: torch.Tensor, seeds: torch.Tensor
+                        ) -> torch.Tensor:
+    """Plain PyTorch K5 in int64 lanes: the low word, then the high."""
+    v = values.to(torch.int64)
+    h = murmur3_mix(seeds.to(torch.int64) & _U32, v & _U32)
+    h = murmur3_mix(h, (v >> 32) & _U32)
+    return as_int32(fmix32(h ^ 8))
+
+
+def _murmur3_launch(name: str, values: torch.Tensor, seeds: torch.Tensor,
+                    value_dtype: torch.dtype, plain) -> torch.Tensor:
+    expects(values.dtype == value_dtype and seeds.dtype == torch.int32,
+            f"{name} takes {value_dtype} values and int32 seeds, not "
+            f"{values.dtype} and {seeds.dtype}")
+    dev = values.device
+    if dev.type == "cpu":
+        return plain(values, seeds)
+    n = int(values.shape[0])
+    v = _cuda_input(values, dev, "values")
+    s = _cuda_input(seeds, dev, "seeds", n)
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    rc = getattr(kernels(), f"srt_{name}")(v.data_ptr(), s.data_ptr(),
+                                           out.data_ptr(), n, _stream(dev))
+    _check(rc, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def murmur3_int32(blocks: torch.Tensor, seeds: torch.Tensor) -> torch.Tensor:
+    """Spark murmur3 of one int32 block per row from per-row int32 seeds,
+    total length 4 -> int32 (N,)."""
+    return _murmur3_launch("murmur3_int32", blocks, seeds, torch.int32,
+                           murmur3_int32_plain)
+
+
+def murmur3_int64(values: torch.Tensor, seeds: torch.Tensor) -> torch.Tensor:
+    """Spark murmur3 of one int64 value per row (low word first) from
+    per-row int32 seeds, total length 8 -> int32 (N,)."""
+    return _murmur3_launch("murmur3_int64", values, seeds, torch.int64,
+                           murmur3_int64_plain)
+
+
+def murmur3_int64_table(columns, seed: int = 42) -> torch.Tensor:
+    """Spark row hash over non-null int64 columns: the running hash
+    seeds the next column, one K5 launch per column."""
+    h = torch.full((int(columns[0].shape[0]),), seed, dtype=torch.int32,
+                   device=columns[0].device)
+    for col in columns:
+        h = murmur3_int64(col, h)
+    return h
+
+
+# --------------------------------------------------------------------------
+# K6: fixed-width columns -> row-format word image
+# --------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=256)
+def pack_plan(widths: Tuple[int, ...]):
+    """K6's plan for a schema of byte widths: (size_per_row, n_words,
+    word_first, entries, validity_offset). The entries of output word w
+    are ``entries[word_first[w]:word_first[w + 1]]``, each
+    ``col | src_shift << 16 | dst_shift << 24``: word w ORs in bits
+    ``src_shift`` up of column ``col``'s value, shifted left by
+    ``dst_shift``."""
+    from .row_conversion import fixed_width_layout
+    size_per_row, starts, validity_offset = fixed_width_layout(widths)
+    n_words = size_per_row // 4
+    per_word: "list[list[int]]" = [[] for _ in range(n_words)]
+    for c, (start, width) in enumerate(zip(starts, widths)):
+        if width == 8:
+            per_word[start // 4].append(c)
+            per_word[start // 4 + 1].append(c | 32 << 16)
+        else:
+            per_word[start // 4].append(c | (8 * (start % 4)) << 24)
+    word_first = [0]
+    for entries in per_word:
+        word_first.append(word_first[-1] + len(entries))
+    return (size_per_row, n_words, tuple(word_first),
+            tuple(e for entries in per_word for e in entries),
+            validity_offset)
+
+
+def _validity_list(validity, k: int) -> list:
+    validity = [None] * k if validity is None else list(validity)
+    expects(len(validity) == k, "one validity entry per column")
+    return validity
+
+
+def as_bytes(t: torch.Tensor) -> torch.Tensor:
+    """(N, ...) tensor -> (N, bytes per row) uint8 of its little-endian
+    storage (an empty tensor from numpy may carry stride 0, which
+    ``view`` refuses)."""
+    n = int(t.shape[0])
+    width = t.element_size() * math.prod(t.shape[1:])
+    if n == 0:
+        return torch.zeros((0, width), dtype=torch.uint8, device=t.device)
+    return t.contiguous().view(torch.uint8).reshape(n, width)
+
+
+def pack_rows_plain(columns, widths, validity=None) -> torch.Tensor:
+    """Plain PyTorch K6: each column's little-endian bytes into its slot
+    of a zeroed (N, size_per_row) byte matrix, then the validity bytes;
+    returned as (N, size_per_row / 4) int32 words."""
+    from ..columnar import bitmask
+    from .row_conversion import fixed_width_layout
+    widths = tuple(int(w) for w in widths)
+    size_per_row, starts, voff = fixed_width_layout(widths)
+    n = int(columns[0].shape[0])
+    dev = columns[0].device
+    validity = _validity_list(validity, len(widths))
+    mat = torch.zeros((n, size_per_row), dtype=torch.uint8, device=dev)
+    for col, start, width in zip(columns, starts, widths):
+        mat[:, start:start + width] = as_bytes(col)
+    valid = torch.stack([torch.ones(n, dtype=torch.bool, device=dev)
+                         if v is None else bitmask.unpack(v, n)
+                         for v in validity], dim=1)
+    nb = (len(widths) + 7) // 8
+    mat[:, voff:voff + nb] = bitmask.pack_bytes(valid, len(widths))
+    return mat.view(torch.int32)
+
+
+def pack_rows(columns, widths, validity=None) -> torch.Tensor:
+    """Fixed-width columns of byte widths 1, 2, 4 or 8 -> the row
+    format's (N, size_per_row / 4) word image (int32 storage,
+    little-endian bytes). ``validity`` holds one packed uint32 word
+    tensor or None (all valid) per column."""
+    widths = tuple(int(w) for w in widths)
+    k = len(widths)
+    expects(k > 0 and len(columns) == k, "one width per column")
+    expects(all(w in (1, 2, 4, 8) for w in widths),
+            f"pack_rows takes widths 1, 2, 4 or 8, not {widths}")
+    expects(all(c.dim() == 1 and c.element_size() == w
+                for c, w in zip(columns, widths)),
+            "each column is 1-D with elements of its width")
+    dev = columns[0].device
+    if dev.type == "cpu":
+        return pack_rows_plain(columns, widths, validity)
+    n = int(columns[0].shape[0])
+    expects(k <= PACK_MAX_COLS,
+            f"pack_rows takes at most {PACK_MAX_COLS} columns")
+    _, n_words, word_first, entries, voff = pack_plan(widths)
+    validity = _validity_list(validity, k)
+    cols = [_cuda_input(c, dev, f"column {i}", n)
+            for i, c in enumerate(columns)]
+    expects(all(v is None or v.element_size() == 4 for v in validity),
+            "validity is packed 32-bit words")
+    words = [None if v is None else
+             _cuda_input(v, dev, f"validity {i}", (n + 31) // 32)
+             for i, v in enumerate(validity)]
+    out = torch.empty((n, n_words), dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    ll, ci = ctypes.c_longlong, ctypes.c_int
+    rc = kernels().srt_pack_rows(
+        (ll * k)(*[c.data_ptr() for c in cols]),
+        (ll * k)(*[0 if v is None else v.data_ptr() for v in words]),
+        (ci * k)(*widths), k, (ci * len(word_first))(*word_first),
+        (ci * len(entries))(*entries), n_words, len(entries), voff,
+        n, out.data_ptr(), _stream(dev))
+    _check(rc, "pack_rows")
+    LAUNCHES["pack_rows"] += 1
+    return out

@@ -47,7 +47,7 @@ def sort_key(col: Column, *, descending: bool = False) -> torch.Tensor:
     elif tid == TypeId.FLOAT32:
         b = float32_to_bits(data)
         key = torch.where(b < 0, b ^ _MAX32, b).to(torch.int64)
-    elif not col.dtype.is_fixed_width:
+    elif not col.dtype.is_fixed_width or col.dtype.storage_lanes != 1:
         fail(f"sort_key does not support {col.dtype!r}")
     elif data.dtype == torch.uint64:
         key = data.view(torch.int64) ^ _SIGN64

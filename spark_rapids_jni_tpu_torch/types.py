@@ -4,9 +4,11 @@ Mirrors ``spark_rapids_jni_tpu/types.py``: a type id laid out like cudf's
 ``type_id`` enum plus an integer scale for decimals. Device storage maps
 every fixed-width logical type to a torch dtype (BOOL8 -> int8 storage
 like cudf's one-byte bool, DECIMAL32/64 -> int32/int64 with the scale on
-the DType). This slice covers the fixed-width single-lane types; nested
-types (STRING, LIST, STRUCT) and DECIMAL128 keep their ids but have no
-storage here yet.
+the DType). DECIMAL128 is fixed-width with two int64 lanes per row: data
+of shape (N, 2) holding the [lo, hi] words of the two's-complement value
+(the bits of the reference's (N, 2) uint64). STRING and LIST have no data
+of their own: an int32 offsets child plus a uint8 (STRING) or int8 (LIST)
+byte child. STRUCT keeps its id and has no storage here yet.
 """
 
 from __future__ import annotations
@@ -109,7 +111,8 @@ class DType:
 
     @property
     def is_fixed_width(self) -> bool:
-        return self.id in _STORAGE
+        """``cudf::is_fixed_width``: DECIMAL128 is 16 fixed bytes."""
+        return self.id in _STORAGE or self.id == TypeId.DECIMAL128
 
     @property
     def is_decimal(self) -> bool:
@@ -126,10 +129,22 @@ class DType:
 
     @property
     def storage_dtype(self) -> np.dtype:
-        """Host (numpy) storage dtype."""
+        """Host (numpy) storage dtype; per lane for DECIMAL128."""
+        if self.id == TypeId.DECIMAL128:
+            return np.dtype(np.int64)
         if not self.is_fixed_width:
             raise ValueError(f"{self.id!r} has no fixed-width storage dtype")
         return _STORAGE[self.id]
+
+    @property
+    def storage_lanes(self) -> int:
+        """int64 lanes per row: 2 for DECIMAL128 ([lo, hi]), else 1."""
+        return 2 if self.id == TypeId.DECIMAL128 else 1
+
+    @property
+    def size_bytes(self) -> int:
+        """``cudf::size_of``: bytes per row of a fixed-width type."""
+        return self.storage_dtype.itemsize * self.storage_lanes
 
     def to_torch(self) -> torch.dtype:
         """Device (torch) storage dtype."""
@@ -141,11 +156,31 @@ class DType:
         return f"DType({self.id.name})"
 
 
+BOOL8 = DType(TypeId.BOOL8)
 INT8 = DType(TypeId.INT8)
+INT32 = DType(TypeId.INT32)
 INT64 = DType(TypeId.INT64)
+UINT8 = DType(TypeId.UINT8)
+FLOAT32 = DType(TypeId.FLOAT32)
 FLOAT64 = DType(TypeId.FLOAT64)
+TIMESTAMP_DAYS = DType(TypeId.TIMESTAMP_DAYS)
+STRING = DType(TypeId.STRING)
+LIST = DType(TypeId.LIST)
 
 
-# ``size_type`` discipline: row indices are int32, so one buffer stays
-# below 2 GiB, as in cudf.
+def decimal32(scale: int) -> DType:
+    return DType(TypeId.DECIMAL32, scale)
+
+
+def decimal64(scale: int) -> DType:
+    return DType(TypeId.DECIMAL64, scale)
+
+
+def decimal128(scale: int) -> DType:
+    return DType(TypeId.DECIMAL128, scale)
+
+
+# ``size_type`` discipline: row indices and offsets are int32, so one
+# buffer stays below 2 GiB, as in cudf.
+SIZE_TYPE = np.dtype(np.int32)
 SIZE_TYPE_MAX = np.iinfo(np.int32).max

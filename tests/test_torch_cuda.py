@@ -1,5 +1,7 @@
-"""K1-K3 on the card: each hand-written CUDA kernel of the PyTorch/CUDA
-port against its plain PyTorch version on the same CUDA tensors.
+"""K1-K6 on the card: each hand-written CUDA kernel of the PyTorch/CUDA
+port against its plain PyTorch version on the same CUDA tensors, and the
+hashing and row-conversion entry points on the card against the same
+calls on the CPU.
 
 These tests need a CUDA device and ``nvcc``; they carry the ``cuda``
 marker and skip elsewhere. The file imports no JAX, so it runs on a
@@ -108,3 +110,111 @@ def test_cuda_queries_with_kernel_routes_equal_oracle(cuda_device,
     for name in ("hash_join_probe", "ragged_groupby_sum_count",
                  "bitmask_pack"):
         assert K.LAUNCHES[name] > before.get(name, 0), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 255, 257, 1_000_003])
+def test_cuda_murmur3_equals_plain(cuda_device, n):
+    g = torch.Generator(device=cuda_device).manual_seed(n)
+    blocks = torch.randint(-2**31, 2**31, (n,), generator=g,
+                           device=cuda_device, dtype=torch.int32)
+    seeds = torch.randint(-2**31, 2**31, (n,), generator=g,
+                          device=cuda_device, dtype=torch.int32)
+    values = torch.randint(-2**63, 2**63 - 1, (n,), generator=g,
+                           device=cuda_device)
+    before = dict(K.LAUNCHES)
+    assert torch.equal(K.murmur3_int32(blocks, seeds),
+                       K.murmur3_int32_plain(blocks, seeds))
+    assert torch.equal(K.murmur3_int64(values, seeds),
+                       K.murmur3_int64_plain(values, seeds))
+    assert K.LAUNCHES["murmur3_int32"] == before.get("murmur3_int32", 0) + 1
+    assert K.LAUNCHES["murmur3_int64"] == before.get("murmur3_int64", 0) + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 33, 100_003])
+def test_cuda_pack_rows_equals_plain(cuda_device, n):
+    widths = (8, 8, 4, 1, 4, 1, 4, 8) * 4 + (2, 1)
+    dtypes = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    g = torch.Generator(device=cuda_device).manual_seed(n)
+    cols = [torch.randint(-2**62, 2**62, (n,), generator=g,
+                          device=cuda_device).to(dtypes[w]) for w in widths]
+    valid = [None if i % 3 == 0 else K.bitmask_pack(
+        torch.rand(n, generator=g, device=cuda_device) > 0.2)
+        for i in range(len(widths))]
+    for v in (None, valid):
+        got = K.pack_rows(cols, widths, v)
+        assert torch.equal(got, K.pack_rows_plain(cols, widths, v))
+
+
+@pytest.mark.cuda
+def test_cuda_empty_inputs_launch_nothing(cuda_device):
+    before = dict(K.LAUNCHES)
+    e32 = torch.zeros(0, dtype=torch.int32, device=cuda_device)
+    e64 = torch.zeros(0, dtype=torch.int64, device=cuda_device)
+    assert K.murmur3_int32(e32, e32).shape == (0,)
+    assert K.murmur3_int64(e64, e32).shape == (0,)
+    assert K.pack_rows([e64, e32], [8, 4]).shape == (0, 4)
+    assert dict(K.LAUNCHES) == before
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_raise_on_inputs_on_two_devices(cuda_device):
+    from spark_rapids_jni_tpu_torch.utils.errors import CudfLikeError
+    on_card = torch.arange(64, dtype=torch.int32, device=cuda_device)
+    on_cpu = torch.arange(64, dtype=torch.int32)
+    before = dict(K.LAUNCHES)
+    with pytest.raises(CudfLikeError, match="must lie on"):
+        K.murmur3_int32(on_card, on_cpu)
+    with pytest.raises(CudfLikeError, match="must lie on"):
+        K.murmur3_int64(on_card.to(torch.int64), on_cpu)
+    with pytest.raises(CudfLikeError, match="must lie on"):
+        K.pack_rows([on_card, on_cpu], [4, 4])
+    assert dict(K.LAUNCHES) == before
+
+
+@pytest.mark.cuda
+def test_cuda_hashing_and_rows_equal_cpu(cuda_device):
+    import numpy as np
+    from spark_rapids_jni_tpu_torch.columnar import Column, Table
+    from spark_rapids_jni_tpu_torch.ops import hashing, hive_hash
+    from spark_rapids_jni_tpu_torch.ops import row_conversion as rc
+    from spark_rapids_jni_tpu_torch import types as T
+    n = 10_007
+
+    def table(dev):
+        r = np.random.default_rng(3)
+        valid = [r.random(n) > 0.1 for _ in range(6)]
+        f64 = r.standard_normal(n)
+        f64[:4] = [np.nan, -0.0, np.inf, -np.nan]
+        return Table([
+            Column.from_numpy(r.integers(-2**31, 2**31, n).astype(np.int32),
+                              valid[0], device=dev),
+            Column.from_numpy(r.integers(-2**62, 2**62, n), valid[1],
+                              device=dev),
+            Column.from_numpy(f64, valid[2], device=dev),
+            Column.from_numpy(r.standard_normal(n).astype(np.float32),
+                              valid[3], device=dev),
+            Column.from_numpy(r.integers(0, 2, n).astype(np.int8), valid[4],
+                              T.BOOL8, device=dev),
+            Column.from_numpy(r.integers(-10**6, 10**6, n), valid[5],
+                              T.decimal64(-2), device=dev)])
+    on_card, on_cpu = table(cuda_device), table("cpu")
+    K.reset_launch_counts()
+    for fn in (hashing.murmur3_table, hashing.xxhash64_table):
+        assert torch.equal(fn(on_card).cpu(), fn(on_cpu)), fn.__name__
+    # HiveHash has no decimal route (nor has the reference)
+    assert torch.equal(
+        hive_hash.hive_hash_table(Table(on_card.columns[:5])).cpu(),
+        hive_hash.hive_hash_table(Table(on_cpu.columns[:5])))
+    assert K.LAUNCHES["murmur3_int32"] == 3
+    assert K.LAUNCHES["murmur3_int64"] == 3
+    rows = rc.convert_to_rows(on_card)
+    assert K.LAUNCHES["pack_rows"] == 1
+    assert torch.equal(rows[0].child.data.cpu(),
+                       rc.convert_to_rows(on_cpu)[0].child.data)
+    back = rc.convert_from_rows(rows[0], on_card.schema())
+    for a, b in zip(back.columns, on_card.columns):
+        assert torch.equal(a.valid_bool(), b.valid_bool())
+        ok = b.valid_bool()
+        assert torch.equal(K.as_bytes(a.data)[ok], K.as_bytes(b.data)[ok])

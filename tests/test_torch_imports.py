@@ -41,10 +41,12 @@ def _imports(path: Path):
 def test_sources_exist():
     names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
     for rel in ("tpcds/rel.py", "tpcds/carry.py", "ops/cuda_kernels.py",
-                "columnar/bitmask.py", "obs/__init__.py"):
+                "columnar/bitmask.py", "obs/__init__.py", "ops/hashing.py",
+                "ops/hive_hash.py", "ops/row_conversion.py",
+                "columnar/strings.py"):
         assert rel in names
     for src in ("hash_join_probe.cu", "ragged_groupby.cu",
-                "bitmask_pack.cu"):
+                "bitmask_pack.cu", "murmur3.cu", "pack_rows.cu"):
         assert (PORT / "csrc" / src).exists()
 
 
@@ -72,6 +74,9 @@ def test_import_loads_no_jax_module():
         "import spark_rapids_jni_tpu_torch.tpcds.carry\n"
         "import spark_rapids_jni_tpu_torch.tpcds.oplib.relational\n"
         "import spark_rapids_jni_tpu_torch.ops.cuda_kernels\n"
+        "import spark_rapids_jni_tpu_torch.ops.hashing\n"
+        "import spark_rapids_jni_tpu_torch.ops.hive_hash\n"
+        "import spark_rapids_jni_tpu_torch.ops.row_conversion\n"
         "import chip_smoke\n"
         "print(json.dumps(sorted(set(sys.modules) - before)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -1,10 +1,14 @@
-"""K1-K3 of the PyTorch/CUDA port against the JAX package's Pallas kernels.
+"""K1-K6 of the PyTorch/CUDA port against the JAX package's Pallas kernels.
 
 On the CPU each wrapper in ``spark_rapids_jni_tpu_torch.ops.cuda_kernels``
 runs its plain PyTorch version; here those are held against
-``hash_join_probe_pallas``, ``ragged_groupby_sum_count_pallas`` and
-``bitmask_pack_pallas`` run in Pallas interpret mode, as
-``tests/test_pallas_kernels.py`` runs them, on the same numpy inputs.
+``hash_join_probe_pallas``, ``ragged_groupby_sum_count_pallas``,
+``bitmask_pack_pallas``, ``murmur3_int32_pallas``,
+``murmur3_int64_table_pallas`` and ``pack_rows_pallas`` run in Pallas
+interpret mode, as ``tests/test_pallas_kernels.py`` and
+``tests/test_pallas.py`` run them, on the same numpy inputs. K6's word
+plan, which only the CUDA kernel reads, is checked here by a numpy
+model of the kernel's loop.
 Results must be equal. The route policies are checked with
 ``backend="cuda"`` and the forcing knobs. The kernels themselves run on
 the card in ``tests/test_torch_cuda.py``.
@@ -26,6 +30,7 @@ from spark_rapids_jni_tpu_torch.obs import kernel_stats, stats_since
 from spark_rapids_jni_tpu_torch.ops import cuda_kernels as K
 from spark_rapids_jni_tpu_torch.ops import fused_pipeline as fp
 from spark_rapids_jni_tpu_torch.ops import join as pj
+from spark_rapids_jni_tpu_torch.utils.errors import CudfLikeError
 
 
 def _t(a):
@@ -221,6 +226,10 @@ def test_wrappers_do_not_count_cpu_calls():
     K.ragged_groupby_sum_count(torch.zeros(4, dtype=torch.int32),
                                torch.ones(4, dtype=torch.bool),
                                torch.ones(4, dtype=torch.int64), 2)
+    seeds = torch.full((4,), 42, dtype=torch.int32)
+    K.murmur3_int32(torch.arange(4, dtype=torch.int32), seeds)
+    K.murmur3_int64(torch.arange(4), seeds)
+    K.pack_rows([torch.arange(4)], [8])
     assert dict(K.LAUNCHES) == before
 
 
@@ -299,3 +308,169 @@ def test_float_values_stay_on_scatter():
     assert torch.equal(s_c, s_x) and torch.equal(c_c, c_x)
     assert stats_since(before).get(
         "rel.route.groupby.cuda.float_scatter", 0) == 1
+
+
+# --------------------------------------------------------------------------
+# K4, K5: murmur3 of one 4-byte block / one 8-byte value
+# --------------------------------------------------------------------------
+
+def _edge_values(rng, n, bits):
+    """n values of a signed ``bits``-wide type, a third of them within
+    1000 of its extremes or of zero."""
+    lo, hi = -2**(bits - 1), 2**(bits - 1) - 1
+    dt = np.int32 if bits == 32 else np.int64
+    v = rng.integers(lo, hi, n, dtype=dt, endpoint=True)
+    near = rng.integers(0, 1000, n, dtype=dt)
+    pick = rng.integers(0, 6, n)
+    v = np.where(pick == 0, hi - near, v)
+    v = np.where(pick == 1, lo + near, v)
+    return np.where(pick == 2, near - 500, v).astype(dt)
+
+
+@pytest.mark.parametrize("n", [700, 4099])
+def test_murmur3_int32_parity(n):
+    from spark_rapids_jni_tpu.ops.pallas_kernels import murmur3_int32_pallas
+    rng = np.random.default_rng(n)
+    blocks = _edge_values(rng, n, 32)
+    seeds = _edge_values(rng, n, 32)
+    want = np.asarray(murmur3_int32_pallas(jnp.asarray(blocks),
+                                           jnp.asarray(seeds),
+                                           interpret=True))
+    got = K.murmur3_int32(_t(blocks), _t(seeds))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("n", [700, 4099])
+def test_murmur3_int64_table_parity(n):
+    from spark_rapids_jni_tpu.ops.pallas_kernels import (
+        murmur3_int64_pallas, murmur3_int64_table_pallas)
+    rng = np.random.default_rng(n + 1)
+    cols = [_edge_values(rng, n, 64) for _ in range(3)]
+    want = np.asarray(murmur3_int64_table_pallas(
+        [jnp.asarray(c) for c in cols], seed=42, interpret=True))
+    got = K.murmur3_int64_table([_t(c) for c in cols], seed=42)
+    np.testing.assert_array_equal(got.numpy(), want)
+    seeds = _edge_values(rng, n, 32)
+    want1 = np.asarray(murmur3_int64_pallas(
+        jnp.asarray(cols[0]), jnp.asarray(seeds), interpret=True))
+    np.testing.assert_array_equal(
+        K.murmur3_int64(_t(cols[0]), _t(seeds)).numpy(), want1)
+
+
+def test_murmur3_wrappers_check_types_and_empty():
+    with pytest.raises(CudfLikeError, match="int32 seeds"):
+        K.murmur3_int32(torch.arange(4, dtype=torch.int32),
+                        torch.arange(4))
+    with pytest.raises(CudfLikeError, match="int64"):
+        K.murmur3_int64(torch.arange(4, dtype=torch.int32),
+                        torch.arange(4, dtype=torch.int32))
+    empty = torch.zeros(0, dtype=torch.int32)
+    assert K.murmur3_int32(empty, empty).shape == (0,)
+    assert K.murmur3_int64(torch.zeros(0, dtype=torch.int64),
+                           empty).shape == (0,)
+
+
+# --------------------------------------------------------------------------
+# K6: row pack
+# --------------------------------------------------------------------------
+
+_WIDTH_NP = {1: np.int8, 2: np.int16, 4: np.int32, 8: np.int64}
+
+
+def _columns(rng, widths, n):
+    return [rng.integers(np.iinfo(_WIDTH_NP[w]).min,
+                         np.iinfo(_WIDTH_NP[w]).max, n,
+                         dtype=_WIDTH_NP[w], endpoint=True) for w in widths]
+
+
+def _emulate_pack_kernel(columns, widths, validity):
+    """What csrc/pack_rows.cu computes, in numpy: for each output word,
+    the OR of its plan entries, then the validity bytes in it."""
+    size, n_words, first, entries, voff = K.pack_plan(tuple(widths))
+    n, k = columns[0].shape[0], len(widths)
+    u = [c.view(f"u{w}").astype(np.uint64) for c, w in zip(columns, widths)]
+    bits = [np.ones(n, np.uint32) if v is None else
+            (v[np.arange(n) >> 5] >> (np.arange(n) & 31)).astype(np.uint32)
+            & 1 for v in validity]
+    out = np.zeros((n, n_words), np.uint32)
+    for w in range(n_words):
+        word = np.zeros(n, np.uint64)
+        for e in entries[first[w]:first[w + 1]]:
+            c, src, dst = e & 0xFFFF, (e >> 16) & 0xFF, (e >> 24) & 0xFF
+            part = (u[c] >> np.uint64(src)) & np.uint64(0xFFFFFFFF)
+            word |= part << np.uint64(dst)
+        for j in range(4):
+            b = 4 * w + j - voff
+            if 0 <= b and 8 * b < k:
+                byte = np.zeros(n, np.uint64)
+                for i in range(8 * b, min(8 * b + 8, k)):
+                    byte |= bits[i].astype(np.uint64) << np.uint64(i - 8 * b)
+                word |= byte << np.uint64(8 * j)
+        out[:, w] = (word & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    return out.view(np.int32)
+
+
+@pytest.mark.parametrize("widths", [
+    (8, 4, 2, 1),
+    (1, 8, 2, 4, 1, 1, 2, 8, 4),
+    (8, 8, 4, 1, 4, 1, 4, 8) * 4,  # TestTables.java's schema, 32 columns
+])
+def test_pack_rows_parity_all_valid(widths):
+    from spark_rapids_jni_tpu.ops.pallas_kernels import pack_rows_pallas
+    rng = np.random.default_rng(len(widths))
+    n = 700  # not a multiple of the Pallas row tile
+    cols = _columns(rng, widths, n)
+    want = np.asarray(pack_rows_pallas([jnp.asarray(c) for c in cols],
+                                       list(widths), interpret=True))
+    got = K.pack_rows([_t(c) for c in cols], widths)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want.view(np.int32))
+    np.testing.assert_array_equal(
+        _emulate_pack_kernel(cols, widths, [None] * len(widths)),
+        want.view(np.int32))
+
+
+@pytest.mark.parametrize("n", [1, 33, 1000])
+def test_pack_rows_with_nulls_equals_convert_to_rows(n):
+    from spark_rapids_jni_tpu.columnar import Column as RefColumn
+    from spark_rapids_jni_tpu.columnar import Table as RefTable
+    from spark_rapids_jni_tpu.ops.row_conversion import convert_to_rows
+    widths = (8, 4, 1, 2, 8, 1, 4, 1, 2)
+    rng = np.random.default_rng(n + 7)
+    cols = _columns(rng, widths, n)
+    valids = [rng.random(n) > 0.3 for _ in widths]
+    valids[2][:] = True  # one column without validity words
+    ref = RefTable([RefColumn.from_numpy(c, v) for c, v in zip(cols, valids)])
+    want = np.asarray(convert_to_rows(ref)[0].child.data).view(np.uint8)
+    words = [None if v.all() else np.array(ref_bitmask.pack(
+        jnp.asarray(v))) for v in valids]
+    got = K.pack_rows([_t(c) for c in cols], widths,
+                      [None if w is None else _t(w) for w in words])
+    np.testing.assert_array_equal(got.numpy().view(np.uint8).reshape(-1),
+                                  want)
+    np.testing.assert_array_equal(
+        _emulate_pack_kernel(cols, widths, words).view(np.uint8)
+        .reshape(-1), want)
+
+
+def test_pack_plan_layout():
+    # | A BOOL8 | B INT16 | C INT32 | -> 16 bytes, validity at byte 8
+    # (RowConversion.java:60-72)
+    size, n_words, first, entries, voff = K.pack_plan((1, 2, 4))
+    assert (size, n_words, voff) == (16, 4, 8)
+    assert entries[first[0]:first[1]] == (0, 1 | 16 << 24)
+    assert entries[first[1]:first[2]] == (2,)
+    # an 8-byte column gives its low word, then its high word
+    _, _, first, entries, _ = K.pack_plan((8,))
+    assert entries[first[0]:first[2]] == (0, 32 << 16)
+
+
+def test_pack_rows_rejects_bad_inputs():
+    with pytest.raises(CudfLikeError, match="widths 1, 2, 4 or 8"):
+        K.pack_rows([torch.zeros(4, dtype=torch.int64)] * 2, [8, 16])
+    with pytest.raises(CudfLikeError, match="width"):
+        K.pack_rows([torch.zeros(4, dtype=torch.int32)], [8])
+    # 8 bytes, a validity byte, padding to 16: four words
+    assert K.pack_rows([torch.zeros(0, dtype=torch.int64)], [8]).shape \
+        == (0, 4)
