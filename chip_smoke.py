@@ -43,9 +43,10 @@ In order, it:
    schema, 200-byte rows): 1,000,000 rows all valid; 1,000,000 rows with
    1% nulls per column; 12,000,000 rows with nulls (two batches below
    2 GB: 10,737,408 and 1,262,592 rows); 1,000,000 rows plus two
-   nullable STRING columns (the torch route). With the counts set to 0
-   just before ``convert_to_rows`` of the four and read just after, it
-   requires K6 to have been launched (four times), each K6 call to equal
+   nullable STRING columns (the torch route); 1,000,000 rows of the
+   schema repeated 13 times (104 columns, 1% nulls). With the counts set
+   to 0 just before ``convert_to_rows`` of the five and read just after,
+   it requires K6 to have been launched (five times), each K6 call to equal
    ``pack_rows_plain`` byte for byte, and ``convert_from_rows`` to give
    back every valid value (float NaN payloads byte for byte) and every
    validity bit; it prints ms and GB/s of row bytes both ways;
@@ -67,7 +68,8 @@ row-conversion step.
 ``--profile`` adds one warm run of each query, table hash and row
 conversion under ``torch.profiler``: the device time of its kernels, the
 device's idle share of the warm wall time, and the kernels that took
-most of it.
+most of it. Busy time and idle share read "not measured" when the
+profiler saw fewer launches of K1-K6 than the wrappers counted.
 
 It uses the first visible card only. It imports nothing of JAX nor of
 the JAX package. Without a CUDA device, or outside a checkout of the
@@ -82,6 +84,7 @@ import contextlib
 import inspect
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -442,35 +445,53 @@ def _count_syncs(fn):
     return out, sum("synchroniz" in str(w.message).lower() for w in caught)
 
 
+# the __global__ functions of csrc/*.cu (templates included), as the
+# profiler names them
+HAND_KERNEL = re.compile(r"(?:^|::)(?:build|probe|ragged_groupby|"
+                         r"bitmask_pack|murmur3_int32|murmur3_int64|"
+                         r"pack_rows)_kernel(?:<[^>]*>)?\(")
+
+
 def profile_run(fn, wall: float, label: str, log) -> dict:
     """One warm run of ``fn`` under ``torch.profiler``: the device time of
     its CUDA kernels, its share of ``wall`` (the unprofiled warm wall
-    time, ms), and the kernels that took most of it."""
+    time, ms), and the kernels that took most of it. Busy time and idle
+    share count as measured only when the profiler saw every launch of
+    the hand kernels that ``cuda_kernels.LAUNCHES`` counted in the run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    launched = sum(K.LAUNCHES.values())
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    launched = sum(K.LAUNCHES.values()) - launched
     by_name: dict = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             us = e.time_range.elapsed_us()
             n, t = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (n + 1, t + us)
+    seen = sum(n for k, (n, _) in by_name.items() if HAND_KERNEL.search(k))
+    measured = bool(by_name) and seen == launched
     busy_ms = sum(t for _, t in by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
-    r = {"device_busy_ms": busy_ms if by_name else None,
+    r = {"device_busy_ms": busy_ms if measured else None,
          "device_kernels": sum(n for n, _ in by_name.values()),
+         "hand_kernel_launches": launched,
+         "hand_kernel_launches_profiled": seen,
          "top_kernels": [{"name": k[:90], "launches": n, "ms": t / 1e3}
                          for k, (n, t) in top],
-         "device_idle_share": (None if not by_name
-                               else max(0.0, 1.0 - busy_ms / wall))}
-    idle = r["device_idle_share"]
-    log(f"{label}: profile device_busy_ms="
-        f"{'not measured' if not by_name else f'{busy_ms:.3f}'} "
-        f"kernels={r['device_kernels']} idle_share="
-        f"{'not measured' if idle is None else f'{idle:.3f}'} top="
+         "device_idle_share": (max(0.0, 1.0 - busy_ms / wall) if measured
+                               else None)}
+    if measured:
+        shares = (f"device_busy_ms={busy_ms:.3f} "
+                  f"idle_share={r['device_idle_share']:.3f}")
+    else:
+        shares = ("device_busy_ms=not measured idle_share=not measured "
+                  f"(the profiler saw {seen} of {launched} hand-kernel "
+                  "launches)")
+    log(f"{label}: profile {shares} kernels={r['device_kernels']} top="
         + json.dumps([(t['name'][:48], t['launches'], round(t['ms'], 3))
                       for t in r["top_kernels"]]))
     return r
@@ -748,19 +769,24 @@ def run_hashing(dev, gen, rels: dict, log, profile: bool = False):
     return {"rates": rates, "launches": launches}, calls
 
 
-# (label, rows, null share per column, STRING columns); the third splits
-# into two batches below 2 GB: 10,737,408 and 1,262,592 rows of 200 B
-ROW_CASES = [("1M rows, all valid", 1_000_000, 0.0, 0),
-             ("1M rows, 1% nulls", 1_000_000, 0.01, 0),
-             ("12M rows, 1% nulls", 12_000_000, 0.01, 0),
-             ("1M rows + 2 STRING columns", 1_000_000, 0.01, 2)]
-ROW_SCHEMA = [T.INT64, T.FLOAT64, T.INT32, T.BOOL8, T.FLOAT32, T.INT8,
-              T.decimal32(-3), T.decimal64(-8)] * 4  # TestTables.java
+# (label, rows, null share per column, STRING columns, repeats of the
+# 8-type schema); the third splits into two batches below 2 GB:
+# 10,737,408 and 1,262,592 rows of 200 B
+ROW_CASES = [("1M rows, all valid", 1_000_000, 0.0, 0, 4),
+             ("1M rows, 1% nulls", 1_000_000, 0.01, 0, 4),
+             ("12M rows, 1% nulls", 12_000_000, 0.01, 0, 4),
+             ("1M rows + 2 STRING columns", 1_000_000, 0.01, 2, 4),
+             ("1M rows x 104 columns, 1% nulls", 1_000_000, 0.01, 0, 13)]
+# TestTables.java's eight types
+ROW_TYPES = [T.INT64, T.FLOAT64, T.INT32, T.BOOL8, T.FLOAT32, T.INT8,
+             T.decimal32(-3), T.decimal64(-8)]
 
 
-def rows_table(dev, gen, n: int, null_share: float, strings: int) -> Table:
-    """The 32-column TestTables schema (plus ``strings`` STRING
-    columns); the floats carry NaN payloads, +-0.0 and +-inf."""
+def rows_table(dev, gen, n: int, null_share: float, strings: int,
+               repeats: int) -> Table:
+    """The TestTables types repeated ``repeats`` times (4: its 32-column
+    schema), plus ``strings`` STRING columns; the floats carry NaN
+    payloads, +-0.0 and +-inf."""
     def data(dt):
         if dt.id == T.TypeId.FLOAT64:
             return _with_specials(torch.randn(
@@ -775,7 +801,7 @@ def rows_table(dev, gen, n: int, null_share: float, strings: int) -> Table:
         info = torch.iinfo(dt.to_torch())
         return _randint(dev, gen, n, info.min, info.max, dt.to_torch())
     cols = [Column(dt, n, data(dt), _valid_words(dev, gen, n, null_share))
-            for dt in ROW_SCHEMA]
+            for dt in ROW_TYPES * repeats]
     cols += [string_column(dev, gen, n, 0.1) for _ in range(strings)]
     return Table(cols)
 
@@ -800,7 +826,7 @@ def run_row_conversion(dev, gen, log, profile: bool = False):
     """Step 7: convert_to_rows / convert_from_rows, K6's launches and
     the round trip."""
     cases = ROW_CASES
-    tables = [rows_table(dev, gen, n, nulls, s) for _, n, nulls, s in cases]
+    tables = [rows_table(dev, gen, *case[1:]) for case in cases]
     torch.cuda.synchronize()
     calls, query = [], ["rows"]
     before = kernel_stats()
@@ -817,7 +843,7 @@ def run_row_conversion(dev, gen, log, profile: bool = False):
     _require(launches["pack_rows"] == want,
              f"K6 launched {launches['pack_rows']} times, want {want}: one "
              "per batch of each fixed-width table")
-    _require(routes == {"row_conversion.route.pack_rows": 3,
+    _require(routes == {"row_conversion.route.pack_rows": 4,
                         "row_conversion.route.torch": 1},
              f"row-conversion routes {routes}")
     step = rc.max_rows_per_batch(200)
@@ -826,7 +852,7 @@ def run_row_conversion(dev, gen, log, profile: bool = False):
              f"{n_big} rows split as {[b.size for b in rows[2]]}, want "
              f"{[step, n_big - step]}")
     results = []
-    for (label, n, _, _), t, batches in zip(cases, tables, rows):
+    for (label, n, *_), t, batches in zip(cases, tables, rows):
         schema = t.schema()
         start = 0
         for b in batches:

@@ -11,7 +11,7 @@ pallas_kernels.py``) become CUDA C++ under ``csrc/``:
   ``bitmask_pack_pallas``;
 - K4 ``murmur3_int32`` and K5 ``murmur3_int64`` (``csrc/murmur3.cu``)
   replace ``murmur3_int32_pallas`` and ``murmur3_int64_pallas``
-  (``murmur3_int64_table`` chains K5 over columns as
+  (``hashing.murmur3_table`` chains K5 over int64 columns as
   ``murmur3_int64_table_pallas`` does);
 - K6 ``pack_rows`` (``csrc/pack_rows.cu``) replaces
   ``_pack_rows_compiled`` / ``pack_rows_pallas``, with real validity.
@@ -47,8 +47,10 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..columnar import bitmask
 from ..utils.errors import CudfLikeError, expects
 from .join import hash_table_capacity
+from .row_layout import fixed_width_layout
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("hash_join_probe.cu", "ragged_groupby.cu", "bitmask_pack.cu",
@@ -60,10 +62,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # K2's per-block shared memory is width x 12 B; 8192 slots = 96 KB, the
 # same width cap as the reference's PALLAS_GROUPBY_MAX_WIDTH.
 RAGGED_MAX_WIDTH = 1 << 13
-
-# K6's plan travels by value in the kernel's parameters, sized for at
-# most this many columns (csrc/pack_rows.cu kMaxCols)
-PACK_MAX_COLS = 64
 
 # __global__ launches per kernel name (K1 "hash_join_probe", K2
 # "ragged_groupby_sum_count", K3 "bitmask_pack", K4 "murmur3_int32", K5
@@ -138,9 +136,7 @@ def kernels() -> ctypes.CDLL:
     lib.srt_bitmask_pack.argtypes = [vp, ll, vp, ll, vp]
     lib.srt_murmur3_int32.argtypes = [vp, vp, vp, ll, vp]
     lib.srt_murmur3_int64.argtypes = [vp, vp, vp, ll, vp]
-    pll, pi = ctypes.POINTER(ll), ctypes.POINTER(i)
-    lib.srt_pack_rows.argtypes = [pll, pll, pi, i, pi, pi, i, i, i, ll, vp,
-                                  vp]
+    lib.srt_pack_rows.argtypes = [vp, i, i, i, i, i, ll, vp, vp]
     for fn in (lib.srt_hash_join_probe, lib.srt_ragged_groupby_sum_count,
                lib.srt_bitmask_pack, lib.srt_murmur3_int32,
                lib.srt_murmur3_int64, lib.srt_pack_rows):
@@ -467,16 +463,6 @@ def murmur3_int64(values: torch.Tensor, seeds: torch.Tensor) -> torch.Tensor:
                            murmur3_int64_plain)
 
 
-def murmur3_int64_table(columns, seed: int = 42) -> torch.Tensor:
-    """Spark row hash over non-null int64 columns: the running hash
-    seeds the next column, one K5 launch per column."""
-    h = torch.full((int(columns[0].shape[0]),), seed, dtype=torch.int32,
-                   device=columns[0].device)
-    for col in columns:
-        h = murmur3_int64(col, h)
-    return h
-
-
 # --------------------------------------------------------------------------
 # K6: fixed-width columns -> row-format word image
 # --------------------------------------------------------------------------
@@ -486,19 +472,20 @@ def pack_plan(widths: Tuple[int, ...]):
     """K6's plan for a schema of byte widths: (size_per_row, n_words,
     word_first, entries, validity_offset). The entries of output word w
     are ``entries[word_first[w]:word_first[w + 1]]``, each
-    ``col | src_shift << 16 | dst_shift << 24``: word w ORs in bits
-    ``src_shift`` up of column ``col``'s value, shifted left by
-    ``dst_shift``."""
-    from .row_conversion import fixed_width_layout
+    ``col | width << 32 | src_shift << 40 | dst_shift << 48``: word w ORs
+    in bits ``src_shift`` up of column ``col``'s value (``width`` bytes),
+    shifted left by ``dst_shift``. The kernel reads the column and the
+    rest as two int32 arrays."""
     size_per_row, starts, validity_offset = fixed_width_layout(widths)
     n_words = size_per_row // 4
     per_word: "list[list[int]]" = [[] for _ in range(n_words)]
     for c, (start, width) in enumerate(zip(starts, widths)):
+        part = c | width << 32
         if width == 8:
-            per_word[start // 4].append(c)
-            per_word[start // 4 + 1].append(c | 32 << 16)
+            per_word[start // 4].append(part)
+            per_word[start // 4 + 1].append(part | 32 << 40)
         else:
-            per_word[start // 4].append(c | (8 * (start % 4)) << 24)
+            per_word[start // 4].append(part | (8 * (start % 4)) << 48)
     word_first = [0]
     for entries in per_word:
         word_first.append(word_first[-1] + len(entries))
@@ -528,8 +515,6 @@ def pack_rows_plain(columns, widths, validity=None) -> torch.Tensor:
     """Plain PyTorch K6: each column's little-endian bytes into its slot
     of a zeroed (N, size_per_row) byte matrix, then the validity bytes;
     returned as (N, size_per_row / 4) int32 words."""
-    from ..columnar import bitmask
-    from .row_conversion import fixed_width_layout
     widths = tuple(int(w) for w in widths)
     size_per_row, starts, voff = fixed_width_layout(widths)
     n = int(columns[0].shape[0])
@@ -563,8 +548,6 @@ def pack_rows(columns, widths, validity=None) -> torch.Tensor:
     if dev.type == "cpu":
         return pack_rows_plain(columns, widths, validity)
     n = int(columns[0].shape[0])
-    expects(k <= PACK_MAX_COLS,
-            f"pack_rows takes at most {PACK_MAX_COLS} columns")
     _, n_words, word_first, entries, voff = pack_plan(widths)
     validity = _validity_list(validity, k)
     cols = [_cuda_input(c, dev, f"column {i}", n)
@@ -577,12 +560,19 @@ def pack_rows(columns, widths, validity=None) -> torch.Tensor:
     out = torch.empty((n, n_words), dtype=torch.int32, device=dev)
     if n == 0:
         return out
-    ll, ci = ctypes.c_longlong, ctypes.c_int
+    # the plan with this call's pointers, one array on the card (pinned,
+    # so the copy does not wait for the stream): int64 pointers, then
+    # int32 word_first, entry columns and entry (width, shifts)
+    ptrs = torch.tensor([c.data_ptr() for c in cols]
+                        + [0 if v is None else v.data_ptr() for v in words],
+                        dtype=torch.int64)
+    small = list(word_first) + [e & 0xFFFFFFFF for e in entries] \
+        + [e >> 32 for e in entries]
+    plan = torch.cat([ptrs.view(torch.int32), torch.tensor(
+        small + [0] * (len(small) % 2), dtype=torch.int32)])
+    plan = plan.pin_memory().to(dev, non_blocking=True)
     rc = kernels().srt_pack_rows(
-        (ll * k)(*[c.data_ptr() for c in cols]),
-        (ll * k)(*[0 if v is None else v.data_ptr() for v in words]),
-        (ci * k)(*widths), k, (ci * len(word_first))(*word_first),
-        (ci * len(entries))(*entries), n_words, len(entries), voff,
+        plan.data_ptr(), plan.numel() // 2, k, n_words, len(entries), voff,
         n, out.data_ptr(), _stream(dev))
     _check(rc, "pack_rows")
     LAUNCHES["pack_rows"] += 1

@@ -15,10 +15,10 @@ the spec (``RowConversion.java:40-99``):
 STRING columns take the variable-width layout of ``RowLayout``: an
 8-byte (offset, length) slot in the fixed section, the bytes after it.
 
-Routes: a table whose columns all have widths 1, 2, 4 or 8 (at most
-``PACK_MAX_COLS`` of them) goes to K6 (``cuda_kernels.pack_rows``), which
-on a CPU tensor is its plain version; a table with a DECIMAL128 or
-STRING column is built from torch ops. The route is counted
+Routes: a table whose columns all have widths 1, 2, 4 or 8 goes to K6
+(``cuda_kernels.pack_rows``, any number of columns), which on a CPU
+tensor is its plain version; a table with a DECIMAL128 or STRING column
+is built from torch ops. The route is counted
 (``row_conversion.route.pack_rows`` / ``row_conversion.route.torch``).
 ``convert_from_rows`` is torch slicing and views.
 
@@ -40,24 +40,7 @@ from ..obs import count
 from ..types import DType, TypeId, SIZE_TYPE_MAX, INT32, UINT8
 from ..utils.errors import expects
 from . import cuda_kernels as K
-
-
-def _align_offset(offset: int, alignment: int) -> int:
-    """Reference: row_conversion.cu:417-419."""
-    return (offset + alignment - 1) & ~(alignment - 1)
-
-
-def fixed_width_layout(widths: Sequence[int]) -> Tuple[int, List[int], int]:
-    """(size_per_row, column starts, validity offset) for byte widths:
-    each column aligned to its own width, validity bytes right after the
-    last column, the row padded to 8 bytes (row_conversion.cu:432-456)."""
-    starts: List[int] = []
-    at = 0
-    for w in widths:
-        at = _align_offset(at, w)
-        starts.append(at)
-        at += w
-    return _align_offset(at + (len(widths) + 7) // 8, 8), starts, at
+from .row_layout import align_offset, fixed_width_layout
 
 
 def compute_fixed_width_layout(schema: Sequence[DType]
@@ -93,13 +76,13 @@ class RowLayout:
                 expects(dt.is_fixed_width,
                         f"row format does not support {dt!r}")
                 align = size = dt.size_bytes
-            at = _align_offset(at, align)
+            at = align_offset(at, align)
             self.starts.append(at)
             self.sizes.append(size)
             at += size
         self.validity_offset = at
         self.validity_bytes = (len(self.schema) + 7) // 8
-        self.var_start = _align_offset(at + self.validity_bytes, 8)
+        self.var_start = align_offset(at + self.validity_bytes, 8)
         self.has_var = any(dt.id == TypeId.STRING for dt in self.schema)
 
 
@@ -126,9 +109,8 @@ def slice_rows(col: Column, start: int, end: int) -> Column:
 
 
 def _kernel_route(schema: Sequence[DType]) -> bool:
-    return (len(schema) <= K.PACK_MAX_COLS
-            and all(dt.id != TypeId.STRING and dt.size_bytes in (1, 2, 4, 8)
-                    for dt in schema))
+    return all(dt.id != TypeId.STRING and dt.size_bytes in (1, 2, 4, 8)
+               for dt in schema)
 
 
 def convert_to_rows(table: Table) -> List[Column]:
@@ -210,7 +192,7 @@ def _to_row_images_var(table: Table, max_lens: Tuple[int, ...]
         var = torch.gather(block, 1, order)
         # the dropped bytes (a null string may still hold some) read as 0
         var = torch.where(torch.gather(drop, 1, order), 0, var)
-        pad = _align_offset(sum_max, 8) - sum_max
+        pad = align_offset(sum_max, 8) - sum_max
         images = torch.cat([fixed, var, torch.zeros(
             (n, pad), dtype=torch.uint8, device=dev)], dim=1)
     sizes = lay.var_start + ((run + 7) & ~7)
@@ -238,7 +220,7 @@ def _convert_to_rows_var(table: Table) -> List[Column]:
     max_lens = tuple(max_length(c) for c, s in zip(table.columns, is_str)
                      if s)  # host syncs, one per STRING column
     step = max_rows_per_batch(lay.var_start
-                              + _align_offset(sum(max_lens), 8))
+                              + align_offset(sum(max_lens), 8))
     out: List[Column] = []
     for row_start in range(0, max(num_rows, 1), step):
         row_count = min(num_rows - row_start, step)

@@ -148,6 +148,28 @@ def test_cuda_pack_rows_equals_plain(cuda_device, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n_cols,n", [(104, 33), (104, 100_003),
+                                      (1500, 1000)])
+def test_cuda_pack_rows_wide_equals_plain(cuda_device, n_cols, n):
+    # 104 columns: past the 64 a by-value plan could hold; 1500 columns:
+    # a plan too large for shared memory, read through the cache
+    dtypes = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    g = torch.Generator(device=cuda_device).manual_seed(n_cols + n)
+    widths = tuple(int(w) for w in torch.tensor([1, 2, 4, 8])[
+        torch.randint(0, 4, (n_cols,), generator=torch.Generator()
+                      .manual_seed(n_cols))])
+    cols = [torch.randint(-2**62, 2**62, (n,), generator=g,
+                          device=cuda_device).to(dtypes[w]) for w in widths]
+    valid = [None if i % 3 == 0 else K.bitmask_pack(
+        torch.rand(n, generator=g, device=cuda_device) > 0.2)
+        for i in range(n_cols)]
+    before = K.LAUNCHES["pack_rows"]
+    got = K.pack_rows(cols, widths, valid)
+    assert K.LAUNCHES["pack_rows"] == before + 1
+    assert torch.equal(got, K.pack_rows_plain(cols, widths, valid))
+
+
+@pytest.mark.cuda
 def test_cuda_empty_inputs_launch_nothing(cuda_device):
     before = dict(K.LAUNCHES)
     e32 = torch.zeros(0, dtype=torch.int32, device=cuda_device)

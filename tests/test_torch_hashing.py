@@ -42,9 +42,10 @@ from spark_rapids_jni_tpu_torch.types import DType, TypeId
 from spark_rapids_jni_tpu_torch.utils.errors import CudfLikeError
 
 from reference_hashes import (hive_hash_double, hive_hash_float,
-                              hive_hash_timestamp_us, spark_hash_int,
-                              spark_hash_long, spark_xxhash_int,
-                              spark_xxhash_long)
+                              hive_hash_long, hive_hash_string,
+                              hive_hash_timestamp_us, murmur3_32,
+                              spark_hash_int, spark_hash_long,
+                              spark_xxhash_int, spark_xxhash_long, xxh64)
 
 FIXED = [t for t in TypeId if DType(t).is_fixed_width
          and t != TypeId.DECIMAL128]
@@ -204,6 +205,59 @@ def test_column_hashes_equal_reference(tid):
             hive_hash.hive_hash_column(pc)
 
 
+def _to_signed(v: int, bits: int) -> int:
+    v &= (1 << bits) - 1
+    return v - (1 << bits) if v >> (bits - 1) else v
+
+
+def _java_bits(value) -> int:
+    """floatToIntBits / doubleToLongBits, -0.0 as 0.0, NaN canonical."""
+    if np.isnan(value):
+        return 0x7FC00000 if value.dtype == np.float32 else 0x7FF8000000000000
+    value = value.dtype.type(0) if value == 0 else value
+    return int(value.view(np.uint32 if value.dtype == np.float32
+                          else np.uint64))
+
+
+def _spark_row_hash(kind, arrays, i):
+    """Spark's row hash of row ``i`` (``kind`` murmur3, xxhash64 or hive),
+    chained value by value through the scalar oracles."""
+    h = {"murmur3": 42, "xxhash64": 42, "hive": 0}[kind]
+    for (tid, _), data, valid in arrays:
+        if tid == TypeId.STRING:
+            offsets, chars = data
+            blob = bytes(chars[offsets[i]:offsets[i + 1]])
+        elif tid == TypeId.DECIMAL128:
+            lo, hi = (int(x) for x in data[i])
+            v = _to_signed(lo | hi << 64, 128)
+            blob = v.to_bytes((v if v >= 0 else ~v).bit_length() // 8 + 1,
+                              "big", signed=True)  # BigInteger.toByteArray
+        elif tid in (TypeId.FLOAT32, TypeId.FLOAT64):
+            bits = _java_bits(data[i])
+        else:
+            bits = int(data[i])
+        if kind == "hive":
+            ch = 0
+            if valid[i]:
+                ch = {TypeId.STRING: lambda: hive_hash_string(blob),
+                      TypeId.INT64: lambda: hive_hash_long(bits),
+                      TypeId.FLOAT32: lambda: hive_hash_float(data[i]),
+                      TypeId.FLOAT64: lambda: hive_hash_double(data[i]),
+                      }.get(tid, lambda: bits)()
+            h = _to_signed(31 * h + ch, 32)
+        elif valid[i]:
+            wide = tid in (TypeId.INT64, TypeId.FLOAT64, TypeId.DECIMAL64)
+            if kind == "murmur3":
+                h = _to_signed(murmur3_32(blob, h), 32) if tid in (
+                    TypeId.STRING, TypeId.DECIMAL128) else (
+                    spark_hash_long if wide else spark_hash_int)(bits, h)
+            else:
+                h = _to_signed(xxh64(blob, h & (2**64 - 1)), 64) if tid in (
+                    TypeId.STRING, TypeId.DECIMAL128) else (
+                    spark_xxhash_long if wide else spark_xxhash_int)(bits, h)
+    return h
+
+
 def test_row_hashes_equal_reference():
     rng = np.random.default_rng(5)
     n = 2000
@@ -212,19 +266,28 @@ def test_row_hashes_equal_reference():
             TypeId.DECIMAL128, TypeId.STRING]
     arrays = [_column_arrays(rng, t, n) for t in tids]
     ref, got = _both(arrays)
-    # float32 subnormals: Spark's hash, not the reference's (see above)
+    # float32 subnormals: Spark's hash, not the reference's (see above);
+    # those rows are held to the scalar oracles chained through the row
     keep = ~_spark_only_rows(TypeId.FLOAT32, arrays[3][1], False)
-    for fn, rfn in ((hashing.murmur3_table, ref_hashing.murmur3_table),
-                    (hashing.xxhash64_table, ref_hashing.xxhash64_table)):
+    spark_rows = np.flatnonzero(~keep)
+    assert spark_rows.size
+    for kind, fn, rfn in (
+            ("murmur3", hashing.murmur3_table, ref_hashing.murmur3_table),
+            ("xxhash64", hashing.xxhash64_table, ref_hashing.xxhash64_table)):
         got_h, want_h = fn(got).numpy(), np.asarray(rfn(ref))
         assert got_h.dtype == want_h.dtype
         np.testing.assert_array_equal(got_h[keep], want_h[keep])
+        for i in spark_rows:
+            assert got_h[i] == _spark_row_hash(kind, arrays, i), (kind, i)
     hive_cols = [i for i, t in enumerate(tids) if t in HIVE]
     got_h = hive_hash.hive_hash_table(type(got)(
         [got.columns[i] for i in hive_cols])).numpy()
     want_h = np.asarray(ref_hive.hive_hash_table(
         RefTable([ref.columns[i] for i in hive_cols])))
     np.testing.assert_array_equal(got_h[keep], want_h[keep])
+    for i in spark_rows:
+        assert got_h[i] == _spark_row_hash(
+            "hive", [arrays[c] for c in hive_cols], i), ("hive", i)
 
 
 def test_murmur3_routes_through_k4_and_k5():

@@ -43,7 +43,7 @@ def test_sources_exist():
     for rel in ("tpcds/rel.py", "tpcds/carry.py", "ops/cuda_kernels.py",
                 "columnar/bitmask.py", "obs/__init__.py", "ops/hashing.py",
                 "ops/hive_hash.py", "ops/row_conversion.py",
-                "columnar/strings.py"):
+                "ops/row_layout.py", "columnar/strings.py"):
         assert rel in names
     for src in ("hash_join_probe.cu", "ragged_groupby.cu",
                 "bitmask_pack.cu", "murmur3.cu", "pack_rows.cu"):

@@ -349,7 +349,11 @@ def test_murmur3_int64_table_parity(n):
     cols = [_edge_values(rng, n, 64) for _ in range(3)]
     want = np.asarray(murmur3_int64_table_pallas(
         [jnp.asarray(c) for c in cols], seed=42, interpret=True))
-    got = K.murmur3_int64_table([_t(c) for c in cols], seed=42)
+    # the port chains K5 over int64 columns in hashing.murmur3_table
+    from spark_rapids_jni_tpu_torch.columnar import Column, Table
+    from spark_rapids_jni_tpu_torch.ops import hashing
+    got = hashing.murmur3_table(Table([
+        Column.from_numpy(c, device="cpu") for c in cols]), seed=42)
     np.testing.assert_array_equal(got.numpy(), want)
     seeds = _edge_values(rng, n, 32)
     want1 = np.asarray(murmur3_int64_pallas(
@@ -397,7 +401,9 @@ def _emulate_pack_kernel(columns, widths, validity):
     for w in range(n_words):
         word = np.zeros(n, np.uint64)
         for e in entries[first[w]:first[w + 1]]:
-            c, src, dst = e & 0xFFFF, (e >> 16) & 0xFF, (e >> 24) & 0xFF
+            c, width = e & 0xFFFFFFFF, (e >> 32) & 0xFF
+            src, dst = (e >> 40) & 0xFF, (e >> 48) & 0xFF
+            assert width == widths[c]
             part = (u[c] >> np.uint64(src)) & np.uint64(0xFFFFFFFF)
             word |= part << np.uint64(dst)
         for j in range(4):
@@ -454,16 +460,42 @@ def test_pack_rows_with_nulls_equals_convert_to_rows(n):
         .reshape(-1), want)
 
 
+def test_pack_rows_wide_table_equals_convert_to_rows():
+    # 150 columns of every width, two thirds nullable: more validity
+    # bytes than one 32-column vote and more words than one warp pass
+    from spark_rapids_jni_tpu.columnar import Column as RefColumn
+    from spark_rapids_jni_tpu.columnar import Table as RefTable
+    from spark_rapids_jni_tpu.ops.row_conversion import convert_to_rows
+    rng = np.random.default_rng(150)
+    widths = tuple(int(w) for w in rng.choice([1, 2, 4, 8], 150))
+    n = 97
+    cols = _columns(rng, widths, n)
+    valids = [np.ones(n, bool) if i % 3 == 0 else rng.random(n) > 0.3
+              for i in range(len(widths))]
+    ref = RefTable([RefColumn.from_numpy(c, v) for c, v in zip(cols, valids)])
+    want = np.asarray(convert_to_rows(ref)[0].child.data).view(np.uint8)
+    words = [None if v.all() else np.array(ref_bitmask.pack(
+        jnp.asarray(v))) for v in valids]
+    got = K.pack_rows([_t(c) for c in cols], widths,
+                      [None if w is None else _t(w) for w in words])
+    np.testing.assert_array_equal(got.numpy().view(np.uint8).reshape(-1),
+                                  want)
+    np.testing.assert_array_equal(
+        _emulate_pack_kernel(cols, widths, words).view(np.uint8)
+        .reshape(-1), want)
+
+
 def test_pack_plan_layout():
     # | A BOOL8 | B INT16 | C INT32 | -> 16 bytes, validity at byte 8
     # (RowConversion.java:60-72)
     size, n_words, first, entries, voff = K.pack_plan((1, 2, 4))
     assert (size, n_words, voff) == (16, 4, 8)
-    assert entries[first[0]:first[1]] == (0, 1 | 16 << 24)
-    assert entries[first[1]:first[2]] == (2,)
+    assert entries[first[0]:first[1]] == (0 | 1 << 32,
+                                          1 | 2 << 32 | 16 << 48)
+    assert entries[first[1]:first[2]] == (2 | 4 << 32,)
     # an 8-byte column gives its low word, then its high word
     _, _, first, entries, _ = K.pack_plan((8,))
-    assert entries[first[0]:first[2]] == (0, 32 << 16)
+    assert entries[first[0]:first[2]] == (8 << 32, 8 << 32 | 32 << 40)
 
 
 def test_pack_rows_rejects_bad_inputs():

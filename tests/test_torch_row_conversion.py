@@ -95,6 +95,21 @@ def test_test_tables_schema_rows_equal_reference(n, null_share):
     _tables_equal(rc.convert_from_rows(rows[0], got.schema()), arrays)
 
 
+def test_wide_table_rows_equal_reference():
+    # 105 columns: K6 takes any number of columns, as the reference's
+    # _pack_rows_compiled and copy_from_fixed_width_columns do
+    rng = np.random.default_rng(105)
+    n = 300
+    schema = TEST_TABLES_8 * 13 + [(TypeId.INT16, 0)]
+    arrays = _arrays(rng, schema, n)
+    ref, got = _both(arrays)
+    before = kernel_stats()
+    rows = rc.convert_to_rows(got)
+    assert stats_since(before) == {"row_conversion.route.pack_rows": 1}
+    _rows_equal(rows, ref_rc.convert_to_rows(ref))
+    _tables_equal(rc.convert_from_rows(rows[0], got.schema()), arrays)
+
+
 def test_reference_round_trip_table():
     # RowConversionTest.java:30-38: one null per column
     arrays = []
@@ -212,7 +227,7 @@ def test_split_batches_carry_the_reference_bytes(schema, monkeypatch):
     # a cap of about 100 rows: batches of 96 rows, 32-row multiples
     row_bytes = rc.RowLayout(got.schema()).var_start
     if any(t == TypeId.STRING for t, _ in schema):
-        row_bytes += rc._align_offset(max(
+        row_bytes += rc.align_offset(max(
             rc.max_length(c) for c in got.columns
             if c.dtype.id == TypeId.STRING), 8)
     monkeypatch.setattr(rc, "SIZE_TYPE_MAX", row_bytes * 100)
