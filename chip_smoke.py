@@ -49,7 +49,9 @@ In order, it:
    it requires K6 to have been launched (five times), each K6 call to equal
    ``pack_rows_plain`` byte for byte, and ``convert_from_rows`` to give
    back every valid value (float NaN payloads byte for byte) and every
-   validity bit; it prints ms and GB/s of row bytes both ways;
+   validity bit; it prints ms and GB/s of row bytes both ways, and each
+   conversion's ``convert_to_rows`` wall time beside the device time of
+   its K6 calls (the rest is host work and idle card);
 8. prints the ``kernels`` JSON line (K1-K6, each with its launches on
    its own path), the card again, and as the last line
    ``{"ok": true, "device": {...}}``.
@@ -130,6 +132,13 @@ def card_line() -> str:
     return nvidia_smi("name,power.limit")
 
 
+# device clocks the queue is held before each timed run: about 2.5 ms,
+# longer than the host takes to enqueue one wrapper call of a wide table
+# (a 104-column K6 call checks 208 tensors), so that the enqueue stays
+# out of the kernel's time
+HOLD_CYCLES = 5_000_000
+
+
 def time_ms(fn, reps: int) -> float:
     """Median device time of ``fn()`` over ``reps`` runs, CUDA events,
     after two warm-up runs. A device-side sleep ahead of each start
@@ -141,7 +150,7 @@ def time_ms(fn, reps: int) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(1_000_000)
+        torch.cuda._sleep(HOLD_CYCLES)
         start.record()
         fn()
         end.record()
@@ -235,7 +244,7 @@ def k6_cost(columns, widths, validity):
     """Bytes: every column value and validity word read once, the row
     image written once; a few integer operations per output word."""
     n = int(columns[0].numel())
-    size = K.pack_plan(tuple(widths))[0]
+    size = K.pack_plan(tuple(widths)).size_per_row
     nullable = sum(v is not None for v in validity)
     return (n * sum(widths) + nullable * 4 * ((n + 31) // 32) + n * size,
             n * size, 0, f"{n} rows x {len(widths)} columns ({nullable} "
@@ -284,9 +293,13 @@ SPECS = {
 
 
 def _launches(name: str, args: tuple) -> int:
-    """The ``__global__`` launches one wrapper call on ``args`` makes."""
+    """The ``__global__`` launches one wrapper call on ``args`` makes: K1
+    launches once when its table fits in shared memory, else its build and
+    its probe."""
     if name == "hash_join_probe":
-        return 0 if not args[1].numel() else 2 if args[0].numel() else 1
+        shared = K.hash_table_capacity(args[0].numel()) \
+            <= K.PROBE_SHARED_SLOTS
+        return 0 if not args[1].numel() else 1 if shared else 2
     first = args[0][0] if name == "pack_rows" else args[0]
     return 1 if first.numel() else 0
 
@@ -447,9 +460,9 @@ def _count_syncs(fn):
 
 # the __global__ functions of csrc/*.cu (templates included), as the
 # profiler names them
-HAND_KERNEL = re.compile(r"(?:^|::)(?:build|probe|ragged_groupby|"
-                         r"bitmask_pack|murmur3_int32|murmur3_int64|"
-                         r"pack_rows)_kernel(?:<[^>]*>)?\(")
+HAND_KERNEL = re.compile(r"(?:^|::)(?:build|probe|build_probe|"
+                         r"ragged_groupby|bitmask_pack|murmur3_int32|"
+                         r"murmur3_int64|pack_rows)_kernel(?:<[^>]*>)?\(")
 
 
 def profile_run(fn, wall: float, label: str, log) -> dict:
@@ -828,11 +841,14 @@ def run_row_conversion(dev, gen, log, profile: bool = False):
     cases = ROW_CASES
     tables = [rows_table(dev, gen, *case[1:]) for case in cases]
     torch.cuda.synchronize()
-    calls, query = [], ["rows"]
+    calls, query = [], [None]
     before = kernel_stats()
     K.reset_launch_counts()
     with recording(calls, query):
-        rows = [rc.convert_to_rows(t) for t in tables]
+        rows = []
+        for (label, *_), t in zip(cases, tables):
+            query[0] = label
+            rows.append(rc.convert_to_rows(t))
         torch.cuda.synchronize()
     launches = {n: K.LAUNCHES[n] for n in ROW_NAMES}
     routes = {k: v for k, v in stats_since(before).items()
@@ -885,6 +901,22 @@ def run_row_conversion(dev, gen, log, profile: bool = False):
                 from_ms, f"from_rows {label}", log)
     del rows, tables
     return {"cases": results, "launches": launches, "routes": routes}, calls
+
+
+def k6_beside_wall(cases: list, per_call: list, card: str, log) -> None:
+    """Each conversion's ``convert_to_rows`` wall time beside the device
+    time of its K6 calls: the rest is the host's work and the card's idle
+    time around K6."""
+    for r in cases:
+        k6 = [c["ms"] for c in per_call if c["query"] == r["case"]]
+        if not k6:
+            continue
+        r["k6_ms"] = sum(k6)
+        r["k6_share_of_to_rows"] = r["k6_ms"] / r["to_rows_ms"]
+        log(f"rows {r['case']}: convert_to_rows {r['to_rows_ms']:.3f} ms "
+            f"wall, K6 {r['k6_ms']:.4f} ms in {len(k6)} call(s) = "
+            f"{r['k6_share_of_to_rows']:.3f} of it; idle around K6 "
+            f"{1 - r['k6_share_of_to_rows']:.3f} [{card}]")
 
 
 def kernel_entries(totals: dict, launches: dict, names: tuple, path: str,
@@ -980,6 +1012,7 @@ def main(argv=None) -> int:
     log("row-conversion kernel calls, each equal to its plain version:")
     totals |= path_kernels(calls, rows["launches"], ROW_NAMES, log)
     del calls
+    k6_beside_wall(rows["cases"], totals["pack_rows"]["per_call"], card, log)
     rows["step_s"] = time.perf_counter() - t0
     log(f"row-conversion step: {rows['step_s']:.3f} s")
 

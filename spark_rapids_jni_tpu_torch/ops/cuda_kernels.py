@@ -25,25 +25,27 @@ started together, then linked.
 Each wrapper takes its plain PyTorch version for CPU tensors only. For a
 CUDA tensor it launches the kernel on the current stream or raises:
 there is no fallback. ``LAUNCHES`` counts the ``__global__`` launches
-per kernel name, bumped only where a wrapper launches: K1 launches its
-build and then its probe (one launch when the build side is empty), the
-others one each. A call with no rows launches nothing (a zero-block grid
-is a launch error).
+per kernel name, bumped only where a wrapper launches: K1 launches once
+when its table fits in shared memory (``PROBE_SHARED_SLOTS``) and
+otherwise its build and then its probe, the others one each. A call with
+no rows launches nothing (a zero-block grid is a launch error).
 """
 
 from __future__ import annotations
 
+import bisect
 import collections
 import ctypes
 import functools
 import hashlib
+import itertools
 import math
 import os
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -58,6 +60,10 @@ SOURCES = ("hash_join_probe.cu", "ragged_groupby.cu", "bitmask_pack.cu",
 BUILD_DIR = Path(__file__).resolve().parents[2] / "target" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+# K1 tables of at most this many 16-byte slots (128 KB) are built in each
+# block's shared memory (csrc/hash_join_probe.cu kSharedSlots)
+PROBE_SHARED_SLOTS = 1 << 13
 
 # K2's per-block shared memory is width x 12 B; 8192 slots = 96 KB, the
 # same width cap as the reference's PALLAS_GROUPBY_MAX_WIDTH.
@@ -130,13 +136,13 @@ def kernels() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(out))
     vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.srt_hash_join_probe.argtypes = [
-        vp, vp, ll, vp, vp, ll, vp, vp, i, vp, vp, vp]
+        vp, vp, ll, vp, vp, ll, vp, i, vp, vp, vp]
     lib.srt_ragged_groupby_sum_count.argtypes = [
         vp, vp, vp, ll, i, vp, vp, vp]
     lib.srt_bitmask_pack.argtypes = [vp, ll, vp, ll, vp]
     lib.srt_murmur3_int32.argtypes = [vp, vp, vp, ll, vp]
     lib.srt_murmur3_int64.argtypes = [vp, vp, vp, ll, vp]
-    lib.srt_pack_rows.argtypes = [vp, i, i, i, i, i, ll, vp, vp]
+    lib.srt_pack_rows.argtypes = [vp, i, i, i, i, i, i, i, vp, ll, vp, vp]
     for fn in (lib.srt_hash_join_probe, lib.srt_ragged_groupby_sum_count,
                lib.srt_bitmask_pack, lib.srt_murmur3_int32,
                lib.srt_murmur3_int64, lib.srt_pack_rows):
@@ -160,9 +166,12 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 def _cuda_input(t: torch.Tensor, dev: torch.device, what: str,
                 n: Optional[int] = None) -> torch.Tensor:
-    expects(t.device == dev, f"{what} must lie on {dev}, not {t.device}")
-    expects(t.dim() == 1, f"{what} must be 1-D")
-    if n is not None:
+    if t.device != dev or t.dim() != 1 or (n is not None
+                                           and t.shape[0] != n):
+        # the messages are built only on failure: formatting them on every
+        # call was most of a many-column wrapper call's host time
+        expects(t.device == dev, f"{what} must lie on {dev}, not {t.device}")
+        expects(t.dim() == 1, f"{what} must be 1-D")
         expects(t.shape[0] == n, f"{what} has {t.shape[0]} rows, want {n}")
     return t.contiguous()
 
@@ -293,14 +302,18 @@ def hash_join_probe(build_keys: torch.Tensor, probe_keys: torch.Tensor,
         return idx, found
     cap = hash_table_capacity(n_build)
     expects(cap < 2**31, "hash table capacity exceeds int32")
-    slot_row = torch.full((cap,), -1, dtype=torch.int32, device=dev)
-    slot_key = torch.empty(cap, dtype=torch.int64, device=dev)
+    # a table of at most PROBE_SHARED_SLOTS slots lives in each block's
+    # shared memory (one launch); a larger one is 16-byte slots on the card
+    # (filled, built, then probed: two launches)
+    shared = cap <= PROBE_SHARED_SLOTS
+    table = None if shared else torch.empty(
+        (cap, 4), dtype=torch.int32, device=dev)
     rc = kernels().srt_hash_join_probe(
         bkeys.data_ptr(), _ptr(blive), n_build, pkeys.data_ptr(),
-        _ptr(plive), n_probe, slot_row.data_ptr(), slot_key.data_ptr(),
-        cap, idx.data_ptr(), found.data_ptr(), _stream(dev))
+        _ptr(plive), n_probe, _ptr(table), cap, idx.data_ptr(),
+        found.data_ptr(), _stream(dev))
     _check(rc, "hash_join_probe")
-    LAUNCHES["hash_join_probe"] += 2 if n_build else 1  # build, probe
+    LAUNCHES["hash_join_probe"] += 1 if shared else 2  # build, probe
     return idx, found
 
 
@@ -467,31 +480,133 @@ def murmur3_int64(values: torch.Tensor, seeds: torch.Tensor) -> torch.Tensor:
 # K6: fixed-width columns -> row-format word image
 # --------------------------------------------------------------------------
 
+# K6: the shared memory of a block when two fit on an SM, and when one
+# takes the SM; the most rows a tile holds
+PACK_SMEM_BYTES = 110 * 1024
+PACK_SMEM_ONE_BLOCK = 220 * 1024
+PACK_MAX_TILE = 256
+
+
+class PackPlan(NamedTuple):
+    """K6's plan for a schema (``pack_plan``)."""
+    size_per_row: int
+    n_words: int
+    validity_offset: int
+    tile_rows: int          # T: rows a tile stages, a multiple of 32
+    # (c0, c1, lo, hi, vc0, vc1, vst): the columns of each segment, its
+    # bytes [lo, hi) of the row, the columns whose validity bits its
+    # validity bytes hold, and where their validity words are staged
+    segments: Tuple[Tuple[int, ...], ...]
+    # (staged offset | width << 24, byte in the row), per column
+    cols: Tuple[Tuple[int, int], ...]
+    buf_bytes: int          # one staging buffer
+    img_stride: int         # bytes between image rows, an odd multiple of 8
+
+    @property
+    def smem_bytes(self) -> int:
+        return 2 * self.buf_bytes + self.tile_rows * self.img_stride
+
+    def words(self) -> Tuple[int, ...]:
+        """The plan as the kernel reads it (int32): 8 per segment, then 2
+        per column."""
+        return tuple(x for seg in self.segments for x in seg + (0,)) \
+            + tuple(x for col in self.cols for x in col)
+
+
+def _align16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def _pack_segment(widths, starts, voff, size_per_row, b0: int, b1: int):
+    """The segment of row bytes [16 b0, 16 b1): its columns (those that
+    start there: none straddles a 16-byte boundary), its bytes and the
+    columns whose validity bits its validity bytes hold."""
+    k, lo, hi = len(widths), 16 * b0, min(16 * b1, size_per_row)
+    c0, c1 = bisect.bisect_left(starts, lo), bisect.bisect_left(starts, hi)
+    vb0 = max(lo - voff, 0)
+    vb1 = min(hi - voff, (k + 7) // 8)
+    vc0, vc1 = (8 * vb0, min(8 * vb1, k)) if vb1 > vb0 else (0, 0)
+    return (c0, c1, lo, hi, vc0, vc1)
+
+
+def _img_stride(segments) -> int:
+    """Image rows hold the largest segment, padded to an odd number of
+    8-byte units (8-byte stores of a half-warp on distinct banks)."""
+    most = max(s[3] - s[2] for s in segments)
+    return most if most % 16 == 8 else most + 8
+
+
+def _pack_sizes(prefix, segments, tile: int) -> Tuple[int, int]:
+    """(buf_bytes, image_bytes) of tiles of ``tile`` rows (``prefix``:
+    the running sum of the widths): a buffer holds a segment's column
+    runs, then its validity words."""
+    buf = max(_align16(tile * (prefix[s[1]] - prefix[s[0]]))
+              + _align16(4 * (tile // 32) * (s[5] - s[4])) for s in segments)
+    return buf, tile * _img_stride(segments)
+
+
 @functools.lru_cache(maxsize=256)
-def pack_plan(widths: Tuple[int, ...]):
-    """K6's plan for a schema of byte widths: (size_per_row, n_words,
-    word_first, entries, validity_offset). The entries of output word w
-    are ``entries[word_first[w]:word_first[w + 1]]``, each
-    ``col | width << 32 | src_shift << 40 | dst_shift << 48``: word w ORs
-    in bits ``src_shift`` up of column ``col``'s value (``width`` bytes),
-    shifted left by ``dst_shift``. The kernel reads the column and the
-    rest as two int32 arrays."""
-    size_per_row, starts, validity_offset = fixed_width_layout(widths)
-    n_words = size_per_row // 4
-    per_word: "list[list[int]]" = [[] for _ in range(n_words)]
-    for c, (start, width) in enumerate(zip(starts, widths)):
-        part = c | width << 32
-        if width == 8:
-            per_word[start // 4].append(part)
-            per_word[start // 4 + 1].append(part | 32 << 40)
-        else:
-            per_word[start // 4].append(part | (8 * (start % 4)) << 48)
-    word_first = [0]
-    for entries in per_word:
-        word_first.append(word_first[-1] + len(entries))
-    return (size_per_row, n_words, tuple(word_first),
-            tuple(e for entries in per_word for e in entries),
-            validity_offset)
+def pack_plan(widths: Tuple[int, ...]) -> PackPlan:
+    """K6's plan for a schema of byte widths. T is the largest multiple
+    of 32 up to ``PACK_MAX_TILE`` whose two staging buffers and row image
+    fit ``PACK_SMEM_BYTES`` (two blocks an SM); where that leaves fewer
+    than 128 rows, a block takes the SM (``PACK_SMEM_ONE_BLOCK``) for a
+    larger T: wide rows gain more from long tiles than from a second
+    block. When 32 rows of the whole row fit neither, the row is cut
+    greedily into segments at 16-byte boundaries, each within half of
+    ``PACK_SMEM_BYTES`` (so the largest buffer and the largest image of
+    any two segments fit together), and made 32 rows at a time. Column c is
+    staged at ``cols[c][0] & 0xFFFFFF`` of its segment's buffer (T values
+    of ``cols[c][0] >> 24`` bytes) and goes to byte ``cols[c][1]`` of the
+    row."""
+    size_per_row, starts, voff = fixed_width_layout(widths)
+    blocks = -(-size_per_row // 16)
+    prefix = [0, *itertools.accumulate(widths)]
+
+    def segment(b0, b1):
+        return _pack_segment(widths, starts, voff, size_per_row, b0, b1)
+
+    def fits(seg, tile, budget):
+        buf, image = _pack_sizes(prefix, [seg], tile)
+        return 2 * buf + image <= budget
+
+    def largest_tile(seg, budget):
+        return next((t for t in range(PACK_MAX_TILE, 31, -32)
+                     if fits(seg, t, budget)), 0)
+
+    segments = [segment(0, blocks)]
+    tile = largest_tile(segments[0], PACK_SMEM_BYTES)
+    if tile < 128:
+        tile = max(tile, largest_tile(segments[0], PACK_SMEM_ONE_BLOCK))
+    if not tile:
+        tile, segments, b0 = 32, [], 0
+        while b0 < blocks:
+            b1 = b0 + 1
+            expects(fits(segment(b0, b1), tile, PACK_SMEM_BYTES // 2),
+                    "a 16-byte segment exceeds K6's shared memory")
+            while b1 < blocks and fits(segment(b0, b1 + 1), tile,
+                                       PACK_SMEM_BYTES // 2):
+                b1 += 1
+            segments.append(segment(b0, b1))
+            b0 = b1
+    cols = [(0, 0)] * len(widths)
+    for c0, c1, *_ in segments:
+        for c in range(c0, c1):
+            cols[c] = (tile * (prefix[c] - prefix[c0]) | widths[c] << 24,
+                       starts[c])
+    buf_bytes, _ = _pack_sizes(prefix, segments, tile)
+    return PackPlan(
+        size_per_row, size_per_row // 4, voff, tile,
+        tuple(s + (_align16(tile * (prefix[s[1]] - prefix[s[0]])),)
+              for s in segments),
+        tuple(cols), buf_bytes, _img_stride(segments))
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_on_card(widths: Tuple[int, ...], dev: torch.device) -> torch.Tensor:
+    """The schema's plan as int32 on the card, copied once."""
+    return torch.tensor(pack_plan(widths).words(), dtype=torch.int32,
+                        device=dev)
 
 
 def _validity_list(validity, k: int) -> list:
@@ -548,7 +663,7 @@ def pack_rows(columns, widths, validity=None) -> torch.Tensor:
     if dev.type == "cpu":
         return pack_rows_plain(columns, widths, validity)
     n = int(columns[0].shape[0])
-    _, n_words, word_first, entries, voff = pack_plan(widths)
+    plan = pack_plan(widths)
     validity = _validity_list(validity, k)
     cols = [_cuda_input(c, dev, f"column {i}", n)
             for i, c in enumerate(columns)]
@@ -557,23 +672,20 @@ def pack_rows(columns, widths, validity=None) -> torch.Tensor:
     words = [None if v is None else
              _cuda_input(v, dev, f"validity {i}", (n + 31) // 32)
              for i, v in enumerate(validity)]
-    out = torch.empty((n, n_words), dtype=torch.int32, device=dev)
+    out = torch.empty((n, plan.n_words), dtype=torch.int32, device=dev)
     if n == 0:
         return out
-    # the plan with this call's pointers, one array on the card (pinned,
-    # so the copy does not wait for the stream): int64 pointers, then
-    # int32 word_first, entry columns and entry (width, shifts)
+    # this call's pointers, one small array on the card (pinned, so the
+    # copy does not wait for the stream)
     ptrs = torch.tensor([c.data_ptr() for c in cols]
                         + [0 if v is None else v.data_ptr() for v in words],
-                        dtype=torch.int64)
-    small = list(word_first) + [e & 0xFFFFFFFF for e in entries] \
-        + [e >> 32 for e in entries]
-    plan = torch.cat([ptrs.view(torch.int32), torch.tensor(
-        small + [0] * (len(small) % 2), dtype=torch.int32)])
-    plan = plan.pin_memory().to(dev, non_blocking=True)
+                        dtype=torch.int64).pin_memory().to(dev,
+                                                           non_blocking=True)
     rc = kernels().srt_pack_rows(
-        plan.data_ptr(), plan.numel() // 2, k, n_words, len(entries), voff,
-        n, out.data_ptr(), _stream(dev))
+        _plan_on_card(widths, dev).data_ptr(), k, plan.size_per_row,
+        len(plan.segments), plan.validity_offset, plan.tile_rows,
+        plan.buf_bytes, plan.img_stride, ptrs.data_ptr(), n,
+        out.data_ptr(), _stream(dev))
     _check(rc, "pack_rows")
     LAUNCHES["pack_rows"] += 1
     return out

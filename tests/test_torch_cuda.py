@@ -38,6 +38,68 @@ def test_cuda_hash_join_probe_equals_plain(cuda_device):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def _probe_case(dev, n_build, n_probe, seed, dead_probe=False):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    build = torch.randperm(4 * n_build + 8, generator=g, device=dev)[:n_build]
+    blive = torch.rand(n_build, generator=g, device=dev) > 0.1
+    probe = torch.randint(-8, 4 * n_build + 16, (n_probe,), generator=g,
+                          device=dev)
+    plive = (torch.zeros(n_probe, dtype=torch.bool, device=dev) if dead_probe
+             else torch.rand(n_probe, generator=g, device=dev) > 0.05)
+    return build, probe, blive, plive
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_build,n_probe", [
+    (0, 1000),          # empty build: capacity 128, the shared table
+    (4096, 1),          # capacity 8192, the largest shared table
+    (4097, 1),          # capacity 16384, the table on the card
+    (4096, 10_000_003), (4097, 10_000_003), (1820, 31_622), (15_811, 7)])
+def test_cuda_hash_join_probe_both_tables(cuda_device, n_build, n_probe):
+    # build sizes on both sides of PROBE_SHARED_SLOTS, probes of 1 and
+    # 10M + 3 rows (a last group of three)
+    args = _probe_case(cuda_device, n_build, n_probe, n_build + n_probe)
+    shared = K.hash_table_capacity(n_build) <= K.PROBE_SHARED_SLOTS
+    assert shared == (n_build <= 4096)
+    before = K.LAUNCHES["hash_join_probe"]
+    got = K.hash_join_probe(*args)
+    assert K.LAUNCHES["hash_join_probe"] == before + (1 if shared else 2)
+    want = K.hash_join_probe_plain(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if n_probe > 100:
+        assert bool(got[1].any()) == (n_build > 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_build", [300, 9000])
+def test_cuda_hash_join_probe_dead_and_unaligned(cuda_device, n_build):
+    # an all-dead probe reports (0, False) everywhere; keys and live bytes
+    # at odd offsets take the kernel's scalar loads
+    build, probe, blive, _ = _probe_case(cuda_device, n_build, 50_001, 5,
+                                         dead_probe=True)
+    idx, found = K.hash_join_probe(build, probe, blive,
+                                   torch.zeros_like(probe, dtype=torch.bool))
+    assert not bool(found.any()) and not bool(idx.any())
+    plive = torch.rand(50_001, device=cuda_device) > 0.3
+    args = (build, probe[1:], blive, plive[1:])
+    got, want = K.hash_join_probe(*args), K.hash_join_probe_plain(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_cuda_hash_join_probe_duplicate_build_keys_terminate(cuda_device):
+    # duplicate live build keys are outside the contract, but both tables
+    # must still fill and every walk end
+    for n_build in (1000, 6000):
+        build = torch.arange(n_build, device=cuda_device) % 7
+        idx, found = K.hash_join_probe(build, torch.arange(
+            20, device=cuda_device))
+        torch.cuda.synchronize()
+        assert found[:7].all() and not found[7:].any()
+        assert bool((build[idx[:7].long()] == torch.arange(
+            7, device=cuda_device)).all())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("width", [1, 6, 379, 8192])
 def test_cuda_ragged_groupby_equals_plain(cuda_device, width):
@@ -147,26 +209,69 @@ def test_cuda_pack_rows_equals_plain(cuda_device, n):
         assert torch.equal(got, K.pack_rows_plain(cols, widths, v))
 
 
+_DTYPES = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def _pack_case(dev, widths, n, seed, null_every=3):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cols = [torch.randint(-2**62, 2**62, (n,), generator=g,
+                          device=dev).to(_DTYPES[w]) for w in widths]
+    valid = [None if i % null_every == 0 else K.bitmask_pack(
+        torch.rand(n, generator=g, device=dev) > 0.2)
+        for i in range(len(widths))]
+    return cols, valid
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_cols,n", [(104, 33), (104, 100_003),
                                       (1500, 1000)])
 def test_cuda_pack_rows_wide_equals_plain(cuda_device, n_cols, n):
     # 104 columns: past the 64 a by-value plan could hold; 1500 columns:
-    # a plan too large for shared memory, read through the cache
-    dtypes = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
-    g = torch.Generator(device=cuda_device).manual_seed(n_cols + n)
+    # rows too wide for a 32-row tile, made in segments
     widths = tuple(int(w) for w in torch.tensor([1, 2, 4, 8])[
         torch.randint(0, 4, (n_cols,), generator=torch.Generator()
                       .manual_seed(n_cols))])
-    cols = [torch.randint(-2**62, 2**62, (n,), generator=g,
-                          device=cuda_device).to(dtypes[w]) for w in widths]
-    valid = [None if i % 3 == 0 else K.bitmask_pack(
-        torch.rand(n, generator=g, device=cuda_device) > 0.2)
-        for i in range(n_cols)]
+    cols, valid = _pack_case(cuda_device, widths, n, n_cols + n)
     before = K.LAUNCHES["pack_rows"]
     got = K.pack_rows(cols, widths, valid)
     assert K.LAUNCHES["pack_rows"] == before + 1
     assert torch.equal(got, K.pack_rows_plain(cols, widths, valid))
+
+
+_TESTTABLES = (8, 8, 4, 1, 4, 1, 4, 8) * 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths,tile", [
+    (_TESTTABLES, 192), ((1, 2, 2, 1, 1, 1, 2, 1, 2, 2, 1), 256),
+    ((8, 1, 8, 8, 2, 8, 4, 8) * 48, 32)])
+def test_cuda_pack_rows_tile_edges_equal_plain(cuda_device, widths, tile):
+    # T - 1, T, T + 1 rows and more tiles than the grid holds; the third
+    # schema is made in segments
+    assert K.pack_plan(widths).tile_rows == tile
+    for n in (tile - 1, tile, tile + 1, 2000 * tile + 33):
+        cols, valid = _pack_case(cuda_device, widths, n, n)
+        assert torch.equal(K.pack_rows(cols, widths, valid),
+                           K.pack_rows_plain(cols, widths, valid)), n
+
+
+@pytest.mark.cuda
+def test_cuda_pack_rows_slices_nulls_and_unaligned(cuda_device):
+    # a batch that starts at a nonzero multiple of 32 rows (as
+    # convert_to_rows cuts them), all-null columns, and columns that are
+    # views at an odd offset (staged with byte loads)
+    n = 100_000
+    cols, valid = _pack_case(cuda_device, _TESTTABLES, n, 3)
+    valid[1] = torch.zeros_like(valid[1])
+    valid[5] = torch.zeros_like(valid[5])
+    at = 32 * 1001
+    part = [c[at:] for c in cols]
+    pvalid = [None if v is None else v[at // 32:] for v in valid]
+    assert torch.equal(K.pack_rows(part, _TESTTABLES, pvalid),
+                       K.pack_rows_plain(part, _TESTTABLES, pvalid))
+    odd = [c[1:] for c in cols]
+    assert torch.equal(K.pack_rows(odd, _TESTTABLES),
+                       K.pack_rows_plain(odd, _TESTTABLES))
 
 
 @pytest.mark.cuda

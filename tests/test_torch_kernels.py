@@ -30,6 +30,7 @@ from spark_rapids_jni_tpu_torch.obs import kernel_stats, stats_since
 from spark_rapids_jni_tpu_torch.ops import cuda_kernels as K
 from spark_rapids_jni_tpu_torch.ops import fused_pipeline as fp
 from spark_rapids_jni_tpu_torch.ops import join as pj
+from spark_rapids_jni_tpu_torch.ops.row_layout import fixed_width_layout
 from spark_rapids_jni_tpu_torch.utils.errors import CudfLikeError
 
 
@@ -389,32 +390,78 @@ def _columns(rng, widths, n):
 
 
 def _emulate_pack_kernel(columns, widths, validity):
-    """What csrc/pack_rows.cu computes, in numpy: for each output word,
-    the OR of its plan entries, then the validity bytes in it."""
-    size, n_words, first, entries, voff = K.pack_plan(tuple(widths))
-    n, k = columns[0].shape[0], len(widths)
-    u = [c.view(f"u{w}").astype(np.uint64) for c, w in zip(columns, widths)]
-    bits = [np.ones(n, np.uint32) if v is None else
-            (v[np.arange(n) >> 5] >> (np.arange(n) & 31)).astype(np.uint32)
-            & 1 for v in validity]
-    out = np.zeros((n, n_words), np.uint32)
-    for w in range(n_words):
-        word = np.zeros(n, np.uint64)
-        for e in entries[first[w]:first[w + 1]]:
-            c, width = e & 0xFFFFFFFF, (e >> 32) & 0xFF
-            src, dst = (e >> 40) & 0xFF, (e >> 48) & 0xFF
-            assert width == widths[c]
-            part = (u[c] >> np.uint64(src)) & np.uint64(0xFFFFFFFF)
-            word |= part << np.uint64(dst)
-        for j in range(4):
-            b = 4 * w + j - voff
-            if 0 <= b and 8 * b < k:
-                byte = np.zeros(n, np.uint64)
-                for i in range(8 * b, min(8 * b + 8, k)):
-                    byte |= bits[i].astype(np.uint64) << np.uint64(i - 8 * b)
-                word |= byte << np.uint64(8 * j)
-        out[:, w] = (word & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    """What csrc/pack_rows.cu computes, in numpy, walking as it walks: for
+    each item (a tile of T rows, one segment of the row; the last tile
+    partial) it stages the segment's column runs and the validity words of
+    its vote columns into one buffer laid out as the plan says, copies
+    each staged column into its place in a zeroed row image (rows
+    ``img_stride`` bytes apart), builds each validity byte from the staged
+    words 32 rows at a time, and stores the image's rows, or their slice
+    of the segment."""
+    plan = K.pack_plan(tuple(widths))
+    n, tile, stride = columns[0].shape[0], plan.tile_rows, plan.img_stride
+    assert tile % 32 == 0 and stride % 16 == 8
+    assert plan.smem_bytes <= (K.PACK_SMEM_BYTES if tile >= 128
+                               else K.PACK_SMEM_ONE_BLOCK)
+    raw = [c.view(np.uint8) for c in columns]
+    out = np.zeros((n, plan.size_per_row), np.uint8)
+    for c0, c1, lo, hi, vc0, vc1, vst_at in plan.segments:
+        assert hi - lo <= stride
+        for r0 in range(0, n, tile):
+            rows = min(tile, n - r0)
+            buf = np.zeros(plan.buf_bytes, np.uint8)
+            for c in range(c0, c1):
+                at, width = plan.cols[c][0] & 0xFFFFFF, plan.cols[c][0] >> 24
+                assert width == widths[c] and at + tile * width <= vst_at
+                buf[at:at + rows * width] = raw[c][r0 * width:(r0 + rows)
+                                                   * width]
+            groups, nvc = -(-rows // 32), vc1 - vc0
+            assert vst_at + 4 * (tile // 32) * nvc <= plan.buf_bytes
+            vst = np.full((groups, nvc), 0xFFFFFFFF, np.uint32)
+            for c in range(vc0, vc1):
+                if validity[c] is not None:
+                    vst[:, c - vc0] = validity[c][r0 // 32:r0 // 32 + groups]
+            buf[vst_at:vst_at + vst.nbytes] = vst.reshape(-1).view(np.uint8)
+            image = np.zeros((tile, stride), np.uint8)
+            for c in range(c0, c1):
+                at, width = plan.cols[c][0] & 0xFFFFFF, plan.cols[c][0] >> 24
+                to = plan.cols[c][1] - lo
+                image[:rows, to:to + width] = \
+                    buf[at:at + rows * width].reshape(rows, width)
+            staged = buf[vst_at:vst_at + 4 * groups * nvc].view(
+                np.uint32).reshape(groups, nvc)
+            rl = np.arange(rows)
+            for b in range(vc0 // 8, -(-vc1 // 8)) if vc1 > vc0 else ():
+                byte = np.zeros(rows, np.int64)
+                for c in range(8 * b, min(8 * b + 8, vc1)):
+                    byte |= ((staged[rl >> 5, c - vc0] >> (rl & 31)) & 1) \
+                        << (c - 8 * b)
+                image[:rows, plan.validity_offset + b - lo] = byte
+            out[r0:r0 + rows, lo:hi] = image[:rows, :hi - lo]
     return out.view(np.int32)
+
+
+def _reference_rows(cols, valids):
+    """The JAX package's ``convert_to_rows`` bytes, and the packed
+    validity words the port takes (None for an all-valid column)."""
+    from spark_rapids_jni_tpu.columnar import Column as RefColumn
+    from spark_rapids_jni_tpu.columnar import Table as RefTable
+    from spark_rapids_jni_tpu.ops.row_conversion import convert_to_rows
+    ref = RefTable([RefColumn.from_numpy(c, v) for c, v in zip(cols, valids)])
+    want = np.asarray(convert_to_rows(ref)[0].child.data).view(np.uint8)
+    words = [None if v.all() else np.array(ref_bitmask.pack(
+        jnp.asarray(v))) for v in valids]
+    return want, words
+
+
+def _assert_pack_equals(cols, widths, words, want):
+    got = K.pack_rows([_t(c) for c in cols], widths,
+                      [None if w is None else _t(w) for w in words])
+    np.testing.assert_array_equal(got.numpy().view(np.uint8).reshape(-1),
+                                  want)
+    np.testing.assert_array_equal(
+        _emulate_pack_kernel(cols, widths, words).view(np.uint8)
+        .reshape(-1), want)
 
 
 @pytest.mark.parametrize("widths", [
@@ -439,63 +486,103 @@ def test_pack_rows_parity_all_valid(widths):
 
 @pytest.mark.parametrize("n", [1, 33, 1000])
 def test_pack_rows_with_nulls_equals_convert_to_rows(n):
-    from spark_rapids_jni_tpu.columnar import Column as RefColumn
-    from spark_rapids_jni_tpu.columnar import Table as RefTable
-    from spark_rapids_jni_tpu.ops.row_conversion import convert_to_rows
     widths = (8, 4, 1, 2, 8, 1, 4, 1, 2)
     rng = np.random.default_rng(n + 7)
     cols = _columns(rng, widths, n)
     valids = [rng.random(n) > 0.3 for _ in widths]
     valids[2][:] = True  # one column without validity words
-    ref = RefTable([RefColumn.from_numpy(c, v) for c, v in zip(cols, valids)])
-    want = np.asarray(convert_to_rows(ref)[0].child.data).view(np.uint8)
-    words = [None if v.all() else np.array(ref_bitmask.pack(
-        jnp.asarray(v))) for v in valids]
-    got = K.pack_rows([_t(c) for c in cols], widths,
-                      [None if w is None else _t(w) for w in words])
-    np.testing.assert_array_equal(got.numpy().view(np.uint8).reshape(-1),
-                                  want)
-    np.testing.assert_array_equal(
-        _emulate_pack_kernel(cols, widths, words).view(np.uint8)
-        .reshape(-1), want)
+    want, words = _reference_rows(cols, valids)
+    _assert_pack_equals(cols, widths, words, want)
 
 
 def test_pack_rows_wide_table_equals_convert_to_rows():
     # 150 columns of every width, two thirds nullable: more validity
     # bytes than one 32-column vote and more words than one warp pass
-    from spark_rapids_jni_tpu.columnar import Column as RefColumn
-    from spark_rapids_jni_tpu.columnar import Table as RefTable
-    from spark_rapids_jni_tpu.ops.row_conversion import convert_to_rows
     rng = np.random.default_rng(150)
     widths = tuple(int(w) for w in rng.choice([1, 2, 4, 8], 150))
     n = 97
     cols = _columns(rng, widths, n)
     valids = [np.ones(n, bool) if i % 3 == 0 else rng.random(n) > 0.3
               for i in range(len(widths))]
-    ref = RefTable([RefColumn.from_numpy(c, v) for c, v in zip(cols, valids)])
-    want = np.asarray(convert_to_rows(ref)[0].child.data).view(np.uint8)
-    words = [None if v.all() else np.array(ref_bitmask.pack(
-        jnp.asarray(v))) for v in valids]
-    got = K.pack_rows([_t(c) for c in cols], widths,
-                      [None if w is None else _t(w) for w in words])
-    np.testing.assert_array_equal(got.numpy().view(np.uint8).reshape(-1),
-                                  want)
-    np.testing.assert_array_equal(
-        _emulate_pack_kernel(cols, widths, words).view(np.uint8)
-        .reshape(-1), want)
+    want, words = _reference_rows(cols, valids)
+    _assert_pack_equals(cols, widths, words, want)
+
+
+# (schema, rows): T - 1, T and T + 1 rows of TestTables.java's schema
+# (T = 192) and of a schema of 1- and 2-byte columns only (T = 256); a
+# schema whose 32-row tile overflows shared memory, made in segments
+_TESTTABLES = (8, 8, 4, 1, 4, 1, 4, 8) * 4
+_NARROW = (1, 2, 2, 1, 1, 1, 2, 1, 2, 2, 1)
+_SEGMENTED = (8, 1, 8, 8, 2, 8, 4, 8) * 48
+
+
+@pytest.mark.parametrize("widths,n", [
+    (_TESTTABLES, 191), (_TESTTABLES, 192), (_TESTTABLES, 193),
+    (_NARROW, 255), (_NARROW, 256), (_NARROW, 257),
+    (_SEGMENTED, 33),
+], ids=["testtables-T-1", "testtables-T", "testtables-T+1", "narrow-T-1",
+        "narrow-T", "narrow-T+1", "segmented"])
+def test_pack_rows_tile_edges_equal_convert_to_rows(widths, n):
+    plan = K.pack_plan(widths)
+    assert (plan.tile_rows, len(plan.segments) > 1) == {
+        _TESTTABLES: (192, False), _NARROW: (256, False),
+        _SEGMENTED: (32, True)}[widths]
+    rng = np.random.default_rng(n + len(widths))
+    cols = _columns(rng, widths, n)
+    valids = [np.ones(n, bool) if i % 4 == 0 else rng.random(n) > 0.2
+              for i in range(len(widths))]
+    want, words = _reference_rows(cols, valids)
+    _assert_pack_equals(cols, widths, words, want)
 
 
 def test_pack_plan_layout():
     # | A BOOL8 | B INT16 | C INT32 | -> 16 bytes, validity at byte 8
-    # (RowConversion.java:60-72)
-    size, n_words, first, entries, voff = K.pack_plan((1, 2, 4))
-    assert (size, n_words, voff) == (16, 4, 8)
-    assert entries[first[0]:first[1]] == (0 | 1 << 32,
-                                          1 | 2 << 32 | 16 << 48)
-    assert entries[first[1]:first[2]] == (2 | 4 << 32,)
-    # an 8-byte column gives its low word, then its high word
-    _, _, first, entries, _ = K.pack_plan((8,))
-    assert entries[first[0]:first[2]] == (8 << 32, 8 << 32 | 32 << 40)
+    # (RowConversion.java:60-72); tiles of 256 rows stage A at byte 0, B
+    # at 256, C at 768, their 8 x 3 validity words at 1792; image rows are
+    # 24 bytes apart (an odd number of 8-byte units)
+    plan = K.pack_plan((1, 2, 4))
+    assert (plan.size_per_row, plan.n_words, plan.validity_offset,
+            plan.tile_rows, plan.img_stride) == (16, 4, 8, 256, 24)
+    assert plan.cols == ((0 | 1 << 24, 0), (256 | 2 << 24, 2),
+                         (768 | 4 << 24, 4))
+    assert plan.segments == ((0, 3, 0, 16, 0, 3, 1792),)
+    assert plan.buf_bytes == 1792 + 96 and plan.smem_bytes == \
+        2 * 1888 + 256 * 24
+    assert plan.words() == (0, 3, 0, 16, 0, 3, 1792, 0,
+                            1 << 24, 0, 256 | 2 << 24, 2, 768 | 4 << 24, 4)
+    # TestTables.java's 200-byte rows are an odd number of 8-byte units:
+    # the image is the output's run of rows
+    plan = K.pack_plan((8, 8, 4, 1, 4, 1, 4, 8) * 4)
+    assert (plan.tile_rows, plan.img_stride) == (192, 200)
+    # 640-byte rows: 64 rows with two blocks an SM, so one block takes the
+    # SM for 128; image rows padded to 648 bytes
+    plan = K.pack_plan((8, 8, 4, 1, 4, 1, 4, 8) * 13)
+    assert (plan.tile_rows, plan.img_stride) == (128, 648)
+    assert K.PACK_SMEM_BYTES < plan.smem_bytes <= K.PACK_SMEM_ONE_BLOCK
+
+
+@pytest.mark.parametrize("widths", [_SEGMENTED, (1,) * 20_000,
+                                    (4, 8, 1, 2) * 700])
+def test_pack_plan_segments_partition_the_row(widths):
+    # rows too wide for a 32-row tile: segments cut at 16-byte boundaries
+    # own whole columns and bytes, cover the row in order, and their
+    # buffers and images fit the block's shared memory together
+    plan = K.pack_plan(widths)
+    size, starts, voff = fixed_width_layout(widths)
+    k = len(widths)
+    assert plan.tile_rows == 32 and len(plan.segments) > 1
+    assert plan.smem_bytes <= K.PACK_SMEM_BYTES
+    c_at, b_at, v_at = 0, 0, 0
+    for c0, c1, lo, hi, vc0, vc1, _ in plan.segments:
+        assert (c0, lo) == (c_at, b_at) or c0 == c1
+        assert lo % 16 == 0 and hi > lo and (hi - lo) % 8 == 0
+        assert all(lo <= starts[c] and starts[c] + widths[c] <= hi
+                   for c in range(c0, c1))
+        if vc1 > vc0:
+            assert vc0 == v_at and vc0 == 8 * max(lo - voff, 0)
+            v_at = vc1
+        c_at, b_at = max(c_at, c1), hi
+    assert (c_at, b_at, v_at) == (k, size, k)
 
 
 def test_pack_rows_rejects_bad_inputs():
