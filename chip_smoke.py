@@ -297,8 +297,7 @@ def _launches(name: str, args: tuple) -> int:
     launches once when its table fits in shared memory, else its build and
     its probe."""
     if name == "hash_join_probe":
-        shared = K.hash_table_capacity(args[0].numel()) \
-            <= K.PROBE_SHARED_SLOTS
+        shared = K.probe_table_shared(args[0].numel())
         return 0 if not args[1].numel() else 1 if shared else 2
     first = args[0][0] if name == "pack_rows" else args[0]
     return 1 if first.numel() else 0

@@ -22,7 +22,8 @@
 //   stores. The kernels are held to 32 registers, so 2,048 threads (4,096
 //   walks) fit on an SM: four walks a thread took 57 registers, half the
 //   threads, and each thread waited for the longest of its four walks.
-// - A table of at most kSharedSlots slots (128 KB) is built by every
+// - A small table (the caller passes none; ops/cuda_kernels.py
+//   `probe_table_shared` allows 8,192 slots, 128 KB) is built by every
 //   block of a persistent grid in its own shared memory from the build
 //   keys, and probed there: one launch, no fill, no build kernel. The
 //   build costs each block n_build key reads from L2; on the main path
@@ -49,7 +50,6 @@ namespace {
 constexpr int kThreads = 256;         // build and global-table probe
 constexpr int kSharedThreads = 1024;  // shared-table probe (one block an SM
                                       // at 128 KB still has 32 warps)
-constexpr int kSharedSlots = 8192;    // 16 B each: 128 KB of shared memory
 constexpr int kSmPerSm = 228 * 1024;  // shared memory of one SM
 constexpr int kSmPerBlockOverhead = 1024;
 constexpr int64_t kMaxBlocks = 1 << 20;
@@ -224,11 +224,10 @@ unsigned int blocks_for(int64_t n, int threads) {
 
 }  // namespace
 
-// capacity is a power of two. A capacity of at most kSharedSlots takes one
-// launch and needs no table (`table` may be null). A larger one needs
-// `table`, capacity x 16 bytes, which this call fills and builds. Returns
-// the CUDA error of the calls (0 = success), or cudaErrorInvalidValue for
-// a missing table.
+// capacity is a power of two. With no `table` (null), each block builds
+// the table in its shared memory, capacity x 16 bytes of it, in one
+// launch. Else `table` is capacity x 16 bytes on the card, which this call
+// fills and builds. Returns the CUDA error of the calls (0 = success).
 extern "C" int srt_hash_join_probe(const void* build_keys,
                                    const void* build_live, long long n_build,
                                    const void* probe_keys,
@@ -245,15 +244,14 @@ extern "C" int srt_hash_join_probe(const void* build_keys,
   uint8_t* found = static_cast<uint8_t*>(out_found);
   if (n_probe <= 0) return 0;
   const int64_t groups = (n_probe + 1) / 2;
-  if (capacity <= kSharedSlots) {
+  if (table == nullptr) {
     const int smem = capacity * static_cast<int>(sizeof(int4));
-    static int smem_allowed = 48 * 1024;
-    if (smem > smem_allowed) {
+    if (smem > 48 * 1024) {
+      // per device, so set before every such launch (it is cheap)
       const cudaError_t err = cudaFuncSetAttribute(
           build_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          kSharedSlots * static_cast<int>(sizeof(int4)));
+          smem);
       if (err != cudaSuccess) return static_cast<int>(err);
-      smem_allowed = kSharedSlots * static_cast<int>(sizeof(int4));
     }
     int dev = 0, sms = 0;
     cudaGetDevice(&dev);
@@ -268,7 +266,6 @@ extern "C" int srt_hash_join_probe(const void* build_keys,
                                     idx, found);
     return static_cast<int>(cudaGetLastError());
   }
-  if (table == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   int4* t = static_cast<int4*>(table);
   cudaError_t err = cudaMemsetAsync(
       t, 0xFF, static_cast<size_t>(capacity) * sizeof(int4), s);

@@ -364,13 +364,12 @@ extern "C" int srt_pack_rows(const int* plan, int n_cols, int row_bytes,
   a.n_tiles = static_cast<int>((n_rows + tile_rows - 1) / tile_rows);
   a.buf_bytes = buf_bytes;
   a.img_stride = img_stride;
-  static int smem_allowed = 48 * 1024;
-  if (smem > smem_allowed) {
+  if (smem > 48 * 1024) {
+    // per device, so set before every such launch (it is cheap)
     const cudaError_t err = cudaFuncSetAttribute(
         pack_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         kMaxSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    smem_allowed = kMaxSmem;
   }
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);

@@ -26,7 +26,7 @@ Each wrapper takes its plain PyTorch version for CPU tensors only. For a
 CUDA tensor it launches the kernel on the current stream or raises:
 there is no fallback. ``LAUNCHES`` counts the ``__global__`` launches
 per kernel name, bumped only where a wrapper launches: K1 launches once
-when its table fits in shared memory (``PROBE_SHARED_SLOTS``) and
+when its table fits in shared memory (``probe_table_shared``) and
 otherwise its build and then its probe, the others one each. A call with
 no rows launches nothing (a zero-block grid is a launch error).
 """
@@ -62,7 +62,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 # K1 tables of at most this many 16-byte slots (128 KB) are built in each
-# block's shared memory (csrc/hash_join_probe.cu kSharedSlots)
+# block's shared memory (``probe_table_shared``)
 PROBE_SHARED_SLOTS = 1 << 13
 
 # K2's per-block shared memory is width x 12 B; 8192 slots = 96 KB, the
@@ -275,6 +275,13 @@ def hash_join_probe_plain(build_keys: torch.Tensor, probe_keys: torch.Tensor,
     return idx, found
 
 
+def probe_table_shared(n_build: int) -> bool:
+    """Whether K1's table of ``n_build`` build rows is built in each
+    block's shared memory (one launch) rather than on the card (its build
+    and its probe: two launches)."""
+    return hash_table_capacity(n_build) <= PROBE_SHARED_SLOTS
+
+
 def hash_join_probe(build_keys: torch.Tensor, probe_keys: torch.Tensor,
                     build_live: Optional[torch.Tensor] = None,
                     probe_live: Optional[torch.Tensor] = None
@@ -302,10 +309,10 @@ def hash_join_probe(build_keys: torch.Tensor, probe_keys: torch.Tensor,
         return idx, found
     cap = hash_table_capacity(n_build)
     expects(cap < 2**31, "hash table capacity exceeds int32")
-    # a table of at most PROBE_SHARED_SLOTS slots lives in each block's
-    # shared memory (one launch); a larger one is 16-byte slots on the card
-    # (filled, built, then probed: two launches)
-    shared = cap <= PROBE_SHARED_SLOTS
+    # no table: the kernel builds one in each block's shared memory (one
+    # launch); else 16-byte slots on the card (filled, built, then probed:
+    # two launches)
+    shared = probe_table_shared(n_build)
     table = None if shared else torch.empty(
         (cap, 4), dtype=torch.int32, device=dev)
     rc = kernels().srt_hash_join_probe(

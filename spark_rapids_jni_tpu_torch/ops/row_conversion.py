@@ -132,14 +132,9 @@ def convert_to_rows(table: Table) -> List[Column]:
     out: List[Column] = []
     for row_start in range(0, max(num_rows, 1), step):
         row_count = min(num_rows - row_start, step)
-        # a table of one batch goes to K6 unsliced (host time per column)
-        words_per_col = (num_rows + 31) // 32
-        whole = row_count == num_rows and all(
-            int(c.data.shape[0]) == num_rows and (
-                c.validity is None
-                or int(c.validity.shape[0]) == words_per_col)
-            for c in table.columns)
-        batch = (table.columns if whole else
+        # a table of one batch goes to K6 unsliced (host time per column);
+        # pack_rows checks each column's length
+        batch = (table.columns if row_count == num_rows else
                  [slice_rows(c, row_start, row_start + row_count)
                   for c in table.columns])
         words = K.pack_rows([c.data for c in batch], widths,

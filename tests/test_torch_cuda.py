@@ -59,7 +59,7 @@ def test_cuda_hash_join_probe_both_tables(cuda_device, n_build, n_probe):
     # build sizes on both sides of PROBE_SHARED_SLOTS, probes of 1 and
     # 10M + 3 rows (a last group of three)
     args = _probe_case(cuda_device, n_build, n_probe, n_build + n_probe)
-    shared = K.hash_table_capacity(n_build) <= K.PROBE_SHARED_SLOTS
+    shared = K.probe_table_shared(n_build)
     assert shared == (n_build <= 4096)
     before = K.LAUNCHES["hash_join_probe"]
     got = K.hash_join_probe(*args)
