@@ -12,7 +12,9 @@ In order, it:
 2. holds each kernel against its plain PyTorch version on the card at
    stress shapes (exact equality required): K1 with 15,811 build and 10M
    probe rows, K2 with 10M rows at widths 8192 and 10 and values near
-   +-2^63, K3 with 10M + 7 rows;
+   +-2^63, K3 with 10M + 7 rows (once from a 16-byte boundary, once 5
+   bytes past one) and its table form on the validity bytes of a
+   12M-row, 32-field row matrix and of a 1M-row, 1500-field one;
 3. generates the TPC-DS miniature at sf=1000, seed 7 (a 10,000,000-row
    store_sales), ingests it on the card and runs q1-q10
    through ``run_fused``, with every kernel launch count set to 0 just
@@ -45,15 +47,19 @@ In order, it:
    2 GB: 10,737,408 and 1,262,592 rows); 1,000,000 rows plus two
    nullable STRING columns (the torch route); 1,000,000 rows of the
    schema repeated 13 times (104 columns, 1% nulls). With the counts set
-   to 0 just before ``convert_to_rows`` of the five and read just after,
-   it requires K6 to have been launched (five times), each K6 call to equal
-   ``pack_rows_plain`` byte for byte, and ``convert_from_rows`` to give
-   back every valid value (float NaN payloads byte for byte) and every
-   validity bit; it prints ms and GB/s of row bytes both ways, and each
-   conversion's ``convert_to_rows`` wall time beside the device time of
-   its K6 calls (the rest is host work and idle card);
+   to 0 just before ``convert_to_rows`` of the five and
+   ``convert_from_rows`` of each of their batches, and read just after,
+   it requires K6 to have been launched once per batch of the four
+   fixed-width tables, K3's table form once per batch of all five, each
+   K6 and K3 call to equal its plain version exactly, and
+   ``convert_from_rows`` to give back every valid value (float NaN
+   payloads byte for byte) and every validity bit; it prints ms and GB/s
+   of row bytes both ways, and each conversion's wall time beside the
+   device time of its K6 (to rows) or K3 (from rows) calls (the rest is
+   host work, other kernels and idle card);
 8. prints the ``kernels`` JSON line (K1-K6, each with its launches on
-   its own path), the card again, and as the last line
+   its paths: K3 on q1-q10 and, in its table form, on the row
+   conversions), the card again, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Every kernel time is device time from CUDA events, the median of 10 runs
@@ -64,8 +70,8 @@ function, and the bound: the larger of the bytes the function must move
 over the card's 3.35 TB/s and its operations over 67 T/s, or, for K2,
 the updates of its busiest slot at one shared-memory atomic per SM
 clock. The ``kernels`` line sums each kernel over its calls on its
-path: K1-K3 over q1-q10, K4 and K5 over the hashing step, K6 over the
-row-conversion step.
+paths: K1-K3 over q1-q10, K4 and K5 over the hashing step, K6 and K3's
+table form over the row-conversion step.
 
 ``--profile`` adds one warm run of each query, table hash and row
 conversion under ``torch.profiler``: the device time of its kernels, the
@@ -112,8 +118,18 @@ PALLAS = "spark_rapids_jni_tpu/ops/pallas_kernels.py"
 SF, SEED, REPS = 1000, 7, 10  # the main path's scale, its seed, timing runs
 Q_NAMES = ("hash_join_probe", "ragged_groupby_sum_count", "bitmask_pack")
 HASH_NAMES = ("murmur3_int32", "murmur3_int64")
-ROW_NAMES = ("pack_rows",)
-NAMES = Q_NAMES + HASH_NAMES + ROW_NAMES
+ROW_NAMES = ("pack_rows", "bitmask_pack", "bitmask_pack_fields")
+NAMES = tuple(dict.fromkeys(Q_NAMES + HASH_NAMES + ROW_NAMES))
+# the kernels line: each kernel and the (path, wrapper) pairs it sums
+KERNELS = (("hash_join_probe", (("q1-q10", "hash_join_probe"),)),
+           ("ragged_groupby_sum_count",
+            (("q1-q10", "ragged_groupby_sum_count"),)),
+           ("bitmask_pack", (("q1-q10", "bitmask_pack"),
+                             ("row conversion", "bitmask_pack"),
+                             ("row conversion", "bitmask_pack_fields"))),
+           ("murmur3_int32", (("hashing", "murmur3_int32"),)),
+           ("murmur3_int64", (("hashing", "murmur3_int64"),)),
+           ("pack_rows", (("row conversion", "pack_rows"),)))
 HASH_ROWS, HASH_CPU_ROWS = 10_000_000, 1_000_000
 # the wrappers as the port defines them (the recording pass swaps the
 # module's names for recorders that call these)
@@ -223,7 +239,19 @@ def k2_cost(slots, live, values, width):
 def k3_cost(valid):
     n = int(valid.numel())
     return n + 4 * ((n + 31) // 32), n, 0, \
-        f"{n} bool -> {(n + 31) // 32} uint32 words"
+        f"{n} bool -> {(n + 31) // 32} uint32 words" + (
+            f" ({valid.data_ptr() % 16} B past a 16-byte boundary)"
+            if valid.data_ptr() % 16 else "")
+
+
+def k3_fields_cost(vbytes, n_fields):
+    """Bytes: each row's validity bytes read once, every column's words
+    written once; one operation a bit."""
+    n, nbytes = vbytes.shape
+    words = (n + 31) // 32
+    return n * nbytes + 4 * n_fields * words, n * n_fields, 0, \
+        f"{n} rows x {n_fields} fields (row stride {vbytes.stride(0)} B) " \
+        f"-> {n_fields} x {words} uint32 words"
 
 
 def k4_cost(blocks, seeds):
@@ -277,6 +305,10 @@ SPECS = {
         source="spark_rapids_jni_tpu_torch/csrc/bitmask_pack.cu",
         replaces=f"{PALLAS}:184", plain=K.bitmask_pack_plain,
         cost=k3_cost, library=None, plain_reps=REPS),
+    "bitmask_pack_fields": dict(
+        source="spark_rapids_jni_tpu_torch/csrc/bitmask_pack.cu",
+        replaces=f"{PALLAS}:184", plain=K.bitmask_pack_fields_plain,
+        cost=k3_fields_cost, library=None, plain_reps=3),
     "murmur3_int32": dict(
         source="spark_rapids_jni_tpu_torch/csrc/murmur3.cu",
         replaces=f"{PALLAS}:81", plain=K.murmur3_int32_plain,
@@ -295,10 +327,12 @@ SPECS = {
 def _launches(name: str, args: tuple) -> int:
     """The ``__global__`` launches one wrapper call on ``args`` makes: K1
     launches once when its table fits in shared memory, else its build and
-    its probe."""
+    its probe; K2 once a call; the others once a call with rows."""
     if name == "hash_join_probe":
         shared = K.probe_table_shared(args[0].numel())
         return 0 if not args[1].numel() else 1 if shared else 2
+    if name == "ragged_groupby_sum_count":
+        return 1
     first = args[0][0] if name == "pack_rows" else args[0]
     return 1 if first.numel() else 0
 
@@ -337,7 +371,10 @@ def stress_cases(dev, gen) -> "list[tuple[str, tuple]]":
     (5% dead). K2: 10M rows over 8192 and over 10 slots, values near
     +-2^63 (the sums wrap mod 2^64), 20% dead rows and a few
     out-of-range slots. K3: 10M + 7 rows (the last word has padding
-    bits)."""
+    bits), from a 16-byte boundary and 5 bytes past one; its table form on
+    the validity bytes of a 12M-row row matrix of the 32-field schema
+    (200-byte rows, bytes 196-199) and of a 1M-row one of 1500 one-byte
+    fields (1688-byte rows, bytes 1500-1687), random bytes in place."""
     n_build, n = 15_811, 10_000_000
     space = 4 * n_build
     build = torch.randperm(space, generator=gen, device=dev)[:n_build]
@@ -357,16 +394,39 @@ def stress_cases(dev, gen) -> "list[tuple[str, tuple]]":
                               device=dev, dtype=torch.int32)
         cases.append(("ragged_groupby_sum_count",
                       (slots, live, values, width)))
-    cases.append(("bitmask_pack",
-                  (torch.rand(n + 7, generator=gen, device=dev) > 0.3,)))
+    flags = torch.rand(n + 16, generator=gen, device=dev) > 0.3
+    cases += [("bitmask_pack", (flags[:n + 7],)),
+              ("bitmask_pack", (flags[5:n + 12],))]
+    for rows, row_bytes, voff, fields in ((12_000_000, 200, 196, 32),
+                                          (1_000_000, 1688, 1500, 1500)):
+        mat = torch.randint(0, 256, (rows, row_bytes), generator=gen,
+                            device=dev, dtype=torch.uint8)
+        cases.append(("bitmask_pack_fields",
+                      (mat[:, voff:voff + (fields + 7) // 8], fields)))
     return cases
+
+
+def _clone(x):
+    """A copy of tensor ``x`` with its shape, strides and address modulo
+    16 (so a recorded call is timed on the layout it had); other values
+    as they are."""
+    if not torch.is_tensor(x):
+        return x
+    if x.numel() == 0 or 0 in x.stride():
+        return x.clone()
+    span = 1 + sum((d - 1) * st for d, st in zip(x.shape, x.stride()))
+    off = x.data_ptr() % 16 // x.element_size()
+    buf = torch.empty(off + span, dtype=x.dtype, device=x.device)
+    y = buf.as_strided(x.shape, x.stride(), off)
+    y.copy_(x)
+    return y
 
 
 @contextlib.contextmanager
 def recording(calls: list, query: list):
     """Swap each wrapper in ``cuda_kernels`` for one that records a copy
-    of its inputs (and the query running, ``query[0]``) in ``calls``,
-    then calls the wrapper."""
+    of its inputs (``_clone``; and the query running, ``query[0]``) in
+    ``calls``, then calls the wrapper."""
     def recorder(name):
         sig = inspect.signature(WRAPPERS[name])
 
@@ -374,8 +434,7 @@ def recording(calls: list, query: list):
             bound_args = sig.bind(*a, **kw)
             bound_args.apply_defaults()
             calls.append((query[0], name, tuple(
-                x.clone() if torch.is_tensor(x) else x
-                for x in bound_args.args)))
+                _clone(x) for x in bound_args.args)))
             return WRAPPERS[name](*a, **kw)
         return record
     try:
@@ -460,8 +519,9 @@ def _count_syncs(fn):
 # the __global__ functions of csrc/*.cu (templates included), as the
 # profiler names them
 HAND_KERNEL = re.compile(r"(?:^|::)(?:build|probe|build_probe|"
-                         r"ragged_groupby|bitmask_pack|murmur3_int32|"
-                         r"murmur3_int64|pack_rows)_kernel(?:<[^>]*>)?\(")
+                         r"ragged_groupby|bitmask_pack|bitmask_pack_fields|"
+                         r"murmur3_int32|murmur3_int64|pack_rows)_kernel"
+                         r"(?:<[^>]*>)?\(")
 
 
 def profile_run(fn, wall: float, label: str, log) -> dict:
@@ -835,8 +895,8 @@ def _same_columns(got: Table, want: Table) -> bool:
 
 
 def run_row_conversion(dev, gen, log, profile: bool = False):
-    """Step 7: convert_to_rows / convert_from_rows, K6's launches and
-    the round trip."""
+    """Step 7: convert_to_rows / convert_from_rows, K6's and K3's
+    launches and the round trip."""
     cases = ROW_CASES
     tables = [rows_table(dev, gen, *case[1:]) for case in cases]
     torch.cuda.synchronize()
@@ -844,10 +904,12 @@ def run_row_conversion(dev, gen, log, profile: bool = False):
     before = kernel_stats()
     K.reset_launch_counts()
     with recording(calls, query):
-        rows = []
+        rows, backs = [], []
         for (label, *_), t in zip(cases, tables):
             query[0] = label
             rows.append(rc.convert_to_rows(t))
+            backs.append([rc.convert_from_rows(b, t.schema())
+                          for b in rows[-1]])
         torch.cuda.synchronize()
     launches = {n: K.LAUNCHES[n] for n in ROW_NAMES}
     routes = {k: v for k, v in stats_since(before).items()
@@ -858,6 +920,10 @@ def run_row_conversion(dev, gen, log, profile: bool = False):
     _require(launches["pack_rows"] == want,
              f"K6 launched {launches['pack_rows']} times, want {want}: one "
              "per batch of each fixed-width table")
+    want = sum(len(b) for b in rows)
+    _require(launches["bitmask_pack_fields"] == want,
+             f"K3's table form launched {launches['bitmask_pack_fields']} "
+             f"times, want {want}: one per batch converted from rows")
     _require(routes == {"row_conversion.route.pack_rows": 4,
                         "row_conversion.route.torch": 1},
              f"row-conversion routes {routes}")
@@ -867,17 +933,17 @@ def run_row_conversion(dev, gen, log, profile: bool = False):
              f"{n_big} rows split as {[b.size for b in rows[2]]}, want "
              f"{[step, n_big - step]}")
     results = []
-    for (label, n, *_), t, batches in zip(cases, tables, rows):
+    for (label, n, *_), t, batches, back in zip(cases, tables, rows, backs):
         schema = t.schema()
         start = 0
-        for b in batches:
-            back = rc.convert_from_rows(b, schema)
+        for b, got in zip(batches, back):
             part = Table([rc.slice_rows(c, start, start + b.size)
                           for c in t.columns])
-            _require(_same_columns(back, part),
+            _require(_same_columns(got, part),
                      f"{label}: the round trip lost a value or a bit")
             start += b.size
-        del back, part
+        del got, part
+        back.clear()
         nbytes = sum(int(b.child.size) for b in batches)
         to_ms = wall_ms(lambda: rc.convert_to_rows(t))
         from_ms = wall_ms(lambda: [rc.convert_from_rows(b, schema)
@@ -898,50 +964,78 @@ def run_row_conversion(dev, gen, log, profile: bool = False):
             r["from_rows_profile"] = profile_run(
                 lambda: [rc.convert_from_rows(b, schema) for b in batches],
                 from_ms, f"from_rows {label}", log)
-    del rows, tables
+    del rows, tables, backs
     return {"cases": results, "launches": launches, "routes": routes}, calls
 
 
-def k6_beside_wall(cases: list, per_call: list, card: str, log) -> None:
-    """Each conversion's ``convert_to_rows`` wall time beside the device
-    time of its K6 calls: the rest is the host's work and the card's idle
-    time around K6."""
+def kernels_beside_wall(cases: list, totals: dict, card: str, log) -> None:
+    """Each conversion's wall time beside the device time of its kernel
+    calls, K6 in ``convert_to_rows`` and K3's table form in
+    ``convert_from_rows``: the rest is the host's work, other kernels and
+    the card's idle time."""
     for r in cases:
-        k6 = [c["ms"] for c in per_call if c["query"] == r["case"]]
-        if not k6:
-            continue
-        r["k6_ms"] = sum(k6)
-        r["k6_share_of_to_rows"] = r["k6_ms"] / r["to_rows_ms"]
-        log(f"rows {r['case']}: convert_to_rows {r['to_rows_ms']:.3f} ms "
-            f"wall, K6 {r['k6_ms']:.4f} ms in {len(k6)} call(s) = "
-            f"{r['k6_share_of_to_rows']:.3f} of it; idle around K6 "
-            f"{1 - r['k6_share_of_to_rows']:.3f} [{card}]")
+        for way, key, name in (("to_rows", "k6", "pack_rows"),
+                               ("from_rows", "k3", "bitmask_pack_fields")):
+            ms = [c["ms"] for c in totals[name]["per_call"]
+                  if c["query"] == r["case"]]
+            if not ms:
+                continue
+            r[f"{key}_ms"] = sum(ms)
+            share = r[f"{key}_share_of_{way}"] = sum(ms) / r[f"{way}_ms"]
+            log(f"rows {r['case']}: convert_{way} {r[f'{way}_ms']:.3f} ms "
+                f"wall, {key.upper()} {sum(ms):.4f} ms in {len(ms)} "
+                f"call(s) = {share:.3f} of it [{card}]")
 
 
-def kernel_entries(totals: dict, launches: dict, names: tuple, path: str,
-                   card: str, stress: list, log) -> list:
-    """The ``kernels`` line's entries of one path's kernels."""
+def kernel_entries(totals: dict, launches: dict, card: str, stress: list,
+                   log) -> list:
+    """The ``kernels`` line: each kernel of ``KERNELS`` summed over its
+    (path, wrapper) parts, ``totals`` and ``launches`` keyed by path and
+    then wrapper, with each part's calls, launches and times beside."""
     out = []
-    for name in names:
-        t, spec = totals[name], SPECS[name]
-        lib = ("none (no single PyTorch call computes it)"
-               if t["library_ms"] is None
-               else f"{t['library_ms']:.4f} (int64 index_add_, sums only)")
-        log(f"kernel {name}: {path} calls={t['calls']} "
-            f"launches={launches[name]} kernel_ms={t['ms']:.4f} "
-            f"plain_ms={t['plain_ms']:.4f} bound_ms={t['bound_ms']:.4g} "
-            f"({t['bound_by']}) library_ms={lib} [{card}]")
-        out.append({
+    for name, parts in KERNELS:
+        spec = SPECS[name]
+        wrappers = {w for _, w in parts}
+        ts = [(p, w, totals[p][w], launches[p].get(w, 0)) for p, w in parts]
+        ts = [x for x in ts if x[2]["calls"] or x[3]]
+        by = {"bytes": 0.0, "operations": 0.0}
+        for _, _, t, _ in ts:
+            for r in t["per_call"]:
+                by[r["bound_by"]] += r["bound_ms"]
+        libs = [t["library_ms"] for _, _, t, _ in ts]
+        entry = {
             "name": name, "route": "cuda", "source": spec["source"],
-            "replaces": spec["replaces"], "launches": launches[name],
-            "calls": t["calls"], "path": path,
-            "max_abs_err": max([t["max_abs_err"]] + [
-                r["max_abs_err"] for r in stress if r["name"] == name]),
-            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                 "library_ms")},
+            "replaces": spec["replaces"],
+            "launches": sum(n for *_, n in ts),
+            "calls": sum(t["calls"] for _, _, t, _ in ts),
+            "path": " + ".join(dict.fromkeys(p for p, *_ in ts)),
+            "max_abs_err": max([t["max_abs_err"] for _, _, t, _ in ts] + [
+                r["max_abs_err"] for r in stress if r["name"] in wrappers],
+                default=0),
+            "ms": sum(t["ms"] for _, _, t, _ in ts),
+            "plain_ms": sum(t["plain_ms"] for _, _, t, _ in ts),
+            "bound_ms": sum(by.values()), "bound_by": max(by, key=by.get),
+            "library_ms": None if None in libs else sum(libs),
+            "parts": [{"path": p, "wrapper": w, "calls": t["calls"],
+                       "launches": n, **{k: t[k] for k in (
+                           "ms", "plain_ms", "bound_ms", "library_ms")}}
+                      for p, w, t, n in ts],
             "stress": [{k: r[k] for k in (
                 "shape", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")} for r in stress if r["name"] == name]})
+                "library_ms")} for r in stress if r["name"] in wrappers]}
+        out.append(entry)
+        lib = ("none (no single PyTorch call computes it)"
+               if entry["library_ms"] is None
+               else f"{entry['library_ms']:.4f} (int64 index_add_, sums "
+               "only)")
+        each = "; ".join(f"{x['path']} {x['wrapper']}: calls={x['calls']} "
+                         f"launches={x['launches']} ms={x['ms']:.4f}"
+                         for x in entry["parts"])
+        log(f"kernel {name}: {entry['path']} calls={entry['calls']} "
+            f"launches={entry['launches']} kernel_ms={entry['ms']:.4f} "
+            f"plain_ms={entry['plain_ms']:.4f} "
+            f"bound_ms={entry['bound_ms']:.4g} ({entry['bound_by']}) "
+            f"library_ms={lib} [{each}] [{card}]")
     return out
 
 
@@ -994,14 +1088,16 @@ def main(argv=None) -> int:
                                            profile=args.profile)
     log("main-path kernel calls, each equal to its plain version on the "
         "inputs q1-q10 gave it:")
-    totals = path_kernels(calls, main_path["launches"], Q_NAMES, log)
+    totals = {"q1-q10": path_kernels(calls, main_path["launches"], Q_NAMES,
+                                     log)}
     del calls
 
     t0 = time.perf_counter()
     hashed, calls = run_hashing(dev, gen, rels, log, args.profile)
     del rels
     log("hashing kernel calls, each equal to its plain version:")
-    totals |= path_kernels(calls, hashed["launches"], HASH_NAMES, log)
+    totals["hashing"] = path_kernels(calls, hashed["launches"], HASH_NAMES,
+                                     log)
     del calls
     hashed["step_s"] = time.perf_counter() - t0
     log(f"hashing step: {hashed['step_s']:.3f} s")
@@ -1009,19 +1105,17 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     rows, calls = run_row_conversion(dev, gen, log, args.profile)
     log("row-conversion kernel calls, each equal to its plain version:")
-    totals |= path_kernels(calls, rows["launches"], ROW_NAMES, log)
+    totals["row conversion"] = path_kernels(calls, rows["launches"],
+                                            ROW_NAMES, log)
     del calls
-    k6_beside_wall(rows["cases"], totals["pack_rows"]["per_call"], card, log)
+    kernels_beside_wall(rows["cases"], totals["row conversion"], card, log)
     rows["step_s"] = time.perf_counter() - t0
     log(f"row-conversion step: {rows['step_s']:.3f} s")
 
-    kernels = (
-        kernel_entries(totals, main_path["launches"], Q_NAMES, "q1-q10",
-                       card, stress, log)
-        + kernel_entries(totals, hashed["launches"], HASH_NAMES, "hashing",
-                         card, stress, log)
-        + kernel_entries(totals, rows["launches"], ROW_NAMES,
-                         "row conversion", card, stress, log))
+    kernels = kernel_entries(
+        totals, {"q1-q10": main_path["launches"],
+                 "hashing": hashed["launches"],
+                 "row conversion": rows["launches"]}, card, stress, log)
     if args.out:
         with open(os.path.join(args.out, "chip_smoke_report.json"),
                   "w") as f:

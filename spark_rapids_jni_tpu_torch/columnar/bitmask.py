@@ -1,11 +1,13 @@
 """Validity bitmasks: packed little-endian uint32 words, 1 = valid.
 
 cudf's layout (bit r % 32 of word r / 32). ``pack`` goes through K3
-(``ops/cuda_kernels.bitmask_pack``): a warp-ballot kernel on CUDA
+(``ops/cuda_kernels.bitmask_pack``): a bit-gathering kernel on CUDA
 tensors, its plain reshape-and-weighted-sum version on CPU tensors.
 torch has no uint32 shifts, so ``unpack`` widens the words to int64.
 ``pack_bytes``/``unpack_bytes`` are the row format's per-row validity
-bytes: bit ``c % 8`` of byte ``c / 8`` is column ``c``.
+bytes: bit ``c % 8`` of byte ``c / 8`` is column ``c``. ``pack_fields``
+packs every column of such bytes at once, through K3's table form
+(``ops/cuda_kernels.bitmask_pack_fields``: one launch on CUDA tensors).
 """
 
 from __future__ import annotations
@@ -24,6 +26,14 @@ def pack(valid: torch.Tensor) -> torch.Tensor:
     """bool (N,) -> uint32 words (num_words(N),), LSB-first, padding 0."""
     from ..ops.cuda_kernels import bitmask_pack
     return bitmask_pack(valid.to(torch.bool))
+
+
+def pack_fields(vbytes: torch.Tensor, n_fields: int) -> torch.Tensor:
+    """uint8 (N, ceil(n_fields / 8)) validity bytes, at any row stride ->
+    uint32 (n_fields, num_words(N)): row ``c`` is column ``c``'s words,
+    equal to ``pack(unpack_bytes(vbytes, n_fields)[:, c])``."""
+    from ..ops.cuda_kernels import bitmask_pack_fields
+    return bitmask_pack_fields(vbytes, n_fields)
 
 
 def unpack(words: torch.Tensor, n_rows: int) -> torch.Tensor:

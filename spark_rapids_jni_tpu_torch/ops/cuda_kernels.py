@@ -8,7 +8,8 @@ pallas_kernels.py``) become CUDA C++ under ``csrc/``:
 - K2 ``ragged_groupby_sum_count`` (``csrc/ragged_groupby.cu``) replaces
   ``_ragged_groupby`` / ``ragged_groupby_sum_count_pallas``;
 - K3 ``bitmask_pack`` (``csrc/bitmask_pack.cu``) replaces
-  ``bitmask_pack_pallas``;
+  ``bitmask_pack_pallas``; its table form ``bitmask_pack_fields`` packs
+  every column of the row format's validity bytes in one launch;
 - K4 ``murmur3_int32`` and K5 ``murmur3_int64`` (``csrc/murmur3.cu``)
   replace ``murmur3_int32_pallas`` and ``murmur3_int64_pallas``
   (``hashing.murmur3_table`` chains K5 over int64 columns as
@@ -27,8 +28,10 @@ CUDA tensor it launches the kernel on the current stream or raises:
 there is no fallback. ``LAUNCHES`` counts the ``__global__`` launches
 per kernel name, bumped only where a wrapper launches: K1 launches once
 when its table fits in shared memory (``probe_table_shared``) and
-otherwise its build and then its probe, the others one each. A call with
-no rows launches nothing (a zero-block grid is a launch error).
+otherwise its build and then its probe, K2 once a call (it writes its
+outputs whole, so a call with no rows launches it too), the others one
+each. Any other call with no rows launches nothing (a zero-block grid is
+a launch error).
 """
 
 from __future__ import annotations
@@ -65,13 +68,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # block's shared memory (``probe_table_shared``)
 PROBE_SHARED_SLOTS = 1 << 13
 
-# K2's per-block shared memory is width x 12 B; 8192 slots = 96 KB, the
-# same width cap as the reference's PALLAS_GROUPBY_MAX_WIDTH.
+# K2's per-block shared memory is width x 12 B a copy; 8192 slots = 96 KB,
+# the same width cap as the reference's PALLAS_GROUPBY_MAX_WIDTH.
 RAGGED_MAX_WIDTH = 1 << 13
+# the shared memory K2's copies of the slots may take (ragged_copies)
+RAGGED_COPY_BYTES = 192 * 1024
+# K2 launches a block for each this many rows, up to one an SM
+# (csrc/ragged_groupby.cu kBlockRows); the workspace holds their partials
+RAGGED_BLOCK_ROWS = 2048
 
 # __global__ launches per kernel name (K1 "hash_join_probe", K2
-# "ragged_groupby_sum_count", K3 "bitmask_pack", K4 "murmur3_int32", K5
-# "murmur3_int64", K6 "pack_rows")
+# "ragged_groupby_sum_count", K3 "bitmask_pack" and its table form
+# "bitmask_pack_fields", K4 "murmur3_int32", K5 "murmur3_int64", K6
+# "pack_rows")
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
 
 
@@ -138,13 +147,16 @@ def kernels() -> ctypes.CDLL:
     lib.srt_hash_join_probe.argtypes = [
         vp, vp, ll, vp, vp, ll, vp, i, vp, vp, vp]
     lib.srt_ragged_groupby_sum_count.argtypes = [
-        vp, vp, vp, ll, i, vp, vp, vp]
+        vp, vp, vp, ll, i, i, i, vp, vp, vp, vp]
+    lib.srt_ragged_groupby_max_blocks.argtypes = []
     lib.srt_bitmask_pack.argtypes = [vp, ll, vp, ll, vp]
+    lib.srt_bitmask_pack_fields.argtypes = [vp, ll, ll, i, vp, ll, vp]
     lib.srt_murmur3_int32.argtypes = [vp, vp, vp, ll, vp]
     lib.srt_murmur3_int64.argtypes = [vp, vp, vp, ll, vp]
     lib.srt_pack_rows.argtypes = [vp, i, i, i, i, i, i, i, vp, ll, vp, vp]
     for fn in (lib.srt_hash_join_probe, lib.srt_ragged_groupby_sum_count,
-               lib.srt_bitmask_pack, lib.srt_murmur3_int32,
+               lib.srt_ragged_groupby_max_blocks, lib.srt_bitmask_pack,
+               lib.srt_bitmask_pack_fields, lib.srt_murmur3_int32,
                lib.srt_murmur3_int64, lib.srt_pack_rows):
         fn.restype = ctypes.c_int
     return lib
@@ -343,6 +355,26 @@ def ragged_groupby_sum_count_plain(slots: torch.Tensor, live: torch.Tensor,
     return sums[:width], counts[:width]
 
 
+@functools.lru_cache(maxsize=None)
+def _ragged_max_blocks(device_index: int) -> int:
+    """K2's grid cap on a device (its SM count: one block an SM), read
+    once a device."""
+    with torch.cuda.device(device_index):
+        blocks = kernels().srt_ragged_groupby_max_blocks()
+    _check(-blocks if blocks < 0 else 0, "ragged_groupby_sum_count")
+    return blocks
+
+
+def ragged_copies(width: int) -> int:
+    """K2's copies of the slots in each block's shared memory (12 B a slot
+    a copy), as many as fit ``RAGGED_COPY_BYTES``: one a thread (1024, up
+    to 16 slots: plain adds), else a power of two up to one a warp (32,
+    shared-memory atomics). More copies, fewer rows meeting on one
+    address (PERF.md, ``tools/torch_k2_copies.py``)."""
+    fit = RAGGED_COPY_BYTES // (12 * width)
+    return 1024 if fit >= 1024 else min(32, 1 << (fit.bit_length() - 1))
+
+
 def ragged_groupby_sum_count(slots: torch.Tensor, live: torch.Tensor,
                              values: torch.Tensor, width: int
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -362,20 +394,25 @@ def ragged_groupby_sum_count(slots: torch.Tensor, live: torch.Tensor,
     lv = _live_mask(live, dev, n, "live")
     expects(lv is not None, "live mask is required")
     v = _cuda_input(values.to(torch.int64), dev, "values", n)
-    sums = torch.zeros(width, dtype=torch.int64, device=dev)
-    counts = torch.zeros(width, dtype=torch.int32, device=dev)
-    if n == 0:
-        return sums, counts
+    # one launch writes every output slot: nothing is zeroed first
+    blocks = max(1, min(_ragged_max_blocks(dev.index or 0),
+                        -(-n // RAGGED_BLOCK_ROWS)))
+    copies = ragged_copies(width)
+    workspace = torch.empty(blocks * width * 12, dtype=torch.uint8,
+                            device=dev)
+    sums = torch.empty(width, dtype=torch.int64, device=dev)
+    counts = torch.empty(width, dtype=torch.int32, device=dev)
     rc = kernels().srt_ragged_groupby_sum_count(
-        s.data_ptr(), lv.data_ptr(), v.data_ptr(), n, width,
-        sums.data_ptr(), counts.data_ptr(), _stream(dev))
+        s.data_ptr(), lv.data_ptr(), v.data_ptr(), n, width, copies, blocks,
+        workspace.data_ptr(), sums.data_ptr(), counts.data_ptr(),
+        _stream(dev))
     _check(rc, "ragged_groupby_sum_count")
     LAUNCHES["ragged_groupby_sum_count"] += 1
     return sums, counts
 
 
 # --------------------------------------------------------------------------
-# K3: validity bitmask pack
+# K3: validity bitmask pack, a vector and a table of columns
 # --------------------------------------------------------------------------
 
 def bitmask_pack_plain(valid: torch.Tensor) -> torch.Tensor:
@@ -407,6 +444,51 @@ def bitmask_pack(valid: torch.Tensor) -> torch.Tensor:
     _check(rc, "bitmask_pack")
     LAUNCHES["bitmask_pack"] += 1
     return words
+
+
+def bitmask_pack_fields_plain(vbytes: torch.Tensor, n_fields: int
+                              ) -> torch.Tensor:
+    """Plain PyTorch K3, table form: unpack the validity bytes to a bool
+    (N, n_fields) matrix and pack each column as ``bitmask_pack_plain``
+    does, all columns at once."""
+    n = int(vbytes.shape[0])
+    w = (n + 31) // 32
+    bits = torch.zeros((n_fields, w * 32), dtype=torch.int64,
+                       device=vbytes.device)
+    bits[:, :n] = bitmask.unpack_bytes(vbytes, n_fields).T.to(torch.int64)
+    weights = torch.ones(32, dtype=torch.int64, device=vbytes.device) \
+        << torch.arange(32, dtype=torch.int64, device=vbytes.device)
+    return (bits.reshape(n_fields, w, 32) * weights).sum(dim=2) \
+        .to(torch.uint32)
+
+
+def bitmask_pack_fields(vbytes: torch.Tensor, n_fields: int
+                        ) -> torch.Tensor:
+    """The row format's validity bytes, uint8 (N, ceil(n_fields / 8)) at
+    any row stride (bit ``c % 8`` of byte ``c / 8`` is column ``c``) ->
+    uint32 (n_fields, ceil(N/32)): row ``c`` is column ``c``'s words,
+    LSB-first, padding 0. One launch for every column."""
+    n_fields = int(n_fields)
+    expects(vbytes.dtype == torch.uint8 and vbytes.dim() == 2,
+            "bitmask_pack_fields takes a uint8 (rows, bytes) matrix")
+    expects(n_fields > 0 and vbytes.shape[1] == (n_fields + 7) // 8,
+            f"{vbytes.shape[1]} validity bytes a row for {n_fields} fields")
+    dev = vbytes.device
+    if dev.type == "cpu":
+        return bitmask_pack_fields_plain(vbytes, n_fields)
+    n = int(vbytes.shape[0])
+    n_words = (n + 31) // 32
+    out = torch.empty((n_fields, n_words), dtype=torch.uint32, device=dev)
+    if n_words == 0:
+        return out
+    if vbytes.stride(1) != 1:
+        vbytes = vbytes.contiguous()
+    rc = kernels().srt_bitmask_pack_fields(
+        vbytes.data_ptr(), vbytes.stride(0), n, n_fields, out.data_ptr(),
+        n_words, _stream(dev))
+    _check(rc, "bitmask_pack_fields")
+    LAUNCHES["bitmask_pack_fields"] += 1
+    return out
 
 
 # --------------------------------------------------------------------------

@@ -137,20 +137,20 @@ def dense_groupby_sum_count(group_slots: torch.Tensor, mask: torch.Tensor,
 
     Sums accumulate in int64 for every integral input (exact mod 2^64 in
     any order, Spark's long wrap) and in float64 for floats (order-
-    dependent in the last bits). ``cuda`` takes K2 for integral values;
-    float values stay on ``scatter`` (the reference's rule), counted as
-    ``rel.route.groupby.cuda.float_scatter``."""
+    dependent in the last bits). ``cuda`` takes K2 for integral values,
+    with the mask and slots as they are (K2 skips dead and out-of-range
+    rows itself); float values stay on ``scatter`` (the reference's rule),
+    counted as ``rel.route.groupby.cuda.float_scatter``."""
     is_float = values.dtype.is_floating_point
     acc = torch.float64 if is_float else torch.int64
-    live = mask & (group_slots >= 0) & (group_slots < width)
     if method == "cuda":
         if is_float:
             count("rel.route.groupby.cuda.float_scatter")
             method = "scatter"
         else:
             from .cuda_kernels import ragged_groupby_sum_count
-            return ragged_groupby_sum_count(group_slots.to(torch.int32),
-                                            live, values, width)
+            return ragged_groupby_sum_count(group_slots, mask, values, width)
+    live = mask & (group_slots >= 0) & (group_slots < width)
     if method == "onehot":
         # dead rows are zeroed before the product: 0 * NaN would poison
         # the slot. An elementwise product and row sum, not a matmul:

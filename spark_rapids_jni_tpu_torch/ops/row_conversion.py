@@ -20,7 +20,9 @@ Routes: a table whose columns all have widths 1, 2, 4 or 8 goes to K6
 tensor is its plain version; a table with a DECIMAL128 or STRING column
 is built from torch ops. The route is counted
 (``row_conversion.route.pack_rows`` / ``row_conversion.route.torch``).
-``convert_from_rows`` is torch slicing and views.
+``convert_from_rows`` is torch slicing and views for the data, and one
+K3 launch (``cuda_kernels.bitmask_pack_fields``) a batch for every
+column's validity words.
 
 Batches keep each output ``list<int8>`` column below 2 GB, in multiples
 of 32 rows so validity words never split across batches
@@ -258,10 +260,11 @@ def _decode_fixed(mat: torch.Tensor, lay: RowLayout):
         else:
             datas.append(mat.view(dt.to_torch())[:, start // size]
                          .contiguous())
-    vbytes = mat[:, lay.validity_offset:
-                 lay.validity_offset + lay.validity_bytes]
-    valid = bitmask.unpack_bytes(vbytes, len(lay.schema))
-    return datas, [bitmask.pack(valid[:, i]) for i in range(len(lay.schema))]
+    # every column's validity words in one K3 launch, read in place
+    words = bitmask.pack_fields(
+        mat[:, lay.validity_offset:lay.validity_offset + lay.validity_bytes],
+        len(lay.schema))
+    return datas, list(words)
 
 
 def _convert_from_rows_var(rows: Column, lay: RowLayout) -> Table:

@@ -125,6 +125,129 @@ def test_cuda_bitmask_pack_equals_plain(cuda_device, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("start", [0, 1, 5, 8, 15])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 1000, 1023, 1_000_003])
+def test_cuda_bitmask_pack_views_off_alignment(cuda_device, start, n):
+    # a view that starts `start` bytes past a 16-byte boundary, with
+    # set flags on both sides of it that must not leak into the words
+    g = torch.Generator(device=cuda_device).manual_seed(start * 7 + n)
+    flags = torch.rand(n + 64, generator=g, device=cuda_device) > 0.5
+    view = flags[start:start + n]
+    assert view.data_ptr() % 16 == start % 16
+    before = K.LAUNCHES["bitmask_pack"]
+    got = K.bitmask_pack(view)
+    assert K.LAUNCHES["bitmask_pack"] == before + 1
+    assert torch.equal(got.to(torch.int64),
+                       K.bitmask_pack_plain(view).to(torch.int64))
+
+
+def _row_matrix(dev, n, row_bytes, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, 256, (n, row_bytes), generator=g, device=dev,
+                         dtype=torch.uint8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_fields", [1, 9, 32, 33, 104, 1500])
+@pytest.mark.parametrize("n", [1, 33, 1025, 100_003])
+def test_cuda_bitmask_pack_fields_equals_plain(cuda_device, n_fields, n):
+    # the validity bytes as a strided view of a row matrix (first byte at
+    # an odd offset: bytes straddle 4-byte words) and as a matrix of
+    # their own
+    nbytes = (n_fields + 7) // 8
+    row_bytes = (n_fields + nbytes + 7 + 7) // 8 * 8
+    mat = _row_matrix(cuda_device, n, row_bytes, n_fields * 31 + n)
+    for vbytes in (mat[:, n_fields + 1:n_fields + 1 + nbytes],
+                   mat[:, :nbytes].contiguous()):
+        before = K.LAUNCHES["bitmask_pack_fields"]
+        got = K.bitmask_pack_fields(vbytes, n_fields)
+        assert K.LAUNCHES["bitmask_pack_fields"] == before + 1
+        assert got.shape == (n_fields, (n + 31) // 32)
+        want = K.bitmask_pack_fields_plain(vbytes, n_fields)
+        assert torch.equal(got.to(torch.int64), want.to(torch.int64))
+
+
+@pytest.mark.cuda
+def test_cuda_convert_from_rows_packs_validity_in_one_launch(cuda_device):
+    import numpy as np
+    from spark_rapids_jni_tpu_torch.columnar import Column, Table
+    from spark_rapids_jni_tpu_torch.ops import row_conversion as rc
+    r = np.random.default_rng(2)
+    n, k = 100_003, 104
+    t = Table([Column.from_numpy(
+        r.integers(-2**31, 2**31, n).astype(np.int32),
+        r.random(n) > 0.2 if i % 3 else None, device=cuda_device)
+        for i in range(k)])
+    rows = rc.convert_to_rows(t)
+    before = K.LAUNCHES["bitmask_pack_fields"]
+    back = rc.convert_from_rows(rows[0], t.schema())
+    assert K.LAUNCHES["bitmask_pack_fields"] == before + 1
+    for a, b in zip(back.columns, t.columns):
+        assert torch.equal(a.valid_bool(), b.valid_bool())
+
+
+def _groupby_case(dev, n, width, seed, skew=False, dead=False):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    slots = torch.randint(-3, width + 3, (n,), generator=g, device=dev,
+                          dtype=torch.int32)
+    if skew:  # nine rows in ten on the first two slots
+        hot = torch.randint(0, min(2, width), (n,), generator=g, device=dev,
+                            dtype=torch.int32)
+        slots = torch.where(torch.rand(n, generator=g, device=dev) < 0.9,
+                            hot, slots)
+    mag = torch.randint(2**62, 2**63 - 1, (n,), generator=g, device=dev)
+    values = torch.where(torch.rand(n, generator=g, device=dev) < 0.5,
+                         -mag, mag)
+    live = (torch.zeros(n, dtype=torch.bool, device=dev) if dead else
+            torch.rand(n, generator=g, device=dev) > 0.2)
+    return slots, live, values
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [1, 10, 16, 17, 31, 32, 33, 512, 513, 1024,
+                                   8192])
+@pytest.mark.parametrize("n,skew,dead", [
+    (1_000_003, True, False), (1_000_003, False, False),
+    (1_000_003, False, True), (65_537, False, False), (65_536, True, False),
+    (5_000, False, True), (5_000, False, False), (17, False, False),
+    (0, False, False)])
+def test_cuda_ragged_groupby_one_launch_equals_plain(cuda_device, width, n,
+                                                     skew, dead):
+    # values near +-2^63 (the sums wrap), N not a multiple of 16, skewed
+    # and all-dead rows, no rows at all; one block, the small calls read
+    # eagerly (up to 65,536 rows) and the chunked path; every call is one
+    # launch and writes every slot, with nothing zeroed first
+    args = _groupby_case(cuda_device, n, width, width + n, skew, dead) \
+        + (width,)
+    before = K.LAUNCHES["ragged_groupby_sum_count"]
+    got = K.ragged_groupby_sum_count(*args)
+    assert K.LAUNCHES["ragged_groupby_sum_count"] == before + 1
+    want = K.ragged_groupby_sum_count_plain(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if dead or n == 0:
+        assert not bool(got[1].any()) and not bool(got[0].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [10, 8192])
+def test_cuda_ragged_groupby_back_to_back_and_unaligned(cuda_device, width):
+    # calls queued back to back on one stream, each into fresh outputs
+    # over reused workspace memory, then views off 16-byte alignment (the
+    # kernel's byte-at-a-time path)
+    cases = [_groupby_case(cuda_device, n, width, n)
+             for n in (2_000_000, 31_622, 1_000_003)]
+    outs = [K.ragged_groupby_sum_count(*c, width) for c in cases]
+    for c, got in zip(cases, outs):
+        want = K.ragged_groupby_sum_count_plain(*c, width)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    slots, live, values = cases[0]
+    args = (slots[1:-4], live[3:-2], values[2:-3], width)
+    got = K.ragged_groupby_sum_count(*args)
+    want = K.ragged_groupby_sum_count_plain(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
 def test_cuda_wrappers_check_their_inputs(cuda_device):
     from spark_rapids_jni_tpu_torch.utils.errors import CudfLikeError
     probe = torch.arange(100, device=cuda_device)

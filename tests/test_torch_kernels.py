@@ -26,6 +26,7 @@ from spark_rapids_jni_tpu.ops.pallas_kernels import (
     _key_lanes_u32, _probe_hash, bitmask_pack_pallas,
     hash_join_probe_pallas, ragged_groupby_sum_count_pallas)
 
+from spark_rapids_jni_tpu_torch.columnar import bitmask
 from spark_rapids_jni_tpu_torch.obs import kernel_stats, stats_since
 from spark_rapids_jni_tpu_torch.ops import cuda_kernels as K
 from spark_rapids_jni_tpu_torch.ops import fused_pipeline as fp
@@ -218,6 +219,227 @@ def test_bitmask_pack_padding_bits_zero_and_empty():
     got = K.bitmask_pack(torch.ones(33, dtype=torch.bool))
     assert got.tolist() == [0xFFFFFFFF, 1]
     assert K.bitmask_pack(torch.zeros(0, dtype=torch.bool)).shape == (0,)
+
+
+# K3's table form: every column of the row format's validity bytes
+
+def _fields_reference(vbytes: np.ndarray, n_fields: int) -> np.ndarray:
+    """The JAX package's per-column route: unpack_bytes, then pack each
+    column."""
+    valid = ref_bitmask.unpack_bytes(jnp.asarray(vbytes), n_fields)
+    return np.stack([np.asarray(ref_bitmask.pack(valid[:, c]))
+                     for c in range(n_fields)]).reshape(
+                         n_fields, (vbytes.shape[0] + 31) // 32)
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 32, 33, 1000])
+@pytest.mark.parametrize("n_fields", [1, 7, 8, 9, 32, 33, 104])
+def test_bitmask_pack_fields_parity(n_fields, n):
+    rng = np.random.default_rng(1000 * n_fields + n)
+    nbytes = (n_fields + 7) // 8
+    vbytes = rng.integers(0, 256, (n, nbytes), dtype=np.uint8)
+    want = _fields_reference(vbytes, n_fields)
+    got = K.bitmask_pack_fields_plain(_t(vbytes), n_fields)
+    assert got.dtype == torch.uint32 and got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        K.bitmask_pack_fields(_t(vbytes), n_fields).numpy(), want)
+    # row c is what the vector form makes of column c
+    valid = torch.from_numpy(np.asarray(ref_bitmask.unpack_bytes(
+        jnp.asarray(vbytes), n_fields)))
+    for c in range(n_fields):
+        np.testing.assert_array_equal(
+            got[c].numpy(), K.bitmask_pack(valid[:, c].contiguous()).numpy())
+
+
+@pytest.mark.parametrize("n_fields,row_bytes,voff", [
+    (32, 200, 196), (104, 640, 624), (9, 24, 19), (1500, 1688, 1500)])
+def test_bitmask_pack_fields_strided_view(n_fields, row_bytes, voff):
+    # a view of a row matrix, as convert_from_rows passes it: row stride
+    # ``row_bytes``, first byte at ``voff``
+    rng = np.random.default_rng(n_fields)
+    n = 1001
+    mat = _t(rng.integers(0, 256, (n, row_bytes), dtype=np.uint8))
+    nbytes = (n_fields + 7) // 8
+    view = mat[:, voff:voff + nbytes]
+    assert view.stride() == (row_bytes, 1)
+    want = _fields_reference(view.numpy(), n_fields)
+    np.testing.assert_array_equal(
+        K.bitmask_pack_fields(view, n_fields).numpy(), want)
+    np.testing.assert_array_equal(
+        bitmask.pack_fields(view, n_fields).numpy(), want)
+
+
+def test_bitmask_pack_fields_rejects_bad_inputs():
+    with pytest.raises(CudfLikeError, match="validity bytes"):
+        K.bitmask_pack_fields(torch.zeros((4, 2), dtype=torch.uint8), 17)
+    with pytest.raises(CudfLikeError, match="uint8"):
+        K.bitmask_pack_fields(torch.zeros(4, dtype=torch.uint8), 8)
+
+
+def _gather8(x: np.ndarray) -> np.ndarray:
+    """K3's bit gather of 8 bool bytes (a little-endian uint64): byte i
+    to bit i."""
+    with np.errstate(over="ignore"):
+        return ((x & np.uint64(0x0101010101010101))
+                * np.uint64(0x0102040810204080)) >> np.uint64(56)
+
+
+def _k3_vector_model(buf: np.ndarray, start: int, n: int) -> np.ndarray:
+    """numpy model of ``bitmask_pack_kernel`` on the view
+    ``buf[start:start + n]`` (``buf`` begins on a 16-byte boundary):
+    aligned 16-byte chunks from 16-byte boundary below the view, bytes
+    outside the view masked to 0, then each output word a funnel shift of
+    two gathered words by the view's offset past that boundary."""
+    lo, hi = start, start + n
+    base, shift = lo & ~15, lo & 15
+    n_words = (n + 31) // 32
+    padded = np.zeros(max(len(buf), base + 32 * (n_words + 1)) + 16,
+                      np.uint8)
+    padded[:len(buf)] = buf
+
+    def chunk_bits(c):
+        if c + 16 <= lo or c >= hi:
+            return 0
+        q = padded[c:c + 16].view(np.uint64)
+        bits = int(_gather8(q[0])) | int(_gather8(q[1])) << 8
+        if c < lo:
+            bits &= 0xFFFF << (lo - c)
+        if c + 16 > hi:
+            bits &= 0xFFFF >> (c + 16 - hi)
+        return bits & 0xFFFF
+
+    g = [chunk_bits(base + 32 * k) | chunk_bits(base + 32 * k + 16) << 16
+         for k in range(n_words + 1)]
+    return np.array([((g[w + 1] << 32 | g[w]) >> shift) & 0xFFFFFFFF
+                     for w in range(n_words)], np.uint32)
+
+
+@pytest.mark.parametrize("start", [0, 1, 5, 8, 15, 16, 17])
+@pytest.mark.parametrize("n", [0, 1, 15, 16, 31, 32, 33, 1023, 1024, 1057])
+def test_bitmask_pack_bit_gather_model_equals_pack_host(start, n):
+    # the kernel's arithmetic: 64-bit multiply gather, masks at the view's
+    # ends and the funnel shift for a view off a 16-byte boundary; the
+    # bytes around the view are 0/1 as well and must not leak in
+    rng = np.random.default_rng(start * 10_000 + n)
+    buf = (rng.random(start + n + 48) < 0.5).astype(np.uint8)
+    want = bitmask.pack_host(buf[start:start + n].astype(bool))
+    np.testing.assert_array_equal(_k3_vector_model(buf, start, n), want)
+
+
+def test_bitmask_pack_gather_is_lsb_first():
+    for i in range(8):
+        x = np.array([1 << (8 * i)], np.uint64)
+        assert int(_gather8(x)[0]) == 1 << i
+    assert int(_gather8(np.array([0x0101010101010101], np.uint64))[0]) \
+        == 0xFF
+
+
+def _transpose32_model(rows: np.ndarray) -> np.ndarray:
+    """numpy model of K3's ``transpose32``: 32 lanes' uint32 rows, five
+    shuffle-xor rounds swapping the off-diagonal j x j blocks."""
+    x = rows.astype(np.uint64)
+    lane = np.arange(32)
+    j = 16
+    while j:
+        m = np.uint64(0xFFFFFFFF // ((1 << j) + 1))
+        full = np.uint64(0xFFFFFFFF)
+        y = x[lane ^ j]
+        hi = (x & (~m & full)) | ((y >> np.uint64(j)) & m)
+        lo = (x & m) | ((y << np.uint64(j)) & (~m & full))
+        x = np.where((lane & j) != 0, hi, lo)
+        j >>= 1
+    return x.astype(np.uint32)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_bitmask_fields_transpose_model(seed):
+    # lane r's word (bit c = column c of row r) becomes lane c's word
+    # (bit r = row r of column c): the table form's 32 x 32 step
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, 2**32, 32, dtype=np.uint64).astype(np.uint32)
+    bits = (rows[:, None] >> np.arange(32, dtype=np.uint32)) & 1
+    want = (bits.T.astype(np.uint64) << np.arange(32, dtype=np.uint64)) \
+        .sum(axis=1).astype(np.uint32)
+    np.testing.assert_array_equal(_transpose32_model(rows), want)
+
+
+def _k2_reduce_model(width: int, blocks: int, warps: int = 32) -> None:
+    """numpy model of step 3 of ``ragged_groupby_kernel``: every slot is
+    written once, by one warp that (with its parts) reads every block's
+    workspace row once, and the parts stay inside the 1024-slot buffer."""
+    written = np.zeros(width, int)
+    reads = np.zeros((width, blocks), int)
+    per = ((width + blocks - 1) // blocks + 31) // 32 * 32
+    for b in range(blocks):
+        lo, hi = b * per, min(width, b * per + per)
+        ncol = (hi - lo + 31) // 32 if hi > lo else 0
+        if ncol == 0:
+            continue
+        if ncol >= warps:
+            for warp in range(warps):
+                for col in range(warp, ncol, warps):
+                    for lane in range(32):
+                        s = lo + col * 32 + lane
+                        if s < hi:
+                            reads[s] += 1
+                            written[s] += 1
+            continue
+        parts = warps // ncol
+        for warp in range(warps):
+            col, part = divmod(warp, parts)
+            for lane in range(32):
+                s = lo + col * 32 + lane
+                if col < ncol and s < hi:
+                    reads[s, part::parts] += 1
+                    if part == 0:
+                        assert (warp + parts - 1) * 32 + lane < warps * 32
+                        written[s] += 1
+    assert (written == 1).all() and (reads == 1).all()
+
+
+@pytest.mark.parametrize("width", [1, 6, 10, 31, 32, 33, 379, 1000, 1024,
+                                   4096, 8191, 8192])
+@pytest.mark.parametrize("blocks", [1, 2, 7, 31, 132])
+def test_ragged_groupby_reduce_partition_model(width, blocks):
+    _k2_reduce_model(width, blocks)
+
+
+def test_ragged_copies_fit_shared_memory():
+    # one copy a thread (1024) or a power of two up to one a warp (32),
+    # always within the budget and K2's 227 KB of shared memory
+    for width in range(1, K.RAGGED_MAX_WIDTH + 1):
+        copies = K.ragged_copies(width)
+        assert copies == 1024 or copies in (1, 2, 4, 8, 16, 32)
+        assert copies * width * 12 <= K.RAGGED_COPY_BYTES <= 227 * 1024
+        assert (copies == 1024) == (width <= 16)
+        if copies < 32:
+            assert 2 * copies * width * 12 > K.RAGGED_COPY_BYTES
+
+
+def test_dense_groupby_cuda_route_skips_dead_and_out_of_range_rows():
+    # the cuda route hands the mask and slots to K2 as they are; dead,
+    # negative and too-large slots must fall out there
+    rng = np.random.default_rng(17)
+    for width in (1, 10, 33, 8192):
+        n = 3001
+        slots = rng.integers(-width - 5, 2 * width + 5, n).astype(np.int32)
+        mask = rng.random(n) > 0.3
+        vals = rng.integers(-2**63, 2**63 - 1, n, dtype=np.int64,
+                            endpoint=True)
+        got = fp.dense_groupby_sum_count(_t(slots), _t(mask), _t(vals),
+                                         width, "cuda")
+        want = ref_fp.dense_groupby_sum_count(
+            jnp.asarray(slots), jnp.asarray(mask), jnp.asarray(vals), width)
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+        # the reference's kernel, given only the rows it takes
+        ok = mask & (slots >= 0) & (slots < width)
+        rs, rcnt = ragged_groupby_sum_count_pallas(
+            jnp.asarray(np.where(ok, slots, 0).astype(np.int32)),
+            jnp.asarray(ok), jnp.asarray(vals), width)
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(rs))
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(rcnt))
 
 
 def test_wrappers_do_not_count_cpu_calls():

@@ -110,6 +110,34 @@ def test_wide_table_rows_equal_reference():
     _tables_equal(rc.convert_from_rows(rows[0], got.schema()), arrays)
 
 
+@pytest.mark.parametrize("repeats", [4, 13], ids=["32_columns",
+                                                 "104_columns"])
+@pytest.mark.parametrize("null_share", [0.0, 0.15], ids=["all_valid",
+                                                         "nulls"])
+def test_from_rows_equals_reference(repeats, null_share):
+    # the reference's rows decoded by both packages: every column's
+    # validity words (K3's table form here, the reference's per-column
+    # pack there) and data equal
+    rng = np.random.default_rng(repeats * 100 + int(null_share * 100))
+    n = 1001
+    arrays = _arrays(rng, TEST_TABLES_8 * repeats, n, null_share)
+    ref, got = _both(arrays)
+    want_rows = ref_rc.convert_to_rows(ref)[0]
+    rows = rc.convert_to_rows(got)[0]
+    np.testing.assert_array_equal(rows.child.data.numpy(),
+                                  np.asarray(want_rows.child.data))
+    want = ref_rc.convert_from_rows(want_rows, ref.schema())
+    back = rc.convert_from_rows(rows, got.schema())
+    assert back.num_columns == want.num_columns == 8 * repeats
+    for pc, rcol in zip(back.columns, want.columns):
+        assert pc.validity.dtype == torch.uint32
+        np.testing.assert_array_equal(pc.validity.numpy(),
+                                      np.asarray(rcol.validity))
+        np.testing.assert_array_equal(
+            pc.data.numpy().view(np.uint8),
+            np.asarray(rcol.data).view(np.uint8))
+
+
 def test_reference_round_trip_table():
     # RowConversionTest.java:30-38: one null per column
     arrays = []
