@@ -16,18 +16,25 @@ In order, it:
    bytes past one) and its table form on the validity bytes of a
    12M-row, 32-field row matrix and of a 1M-row, 1500-field one;
 3. generates the TPC-DS miniature at sf=1000, seed 7 (a 10,000,000-row
-   store_sales), ingests it on the card and runs q1-q10
+   store_sales), ingests it on the card once and runs q1-q10
    through ``run_fused``, with every kernel launch count set to 0 just
    before and read just after; per query it prints the time, the rows,
-   the route counters and the synchronising CUDA calls that
-   ``torch.cuda.set_sync_debug_mode("warn")`` reports;
+   the route counters, the counted host syncs and the synchronising CUDA
+   calls that ``torch.cuda.set_sync_debug_mode("warn")`` reports, then
+   the warm time (median of 3);
 4. runs q1-q10 once more, recording the inputs of every kernel call,
    and holds each kernel against its plain version on exactly those
    inputs (exact equality required);
 5. requires every result to equal the port's pandas oracle (integers
-   exact, floats within rtol=1e-9, atol=1e-9: atomic float sums change
-   the accumulation order), ``rel.fused_fallbacks == 0`` and at least one
-   launch of each of K1-K3 during q1-q10;
+   and decimals exact, floats within rtol=1e-9, atol=1e-9: atomic float
+   sums change the accumulation order), ``rel.fused_fallbacks == 0``, at
+   most one counted host sync a query and at least one launch of each
+   of K1-K3 during q1-q10; then steps 3-5 again for q11-q20 (string,
+   decimal and window operators) on the same ingested tables, its own
+   path; it also requires q15's ``rel.route.decimal.overflow`` to equal
+   the oracle's count of rows whose DECIMAL32 product passes 2^31 - 1,
+   and q11, q12 and q20 to equal their oracles once more on
+   ``SRT_STRING_ROUTE=bytes``;
 6. hashing (BASELINE config 1): a seeded 10,000,000-row table of int32,
    int64, float64, float32, bool, date32, decimal64, decimal128 and a
    0-32-byte UTF-8 STRING column, 10% nulls each, the floats with +-0.0,
@@ -58,8 +65,8 @@ In order, it:
    device time of its K6 (to rows) or K3 (from rows) calls (the rest is
    host work, other kernels and idle card);
 8. prints the ``kernels`` JSON line (K1-K6, each with its launches on
-   its paths: K3 on q1-q10 and, in its table form, on the row
-   conversions), the card again, and as the last line
+   its paths: K1-K3 on q1-q10 and q11-q20, K3 also, in its table form, on
+   the row conversions), the card again, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Every kernel time is device time from CUDA events, the median of 10 runs
@@ -70,8 +77,8 @@ function, and the bound: the larger of the bytes the function must move
 over the card's 3.35 TB/s and its operations over 67 T/s, or, for K2,
 the updates of its busiest slot at one shared-memory atomic per SM
 clock. The ``kernels`` line sums each kernel over its calls on its
-paths: K1-K3 over q1-q10, K4 and K5 over the hashing step, K6 and K3's
-table form over the row-conversion step.
+paths: K1-K3 over q1-q10 and q11-q20, K4 and K5 over the hashing step,
+K6 and K3's table form over the row-conversion step.
 
 ``--profile`` adds one warm run of each query, table hash and row
 conversion under ``torch.profiler``: the device time of its kernels, the
@@ -116,15 +123,21 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate
 SCALAR_OPS_PER_S = 67e12     # H100 SXM rate outside the tensor cores
 PALLAS = "spark_rapids_jni_tpu/ops/pallas_kernels.py"
 SF, SEED, REPS = 1000, 7, 10  # the main path's scale, its seed, timing runs
+Q1_10 = tuple(f"q{i}" for i in range(1, 11))
+Q11_20 = tuple(f"q{i}" for i in range(11, 21))
+BYTES_ROUTE = ("q11", "q12", "q20")  # run again on SRT_STRING_ROUTE=bytes
 Q_NAMES = ("hash_join_probe", "ragged_groupby_sum_count", "bitmask_pack")
 HASH_NAMES = ("murmur3_int32", "murmur3_int64")
 ROW_NAMES = ("pack_rows", "bitmask_pack", "bitmask_pack_fields")
 NAMES = tuple(dict.fromkeys(Q_NAMES + HASH_NAMES + ROW_NAMES))
 # the kernels line: each kernel and the (path, wrapper) pairs it sums
-KERNELS = (("hash_join_probe", (("q1-q10", "hash_join_probe"),)),
+KERNELS = (("hash_join_probe", (("q1-q10", "hash_join_probe"),
+                                 ("q11-q20", "hash_join_probe"))),
            ("ragged_groupby_sum_count",
-            (("q1-q10", "ragged_groupby_sum_count"),)),
+            (("q1-q10", "ragged_groupby_sum_count"),
+             ("q11-q20", "ragged_groupby_sum_count"))),
            ("bitmask_pack", (("q1-q10", "bitmask_pack"),
+                             ("q11-q20", "bitmask_pack"),
                              ("row conversion", "bitmask_pack"),
                              ("row conversion", "bitmask_pack_fields"))),
            ("murmur3_int32", (("hashing", "murmur3_int32"),)),
@@ -153,6 +166,7 @@ def card_line() -> str:
 # (a 104-column K6 call checks 208 tensors), so that the enqueue stays
 # out of the kernel's time
 HOLD_CYCLES = 5_000_000
+PROFILE_TRIES = 3  # profiled runs of one query at most (profile_run)
 
 
 def time_ms(fn, reps: int) -> float:
@@ -288,7 +302,7 @@ def k2_library(slots, live, values, width):
 
     def library():
         acc.zero_()
-        acc.index_add_(0, parked, values)
+        acc.index_add_(0, parked, values.to(torch.int64))
     return library
 
 
@@ -529,26 +543,33 @@ def profile_run(fn, wall: float, label: str, log) -> dict:
     its CUDA kernels, its share of ``wall`` (the unprofiled warm wall
     time, ms), and the kernels that took most of it. Busy time and idle
     share count as measured only when the profiler saw every launch of
-    the hand kernels that ``cuda_kernels.LAUNCHES`` counted in the run."""
+    the hand kernels that ``cuda_kernels.LAUNCHES`` counted in the run;
+    a run in which the profiler dropped events is profiled again, up to
+    ``PROFILE_TRIES`` runs in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    launched = sum(K.LAUNCHES.values())
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    launched = sum(K.LAUNCHES.values()) - launched
-    by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            us = e.time_range.elapsed_us()
-            n, t = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, t + us)
-    seen = sum(n for k, (n, _) in by_name.items() if HAND_KERNEL.search(k))
-    measured = bool(by_name) and seen == launched
+    for tries in range(1, PROFILE_TRIES + 1):
+        launched = sum(K.LAUNCHES.values())
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        launched = sum(K.LAUNCHES.values()) - launched
+        by_name: dict = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                us = e.time_range.elapsed_us()
+                n, t = by_name.get(e.name, (0, 0.0))
+                by_name[e.name] = (n + 1, t + us)
+        seen = sum(n for k, (n, _) in by_name.items()
+                   if HAND_KERNEL.search(k))
+        measured = bool(by_name) and seen == launched
+        if measured:
+            break
     busy_ms = sum(t for _, t in by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
     r = {"device_busy_ms": busy_ms if measured else None,
+         "profile_runs": tries,
          "device_kernels": sum(n for n, _ in by_name.values()),
          "hand_kernel_launches": launched,
          "hand_kernel_launches_profiled": seen,
@@ -569,32 +590,32 @@ def profile_run(fn, wall: float, label: str, log) -> dict:
     return r
 
 
-def profile_queries(rels, dev, per_query: dict, log) -> None:
+def profile_queries(queries, rels, dev, per_query: dict, log) -> None:
     """``profile_run`` of one warm run per query."""
-    for q in QUERIES:
+    for q in queries:
         per_query[q] |= profile_run(
             lambda q=q: run_fused(PLANS[q], rels, device=dev),
             per_query[q]["warm_ms"], q, log)
 
 
-def run_main_path(dev, sf: float, seed: int, log,
-                  profile: bool = False) -> dict:
-    t0 = time.perf_counter()
-    data = generate(sf=sf, seed=seed)
-    gen_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    rels = {name: rel_from_df(df, device=dev) for name, df in data.items()}
-    torch.cuda.synchronize()
-    ingest_s = time.perf_counter() - t0
-    rows = {k: len(v) for k, v in data.items()}
-    log(f"data: sf={sf} seed={seed} generate_s={gen_s:.3f} "
-        f"ingest_s={ingest_s:.3f} rows={json.dumps(rows)}")
+# the route counters a query line shows
+ROUTE_PREFIXES = ("rel.route.join.probe.", "rel.route.groupby.dense.",
+                  "rel.route.groupby.cuda", "rel.route.string.",
+                  "rel.route.decimal.", "rel.route.window.")
 
-    # the main path: counts to 0 just before, read just after
+
+def run_queries(path: str, queries: tuple, rels: dict, data: dict, dev,
+                log, profile: bool = False) -> "tuple[dict, list]":
+    """One main path: ``queries`` through ``run_fused`` with every launch
+    count set to 0 just before and read just after (the cold run), then
+    the warm times (median of 3), the profile, a pass recording every
+    kernel call's inputs, and the checks: each result equal to its
+    pandas oracle, no fused fallback, at most one counted host sync a
+    query, K1-K3 each launched."""
     results, per_query = {}, {}
     before_all = kernel_stats()
     K.reset_launch_counts()
-    for q in QUERIES:
+    for q in queries:
         before = kernel_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -605,9 +626,7 @@ def run_main_path(dev, sf: float, seed: int, log,
         results[q] = out.to_df()
         st = stats_since(before)
         routes = {k: v for k, v in st.items()
-                  if k.startswith(("rel.route.join.probe.",
-                                   "rel.route.groupby.dense.",
-                                   "rel.route.groupby.cuda"))}
+                  if k.startswith(ROUTE_PREFIXES)}
         per_query[q] = {"ms": ms, "rows": len(results[q]), "routes": routes,
                         "host_syncs": st.get("rel.host_syncs", 0),
                         "cuda_sync_calls": syncs}
@@ -618,10 +637,10 @@ def run_main_path(dev, sf: float, seed: int, log,
             f"host_syncs={r['host_syncs']} "
             f"cuda_sync_calls={r['cuda_sync_calls']} "
             f"routes={json.dumps(r['routes'], sort_keys=True)}")
-    log(f"main path launches: {json.dumps(launches, sort_keys=True)}")
+    log(f"{path} launches: {json.dumps(launches, sort_keys=True)}")
 
     # warm timings (the launch counts above are already read)
-    for q in QUERIES:
+    for q in queries:
         _, syncs = _count_syncs(lambda q=q: run_fused(PLANS[q], rels,
                                                       device=dev))
         times = []
@@ -636,28 +655,93 @@ def run_main_path(dev, sf: float, seed: int, log,
         log(f"{q}: warm_ms={per_query[q]['warm_ms']:.3f} "
             f"warm_cuda_sync_calls={syncs}")
     if profile:
-        profile_queries(rels, dev, per_query, log)
+        profile_queries(queries, rels, dev, per_query, log)
 
     # one more pass, recording the inputs of every kernel call
     calls, query = [], [None]
     with recording(calls, query):
-        for q in QUERIES:
+        for q in queries:
             query[0] = q
             run_fused(PLANS[q], rels, device=dev)
     torch.cuda.synchronize()
 
     t0 = time.perf_counter()
-    for q, (_, oracle) in QUERIES.items():
-        frames_match(results[q], oracle(data), q)
-    log(f"oracle: q1-q10 equal the pandas oracle "
-        f"(oracle_s={time.perf_counter() - t0:.3f})")
+    oracles = {q: QUERIES[q][1](data) for q in queries}
+    oracle_s = time.perf_counter() - t0
+    for q in queries:
+        frames_match(results[q], oracles[q], q)
+    log(f"oracle: {path} equal the pandas oracle (oracle_s={oracle_s:.3f})")
     _require(stats.get("rel.fused_fallbacks", 0) == 0,
              f"fused fallbacks: {stats}")
+    for q, r in per_query.items():
+        _require(r["host_syncs"] <= 1,
+                 f"{q} counted {r['host_syncs']} host syncs")
     for name in Q_NAMES:
         _require(launches.get(name, 0) > 0,
-                 f"kernel {name} was not launched on the main path")
-    return {"per_query": per_query, "launches": launches, "rows": rows,
-            "generate_s": gen_s, "ingest_s": ingest_s}, calls, rels
+                 f"kernel {name} was not launched on the {path} path")
+    return {"per_query": per_query, "launches": launches,
+            "oracle_s": oracle_s, "oracles": oracles}, calls
+
+
+def run_main_path(dev, sf: float, seed: int, log, profile: bool = False):
+    """Generate and ingest the TPC-DS miniature, then the q1-q10 path."""
+    t0 = time.perf_counter()
+    data = generate(sf=sf, seed=seed)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rels = {name: rel_from_df(df, device=dev) for name, df in data.items()}
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    rows = {k: len(v) for k, v in data.items()}
+    log(f"data: sf={sf} seed={seed} generate_s={gen_s:.3f} "
+        f"ingest_s={ingest_s:.3f} rows={json.dumps(rows)}")
+    out, calls = run_queries("q1-q10", Q1_10, rels, data, dev, log, profile)
+    out.pop("oracles")
+    return out | {"rows": rows, "generate_s": gen_s,
+                  "ingest_s": ingest_s}, calls, rels, data
+
+
+def overflow_rows(data: dict) -> int:
+    """Rows of q15's DECIMAL32 product over 2^31 - 1, the oracle's way
+    (exact Python integers)."""
+    ss = data["store_sales"]
+    prod = ss.ss_list_price_cents.astype(object) * ss.ss_coupon_amt_cents
+    return int((prod > 2**31 - 1).sum())
+
+
+def run_oplib_path(dev, rels: dict, data: dict, log,
+                   profile: bool = False) -> "tuple[dict, list]":
+    """The q11-q20 path (string, decimal and window operators) on the
+    rels q1-q10 ran on; then q15's overflow count against the oracle's,
+    and q11, q12, q20 again on the ``bytes`` string route."""
+    out, calls = run_queries("q11-q20", Q11_20, rels, data, dev, log,
+                             profile)
+    oracles = out.pop("oracles")
+    overflow = out["per_query"]["q15"]["routes"].get(
+        "rel.route.decimal.overflow", 0)
+    want = overflow_rows(data)
+    log(f"q15: rel.route.decimal.overflow={overflow} (the oracle's rows "
+        f"over 2^31 - 1: {want})")
+    _require(overflow == want and want > 0,
+             f"q15 counted {overflow} overflows, the oracle {want}")
+    out["q15_overflow"] = {"counted": overflow, "oracle": want}
+    os.environ["SRT_STRING_ROUTE"] = "bytes"
+    try:
+        for q in BYTES_ROUTE:
+            before = kernel_stats()
+            got = run_fused(PLANS[q], rels, device=dev).to_df()
+            st = stats_since(before)
+            routes = {k: v for k, v in st.items()
+                      if k.startswith("rel.route.string.")}
+            frames_match(got, oracles[q], f"{q} (bytes route)")
+            _require(any(k.endswith(".bytes") for k in routes)
+                     and st.get("rel.fused_fallbacks", 0) == 0,
+                     f"{q} did not run fused on the bytes route: {st}")
+            log(f"{q}: bytes route equal to the oracle's result, routes="
+                f"{json.dumps(routes, sort_keys=True)}")
+    finally:
+        del os.environ["SRT_STRING_ROUTE"]
+    return out, calls
 
 
 # --------------------------------------------------------------------------
@@ -1084,12 +1168,18 @@ def main(argv=None) -> int:
             f"kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f}{lib} "
             f"bound_ms={r['bound_ms']:.4g} ({r['bound_by']}) [{card}]")
 
-    main_path, calls, rels = run_main_path(dev, SF, SEED, log,
-                                           profile=args.profile)
+    main_path, calls, rels, data = run_main_path(dev, SF, SEED, log,
+                                                 profile=args.profile)
     log("main-path kernel calls, each equal to its plain version on the "
         "inputs q1-q10 gave it:")
     totals = {"q1-q10": path_kernels(calls, main_path["launches"], Q_NAMES,
                                      log)}
+    del calls
+    oplib, calls = run_oplib_path(dev, rels, data, log, args.profile)
+    del data
+    log("q11-q20 kernel calls, each equal to its plain version on the "
+        "inputs q11-q20 gave it:")
+    totals["q11-q20"] = path_kernels(calls, oplib["launches"], Q_NAMES, log)
     del calls
 
     t0 = time.perf_counter()
@@ -1114,6 +1204,7 @@ def main(argv=None) -> int:
 
     kernels = kernel_entries(
         totals, {"q1-q10": main_path["launches"],
+                 "q11-q20": oplib["launches"],
                  "hashing": hashed["launches"],
                  "row conversion": rows["launches"]}, card, stress, log)
     if args.out:
@@ -1122,6 +1213,7 @@ def main(argv=None) -> int:
             json.dump({"card": card, "sms": Card.sms, "sm_hz": Card.sm_hz,
                        "build_s": build_s, "stress": stress,
                        "path_kernels": totals, "main_path": main_path,
+                       "q11_q20": oplib,
                        "hashing": hashed, "row_conversion": rows,
                        "sf": SF, "seed": SEED}, f, indent=1, sort_keys=True,
                       default=str)

@@ -5,8 +5,9 @@ default); the tuning tier is not ported yet, so every knob here is an
 environment read with a code default. The route knobs keep the
 reference's names: ``SRT_JOIN_METHOD`` (``auto``/``xla``/``cuda``) and
 ``SRT_DENSE_GROUPBY`` (``auto``/``scatter``/``onehot``/``cuda``), with
-``cuda`` in place of the reference's ``pallas``. ``SRT_METRICS`` turns
-span recording on.
+``cuda`` in place of the reference's ``pallas``, and
+``SRT_STRING_ROUTE`` (``auto``/``dict``/``bytes``) picks the string
+operators' route. ``SRT_METRICS`` turns span recording on.
 """
 
 from __future__ import annotations
@@ -36,6 +37,14 @@ def join_method() -> str:
 
 def dense_groupby_mode() -> str:
     return env_str("SRT_DENSE_GROUPBY", "auto")
+
+
+def string_route() -> str:
+    """``SRT_STRING_ROUTE``: ``auto`` (which picks ``dict``) | ``dict``
+    (the host look-up table over the dictionary) | ``bytes`` (the
+    categories' bytes on the device); anything else reads as ``auto``."""
+    mode = env_str("SRT_STRING_ROUTE", "auto")
+    return mode if mode in ("auto", "dict", "bytes") else "auto"
 
 
 def metrics_enabled() -> bool:

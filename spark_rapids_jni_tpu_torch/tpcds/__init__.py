@@ -1,4 +1,4 @@
-"""TPC-DS miniature q1-q10 on the port: the generator, the templates
+"""TPC-DS miniature q1-q20 on the port: the generator, the templates
 and their pandas oracles."""
 
 from .data import generate

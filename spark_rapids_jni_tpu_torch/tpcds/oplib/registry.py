@@ -3,11 +3,12 @@
 
 Port of ``spark_rapids_jni_tpu/tpcds/oplib/registry.py``. Every operator
 the core dispatches is declared once with its lowering, its
-mask-composition class and its pandas oracle; the core reaches
-lowerings only through :func:`dispatch`. This slice registers the
-relational family (join, groupby) on one device: there is no
-partitioned (``collective``) behaviour yet, and no plan cache for a
-registry revision to key.
+mask-composition class, its partition behaviour and its pandas oracle;
+the core reaches lowerings only through :func:`dispatch`. The operator
+modules load lazily, on the first lookup. The port runs on one device:
+the partition behaviour (``local``, ``collective``, ``exchange_by_keys``)
+is declared as in the reference and read by nothing yet, and there is no
+plan cache for a registry revision to key.
 """
 
 from __future__ import annotations
@@ -18,9 +19,10 @@ from dataclasses import dataclass, field
 from typing import Callable, Tuple
 
 MASK_CLASSES = ("rowwise", "segmented", "terminal")
+PARTITION_BEHAVIORS = ("local", "collective", "exchange_by_keys")
 
 # The operator modules ensure_loaded() imports.
-OPERATOR_MODULES = ("relational",)
+OPERATOR_MODULES = ("relational", "strings", "decimals", "windows")
 
 
 @dataclass(frozen=True)
@@ -29,6 +31,7 @@ class OperatorSpec:
 
     name: str
     mask_class: str
+    partition: str
     lowering: Callable
     oracle: Callable
     params: Tuple[str, ...] = field(default_factory=tuple)
@@ -37,9 +40,16 @@ class OperatorSpec:
         if self.mask_class not in MASK_CLASSES:
             raise ValueError(f"operator {self.name!r}: unknown mask class "
                              f"{self.mask_class!r} (known: {MASK_CLASSES})")
-        if not callable(self.lowering) or not callable(self.oracle):
-            raise ValueError(f"operator {self.name!r}: lowering and oracle "
-                             "must be callable")
+        if self.partition not in PARTITION_BEHAVIORS:
+            raise ValueError(
+                f"operator {self.name!r}: unknown partition behavior "
+                f"{self.partition!r} (known: {PARTITION_BEHAVIORS})")
+        if not callable(self.lowering):
+            raise ValueError(f"operator {self.name!r}: lowering must be "
+                             "callable")
+        if not callable(self.oracle):
+            raise ValueError(f"operator {self.name!r}: oracle must be "
+                             "callable")
 
 
 _REGISTRY: "dict[str, OperatorSpec]" = {}
@@ -47,17 +57,26 @@ _LOCK = threading.RLock()
 _LOADED = False
 
 
-def operator(name: str, *, mask_class: str, oracle: Callable,
-             params: Tuple[str, ...] = ()):
+def register_operator(spec: OperatorSpec) -> OperatorSpec:
+    """Add one operator. Registering the same lowering again is allowed;
+    a different lowering under a taken name is refused."""
+    with _LOCK:
+        old = _REGISTRY.get(spec.name)
+        if old is not None and (
+                (old.lowering.__module__, old.lowering.__qualname__)
+                != (spec.lowering.__module__, spec.lowering.__qualname__)):
+            raise ValueError(f"duplicate operator name {spec.name!r}")
+        _REGISTRY[spec.name] = spec
+    return spec
+
+
+def operator(name: str, *, mask_class: str, partition: str,
+             oracle: Callable, params: Tuple[str, ...] = ()):
     """Decorator registering a lowering function as an operator."""
     def deco(fn: Callable) -> Callable:
-        spec = OperatorSpec(name=name, mask_class=mask_class, lowering=fn,
-                            oracle=oracle, params=tuple(params))
-        with _LOCK:
-            old = _REGISTRY.get(name)
-            if old is not None and old.lowering.__qualname__ != fn.__qualname__:
-                raise ValueError(f"duplicate operator name {name!r}")
-            _REGISTRY[name] = spec
+        register_operator(OperatorSpec(
+            name=name, mask_class=mask_class, partition=partition,
+            lowering=fn, oracle=oracle, params=tuple(params)))
         return fn
     return deco
 
@@ -83,7 +102,12 @@ def lookup(name: str) -> OperatorSpec:
     return spec
 
 
+def registered() -> "dict[str, OperatorSpec]":
+    """Every registered operator, by name."""
+    ensure_loaded()
+    return dict(_REGISTRY)
+
+
 def dispatch(name: str, *args, **kwargs):
     """The core's one entry into operator lowerings."""
     return lookup(name).lowering(*args, **kwargs)
-

@@ -210,8 +210,8 @@ def dense_join(left, right, left_on, right_on, how: str):
                left.names + right.names, mask=live, dicts=dicts)
 
 
-@operator("join", mask_class="rowwise", oracle=join_oracle,
-          params=("SRT_JOIN_METHOD",))
+@operator("join", mask_class="rowwise", partition="collective",
+          oracle=join_oracle, params=("SRT_JOIN_METHOD",))
 def join(left, right, left_on, right_on, how: str = "inner"):
     """Equi-join route ladder: the dense broadcast fast path, then
     (eagerly only) the general sort-merge kernels."""
@@ -377,8 +377,8 @@ def dense_groupby(rel, keys, aggs):
                mask=present, dicts=rel._sub_dicts(keys))
 
 
-@operator("groupby", mask_class="segmented", oracle=groupby_oracle,
-          params=("SRT_DENSE_GROUPBY",))
+@operator("groupby", mask_class="segmented", partition="collective",
+          oracle=groupby_oracle, params=("SRT_DENSE_GROUPBY",))
 def groupby(rel, keys, aggs):
     """Grouped aggregation ladder: the dense fixed-slot fast path, else
     (eagerly only) the general sorted-scan kernels."""
@@ -392,7 +392,9 @@ def groupby(rel, keys, aggs):
             f"groupby on {list(keys)} needs the general kernel")
     for c, _, _ in aggs:
         expects(plain_value_column(rel.col(c)),
-                f"groupby aggregation over column {c!r} is not supported")
+                f"groupby aggregation over multi-lane column {c!r} "
+                "(DECIMAL128) is not supported: cast or rescale to "
+                "DECIMAL64 first")
     plain = rel.compact()
     count_dispatch("rel.general_groupby")
     count_host_sync("rel.general_groupby")

@@ -1,19 +1,26 @@
-"""TPC-DS q1-q10 query templates + pandas oracles.
+"""TPC-DS q1-q20 query templates + pandas oracles.
 
-Port of the q1-q10 part of ``spark_rapids_jni_tpu/tpcds/queries.py``:
-each template is the structural miniature of its TPC-DS namesake (same
-join graph, aggregation shape and ordering) composed from the port's
-Rel layer, and runs through ``rel.run_fused``. ``QUERIES[name]`` is
+Port of ``spark_rapids_jni_tpu/tpcds/queries.py``: each template is the
+structural miniature of its TPC-DS namesake (same join graph,
+aggregation shape and ordering) composed from the port's Rel layer, and
+runs through ``rel.run_fused``. q11-q20 add the operator library's
+string predicates and projections, exact decimal arithmetic with
+overflow -> NULL, and window functions. ``QUERIES[name]`` is
 ``(template, oracle)``; both produce a pandas frame with identical
 columns over the same generated data. Float aggregates differ from the
 oracle's in the last bits (accumulation order), so harnesses compare
-floats with a tolerance. q11-q20 wait for the strings, decimals and
-windows operator families.
+floats with a tolerance; decimals are exact.
 """
 
 from __future__ import annotations
 
+import decimal
+
+import numpy as np
 import torch
+
+from .oplib import decimals as D
+from .oplib import strings as S
 
 from .rel import Rel, Table, numeric, run_fused
 
@@ -490,6 +497,331 @@ def q10_oracle(d):
                            kind="stable").reset_index(drop=True))
 
 
+# --------------------------------------------------------------------------
+# q11-q20: the operator-library surface (tpcds/oplib/) — string
+# predicates/projections, decimal price math with overflow -> NULL, and
+# window functions, all through the same fused runner and budgets.
+# --------------------------------------------------------------------------
+
+# q11: revenue by state for stores in states containing "A" (string
+# predicate on a dictionary-encoded dimension column)
+
+def _q11(t):
+    j = t["store_sales"].join(t["store"], ["ss_store_sk"], ["s_store_sk"])
+    f = j.filter(S.contains(j, "s_state", "A"))
+    gb = f.groupby(["s_state"],
+                   [("ss_ext_sales_price", "sum", "rev"),
+                    ("ss_quantity", "count", "cnt")])
+    return gb.sort(["s_state"])
+
+
+def q11(t, device=None):
+    return run_fused(_q11, t, device=device).to_df()
+
+
+def q11_oracle(d):
+    j = d["store_sales"].merge(d["store"], left_on="ss_store_sk",
+                               right_on="s_store_sk")
+    f = j[j.s_state.str.contains("A", regex=False)]
+    gb = (f.groupby("s_state", as_index=False)
+           .agg(rev=("ss_ext_sales_price", "sum"),
+                cnt=("ss_quantity", "count")))
+    return (gb.sort_values("s_state", kind="stable")
+            .reset_index(drop=True))
+
+
+# q12: quantity by product-name prefix for items whose name matches a
+# LIKE pattern (string projection feeding a dense groupby)
+
+def _q12(t):
+    it = t["item"].filter(S.like(t["item"], "i_product_name", "S%"))
+    it = S.substr(it, "i_product_name", 0, 5, "prod5")
+    j = t["store_sales"].join(it, ["ss_item_sk"], ["i_item_sk"])
+    gb = j.groupby(["prod5"], [("ss_quantity", "sum", "qty")])
+    return gb.sort(["prod5"])
+
+
+def q12(t, device=None):
+    return run_fused(_q12, t, device=device).to_df()
+
+
+def q12_oracle(d):
+    it = d["item"]
+    it = it[it.i_product_name.str.startswith("S")].copy()
+    it["prod5"] = it.i_product_name.str.slice(0, 5)
+    j = d["store_sales"].merge(it, left_on="ss_item_sk",
+                               right_on="i_item_sk")
+    gb = j.groupby("prod5", as_index=False).agg(qty=("ss_quantity",
+                                                     "sum"))
+    return gb.sort_values("prod5", kind="stable").reset_index(drop=True)
+
+
+# q13: exact decimal revenue per store (decimal multiply + decimal sum)
+
+def _q13(t):
+    ss = D.as_decimal(t["store_sales"], "ss_list_price_cents", -2)
+    ss = D.as_decimal(ss, "ss_quantity", 0, out="qty_dec")
+    ss = D.arith(ss, "mul", "ss_list_price_cents", "qty_dec",
+                 ("dec64", -2), "revenue")
+    gb = ss.groupby(["ss_store_sk"], [("revenue", "sum", "total")])
+    return gb.sort(["ss_store_sk"])
+
+
+def q13(t, device=None):
+    return run_fused(_q13, t, device=device).to_df()
+
+
+def q13_oracle(d):
+    ss = d["store_sales"]
+    cents = ss.ss_list_price_cents.astype(object) * ss.ss_quantity
+    g = (ss.assign(_c=cents).groupby("ss_store_sk", as_index=False)
+         .agg(total=("_c", "sum")))
+    g["total"] = g["total"].map(
+        lambda v: decimal.Decimal(int(v)).scaleb(-2))
+    return (g.sort_values("ss_store_sk", kind="stable")
+            .reset_index(drop=True))
+
+
+# q14: big-ticket nets — decimal subtract, exact literal comparison,
+# grouped decimal aggregates
+
+def _q14(t):
+    ss = D.as_decimal(t["store_sales"], "ss_list_price_cents", -2)
+    ss = D.as_decimal(ss, "ss_coupon_amt_cents", -2)
+    ss = D.arith(ss, "sub", "ss_list_price_cents",
+                 "ss_coupon_amt_cents", ("dec64", -2), "net")
+    f = ss.filter(D.cmp(ss, "net", "gt", "100.00"))
+    gb = f.groupby(["ss_store_sk"], [("net", "sum", "net_total"),
+                                     ("net", "count", "n_big")])
+    return gb.sort(["ss_store_sk"])
+
+
+def q14(t, device=None):
+    return run_fused(_q14, t, device=device).to_df()
+
+
+def q14_oracle(d):
+    ss = d["store_sales"]
+    net = (ss.ss_list_price_cents - ss.ss_coupon_amt_cents).astype(object)
+    f = ss.assign(_net=net)[net > 10_000]
+    g = (f.groupby("ss_store_sk", as_index=False)
+         .agg(net_total=("_net", "sum"), n_big=("_net", "size")))
+    g["net_total"] = g["net_total"].map(
+        lambda v: decimal.Decimal(int(v)).scaleb(-2))
+    g["n_big"] = g["n_big"].astype(np.int64)
+    return (g.sort_values("ss_store_sk", kind="stable")
+            .reset_index(drop=True))
+
+
+# q15: Spark CheckOverflow — DECIMAL32 products overflow to NULL, the
+# nulls are skipped by sum/count, and every overflow is counted
+# (rel.route.decimal.overflow via the runtime-counter channel)
+
+def _q15(t):
+    ss = D.as_decimal(t["store_sales"], "ss_list_price_cents", -2)
+    ss = D.as_decimal(ss, "ss_coupon_amt_cents", -2)
+    ss = D.arith(ss, "mul", "ss_list_price_cents",
+                 "ss_coupon_amt_cents", ("dec32", -4), "cross")
+    gb = ss.groupby(["ss_store_sk"], [("cross", "sum", "cross_sum"),
+                                      ("cross", "count", "n_ok")])
+    return gb.sort(["ss_store_sk"])
+
+
+def q15(t, device=None):
+    return run_fused(_q15, t, device=device).to_df()
+
+
+def q15_oracle(d):
+    ss = d["store_sales"]
+    limit = 2**31 - 1
+    prod = (ss.ss_list_price_cents.astype(object)
+            * ss.ss_coupon_amt_cents)
+    ok = prod <= limit
+    g = (ss.assign(_p=prod.where(ok), _ok=ok)
+         .groupby("ss_store_sk", as_index=False)
+         .agg(cross_sum=("_p", lambda s: s.dropna().sum()),
+              n_ok=("_ok", "sum")))
+    g["cross_sum"] = g["cross_sum"].map(
+        lambda v: decimal.Decimal(int(v)).scaleb(-4))
+    g["n_ok"] = g["n_ok"].astype(np.int64)
+    return (g.sort_values("ss_store_sk", kind="stable")
+            .reset_index(drop=True))
+
+
+# q16: top-3 items per store by revenue — window row_number over a
+# grouped aggregate, rank filter, deterministic tiebreak
+
+def _q16(t):
+    gb = t["store_sales"].groupby(
+        ["ss_store_sk", "ss_item_sk"],
+        [("ss_ext_sales_price", "sum", "rev")])
+    w = gb.window(["ss_store_sk"], ["rev", "ss_item_sk"],
+                  [("row_number", None, "rn")],
+                  descending=[True, False])
+    f = w.filter(w.data("rn") <= 3)
+    return (f.select("ss_store_sk", "ss_item_sk", "rev", "rn")
+             .sort(["ss_store_sk", "rn"]))
+
+
+def q16(t, device=None):
+    return run_fused(_q16, t, device=device).to_df()
+
+
+def q16_oracle(d):
+    gb = (d["store_sales"]
+          .groupby(["ss_store_sk", "ss_item_sk"], as_index=False)
+          .agg(rev=("ss_ext_sales_price", "sum")))
+    o = gb.sort_values(["rev", "ss_item_sk"], ascending=[False, True],
+                       kind="stable")
+    gb["rn"] = (o.groupby("ss_store_sk").cumcount() + 1) \
+        .reindex(gb.index).astype(np.int64)
+    f = gb[gb.rn <= 3]
+    return (f[["ss_store_sk", "ss_item_sk", "rev", "rn"]]
+            .sort_values(["ss_store_sk", "rn"], kind="stable")
+            .reset_index(drop=True))
+
+
+# q17: brand popularity rank within category — RANK() with real ties
+# (equal sale counts share a rank, gaps after)
+
+def _q17(t):
+    j = t["store_sales"].join(t["item"], ["ss_item_sk"], ["i_item_sk"])
+    gb = j.groupby(["i_category_id", "i_brand_id"],
+                   [("ss_quantity", "count", "cnt")])
+    w = gb.window(["i_category_id"], ["cnt"],
+                  [("rank", None, "rnk")], descending=[True])
+    return (w.select("i_category_id", "i_brand_id", "cnt", "rnk")
+             .sort(["i_category_id", "rnk", "i_brand_id"]))
+
+
+def q17(t, device=None):
+    return run_fused(_q17, t, device=device).to_df()
+
+
+def q17_oracle(d):
+    j = d["store_sales"].merge(d["item"], left_on="ss_item_sk",
+                               right_on="i_item_sk")
+    gb = (j.groupby(["i_category_id", "i_brand_id"], as_index=False)
+          .agg(cnt=("ss_quantity", "count")))
+    gb["rnk"] = (gb.groupby("i_category_id")["cnt"]
+                 .rank(method="min", ascending=False).astype(np.int64))
+    return (gb[["i_category_id", "i_brand_id", "cnt", "rnk"]]
+            .sort_values(["i_category_id", "rnk", "i_brand_id"],
+                         kind="stable").reset_index(drop=True))
+
+
+# q18: above-average baskets — sum/count over partition on the raw fact
+# table (the sharded exchange_by_keys shape), exact integer algebra
+
+def _q18(t):
+    ss = t["store_sales"]
+    w = ss.window(["ss_store_sk"], [],
+                  [("sum", "ss_quantity", "store_qty"),
+                   ("count", "ss_quantity", "store_n")])
+    f = w.filter(w.data("ss_quantity") * w.data("store_n")
+                 > w.data("store_qty"))
+    gb = f.groupby(["ss_store_sk"], [("ss_quantity", "count", "n_above"),
+                                     ("ss_quantity", "sum", "qty_above")])
+    return gb.sort(["ss_store_sk"])
+
+
+def q18(t, device=None):
+    return run_fused(_q18, t, device=device).to_df()
+
+
+def q18_oracle(d):
+    ss = d["store_sales"]
+    g = ss.groupby("ss_store_sk")["ss_quantity"]
+    above = ss[ss.ss_quantity * g.transform("count")
+               > g.transform("sum")]
+    gb = (above.groupby("ss_store_sk", as_index=False)
+          .agg(n_above=("ss_quantity", "count"),
+               qty_above=("ss_quantity", "sum")))
+    return (gb.sort_values("ss_store_sk", kind="stable")
+            .reset_index(drop=True))
+
+
+# q19: first-day purchases per customer — RANK over the fact table
+# (rank==1 is an order-stable SET: every purchase on the customer's
+# earliest date), then a per-customer rollup
+
+def _q19(t):
+    ss = t["store_sales"]
+    w = ss.window(["ss_customer_sk"], ["ss_sold_date_sk"],
+                  [("rank", None, "visit_rank")])
+    f = w.filter(w.data("visit_rank") == 1)
+    gb = f.groupby(["ss_customer_sk"],
+                   [("ss_quantity", "count", "first_day_buys")])
+    return gb.sort(["ss_customer_sk"]).head(100)
+
+
+def q19(t, device=None):
+    return run_fused(_q19, t, device=device).to_df()
+
+
+def q19_oracle(d):
+    ss = d["store_sales"]
+    first = ss.groupby("ss_customer_sk")["ss_sold_date_sk"] \
+        .transform("min")
+    f = ss[ss.ss_sold_date_sk == first]
+    gb = (f.groupby("ss_customer_sk", as_index=False)
+          .agg(first_day_buys=("ss_quantity", "count")))
+    return (gb.sort_values("ss_customer_sk", kind="stable")
+            .head(100).reset_index(drop=True))
+
+
+# q20: all three families in one plan — LIKE-filtered items, exact
+# decimal revenue, and a per-state store ranking window
+
+def _q20(t):
+    it = t["item"].filter(S.like(t["item"], "i_product_name", "%0%"))
+    j = (t["store_sales"]
+         .join(it, ["ss_item_sk"], ["i_item_sk"])
+         .join(t["store"], ["ss_store_sk"], ["s_store_sk"]))
+    j = D.as_decimal(j, "ss_list_price_cents", -2)
+    j = D.as_decimal(j, "ss_quantity", 0, out="qty_dec")
+    j = D.arith(j, "mul", "ss_list_price_cents", "qty_dec",
+                ("dec64", -2), "revenue")
+    gb = j.groupby(["s_state", "ss_store_sk"],
+                   [("revenue", "sum", "rev_total"),
+                    ("ss_quantity", "sum", "qty_total")])
+    w = gb.window(["s_state"], ["qty_total", "ss_store_sk"],
+                  [("row_number", None, "rn")],
+                  descending=[True, False])
+    f = w.filter(w.data("rn") <= 2)
+    return (f.select("s_state", "ss_store_sk", "rev_total",
+                     "qty_total", "rn")
+             .sort(["s_state", "rn"]))
+
+
+def q20(t, device=None):
+    return run_fused(_q20, t, device=device).to_df()
+
+
+def q20_oracle(d):
+    it = d["item"]
+    it = it[it.i_product_name.str.contains("0", regex=False)]
+    j = (d["store_sales"]
+         .merge(it, left_on="ss_item_sk", right_on="i_item_sk")
+         .merge(d["store"], left_on="ss_store_sk",
+                right_on="s_store_sk"))
+    j = j.assign(_rev=j.ss_list_price_cents.astype(object)
+                 * j.ss_quantity)
+    gb = (j.groupby(["s_state", "ss_store_sk"], as_index=False)
+          .agg(rev_total=("_rev", "sum"),
+               qty_total=("ss_quantity", "sum")))
+    o = gb.sort_values(["qty_total", "ss_store_sk"],
+                       ascending=[False, True], kind="stable")
+    gb["rn"] = (o.groupby("s_state").cumcount() + 1) \
+        .reindex(gb.index).astype(np.int64)
+    gb["rev_total"] = gb["rev_total"].map(
+        lambda v: decimal.Decimal(int(v)).scaleb(-2))
+    f = gb[gb.rn <= 2]
+    return (f[["s_state", "ss_store_sk", "rev_total", "qty_total", "rn"]]
+            .sort_values(["s_state", "rn"], kind="stable")
+            .reset_index(drop=True))
+
+
 QUERIES = {
     "q1": (q1, q1_oracle),
     "q2": (q2, q2_oracle),
@@ -501,6 +833,16 @@ QUERIES = {
     "q8": (q8, q8_oracle),
     "q9": (q9, q9_oracle),
     "q10": (q10, q10_oracle),
+    "q11": (q11, q11_oracle),
+    "q12": (q12, q12_oracle),
+    "q13": (q13, q13_oracle),
+    "q14": (q14, q14_oracle),
+    "q15": (q15, q15_oracle),
+    "q16": (q16, q16_oracle),
+    "q17": (q17, q17_oracle),
+    "q18": (q18, q18_oracle),
+    "q19": (q19, q19_oracle),
+    "q20": (q20, q20_oracle),
 }
 
 # the plan functions, for callers that drive run_fused themselves

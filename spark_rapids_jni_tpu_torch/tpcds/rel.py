@@ -26,7 +26,14 @@ exactly on the host and trusts them by construction.
 
 **Dictionary-encoded strings.** String columns ingest as int64 codes
 over a host-side sorted dictionary, so code order is string order and
-no string bytes reach the plan; ``to_df`` decodes.
+no string bytes reach the plan; ``to_df`` decodes. A string column with
+nulls stays a STRING column (offsets and bytes): correct, eager only.
+
+**Runtime counters.** An operator may count a fact only the data knows
+(decimal overflow NULLs) with ``note_runtime_count``. While
+``run_fused`` runs a plan the counts stay on the device and are read in
+the same device-to-host copy as the live-row count, so the query keeps
+its one host sync; outside ``run_fused`` they are read at once.
 
 The partitioned (mesh), morsel, batched, result-cache and report layers
 are not ported yet.
@@ -34,6 +41,7 @@ are not ported yet.
 
 from __future__ import annotations
 
+import decimal
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -44,7 +52,7 @@ from ..columnar.strings import dictionary_encode
 from ..obs import (count, count_dispatch, count_host_sync, set_attrs, span)
 from ..ops import gather, sorted_order
 from ..ops.fused_pipeline import MAX_DENSE_WIDTH
-from ..types import INT8, DType, TypeId
+from ..types import INT8, DType, TypeId, decimal64
 from ..utils.device import resolve_device
 from ..utils.errors import expects
 
@@ -56,6 +64,21 @@ class FusedFallback(Exception):
 
 
 _FUSED_TRACING = False  # True only while run_fused runs a plan fused
+
+# Runtime-counter channel: (name, 0-d int64 device tensor) pairs that
+# operators record while run_fused runs a plan; None outside it.
+_TRACE_AUX: "Optional[list]" = None
+
+
+def note_runtime_count(name: str, value) -> None:
+    """Count a data-dependent fact from inside a plan: deferred to the
+    fused runner's one host read under ``run_fused``, read now (a host
+    sync) otherwise."""
+    v = torch.as_tensor(value).to(torch.int64)
+    if _TRACE_AUX is not None:
+        _TRACE_AUX.append((name, v))
+    else:
+        count(name, int(v))
 
 
 def _dispatch(name: str, *args, **kwargs):
@@ -257,6 +280,8 @@ class Rel:
             raise FusedFallback("compaction inside a fused plan")
         with span("rel.compact", rows=self.num_rows,
                   masked=self.mask is not None):
+            if any(c.data is None for c in self.table.columns):
+                return self._compact_by_gather()
             datas = [c.data for c in self.table.columns]
             valids = [None if c.validity is None else c.valid_bool()
                       for c in self.table.columns]
@@ -282,15 +307,46 @@ class Rel:
                     for dt, d, v in zip(dtypes, out_d, out_v)]
             return Rel(Table(cols), self.names, dicts=self.dicts)
 
+    def _compact_by_gather(self) -> "Rel":
+        """compact() of a rel holding STRING columns: row gathers, which
+        take STRING columns (the live rows, the sort, the limit)."""
+        rel = self
+        if rel.mask is not None:
+            count_host_sync("rel.compact")
+            count_dispatch("rel.compact", 2)
+            idx = torch.nonzero(rel.mask)[:, 0]
+            set_attrs(live_rows=int(idx.shape[0]))
+            rel = Rel(gather(rel.table, idx), rel.names, dicts=rel.dicts,
+                      pending_sort=rel.pending_sort, limit=rel.limit)
+        if rel.pending_sort is not None:
+            count_dispatch("rel.sort", 2)
+            by, desc = rel.pending_sort
+            order = sorted_order(Table([rel.table.columns[
+                rel.names.index(b)] for b in by]), list(desc))
+            rel = Rel(gather(rel.table, order), rel.names, dicts=rel.dicts,
+                      limit=rel.limit)
+        if rel.limit is not None and rel.limit < rel.num_rows:
+            head = torch.arange(rel.limit, device=rel.device)
+            rel = Rel(gather(rel.table, head), rel.names, dicts=rel.dicts)
+        return Rel(rel.table, rel.names, dicts=rel.dicts)
+
     def to_df(self):
         import pandas as pd
         out = self.compact()
         frame = {}
         for n in out.names:
-            vals = out.col(n).to_pylist()
+            c = out.col(n)
+            vals = c.to_pylist()
             if n in out.dicts:
                 cats = out.dicts[n]
                 vals = [None if v is None else cats[v] for v in vals]
+            elif c.dtype.id in (TypeId.DECIMAL32, TypeId.DECIMAL64):
+                # unscaled integers -> exact Decimals (to_pylist decodes
+                # DECIMAL128 itself)
+                s = c.dtype.scale
+                vals = [None if v is None
+                        else decimal.Decimal(int(v)).scaleb(s)
+                        for v in vals]
             frame[n] = vals
         return pd.DataFrame(frame)
 
@@ -316,6 +372,19 @@ class Rel:
                   rows=self.num_rows, n_aggs=len(aggs)):
             return _dispatch("groupby", self._flush_sort(), list(keys),
                              [tuple(a) for a in aggs])
+
+    def window(self, partition_by: Sequence[str], order_by: Sequence[str],
+               funcs: Sequence[tuple],
+               descending: Optional[Sequence[bool]] = None) -> "Rel":
+        """Window functions: one column appended per ``(kind, value_col,
+        out_name)`` (kinds row_number / rank / sum / count) over the
+        partitions of ``partition_by`` ordered by ``order_by``; the
+        ``window`` operator (``tpcds/oplib/windows.py``)."""
+        with span("rel.window", keys=",".join(partition_by),
+                  rows=self.num_rows, n_funcs=len(funcs)):
+            return _dispatch("window", self._flush_sort(),
+                             list(partition_by), list(order_by),
+                             [tuple(f) for f in funcs], descending)
 
     # -- ordering / shaping ------------------------------------------------
 
@@ -426,21 +495,22 @@ def _materialize_program(datas, valids, mask, n: int, dtypes: tuple,
 def _check_device(rels: "dict[str, Rel]", dev: torch.device) -> None:
     for name, r in rels.items():
         for c in r.table.columns:
-            expects(c.data is None or c.data.device.type == dev.type,
-                    f"rel {name!r} lies on {c.data.device}, not {dev}")
+            expects(c.device.type == dev.type,
+                    f"rel {name!r} lies on {c.device}, not {dev}")
 
 
 def run_fused(plan, rels: "dict[str, Rel]", device=None) -> Rel:
     """Execute ``plan(rels) -> Rel`` with the planner flag set, then
     materialize once: at most one data-dependent host sync per query
-    (counter-asserted through ``rel.host_syncs``).
+    (counter-asserted through ``rel.host_syncs``), which also reads every
+    runtime counter the plan recorded (``note_runtime_count``).
 
     ``device`` names where ``rels`` live: ``cuda`` unless the caller
     passes another (the tests pass ``"cpu"``); without a GPU and without
     a device this raises. When a plan needs a general kernel the run
     counts ``rel.fused_fallbacks`` and re-runs the plan eagerly on the
     general sort-merge kernels: slower, never wrong."""
-    global _FUSED_TRACING
+    global _FUSED_TRACING, _TRACE_AUX
     dev = resolve_device(device)
     _check_device(rels, dev)
     pname = getattr(plan, "__name__", "plan").lstrip("_")
@@ -451,6 +521,7 @@ def run_fused(plan, rels: "dict[str, Rel]", device=None) -> Rel:
         for c in rels[name].table.columns:
             _trusted_range(c)  # verify advisory stats once (memoized)
     _FUSED_TRACING = True
+    _TRACE_AUX = aux = []
     try:
         with span("rel.fused_program", query=pname):
             out = plan(rels)
@@ -458,6 +529,7 @@ def run_fused(plan, rels: "dict[str, Rel]", device=None) -> Rel:
         out = None
     finally:
         _FUSED_TRACING = False
+        _TRACE_AUX = None
     if out is None:
         count("rel.fused_fallbacks")
         count(f"rel.fused_fallbacks.{pname}")
@@ -474,13 +546,22 @@ def run_fused(plan, rels: "dict[str, Rel]", device=None) -> Rel:
         descending = tuple(desc)
     limit = out.limit
     dtypes = tuple(c.dtype for c in cols)
+    n = out.num_rows
+    if out.mask is not None or aux:
+        # the live-row count and every runtime counter in one host read
+        count_host_sync("rel.mask_count" if out.mask is not None
+                        else "rel.aux_count")
+        head = [out.mask.sum(dtype=torch.int64)] if out.mask is not None \
+            else []
+        read = torch.stack(head + [v.to(out.device) for _, v in aux]) \
+            .tolist()
+        if out.mask is not None:
+            n = read.pop(0)
+        for (aname, _), v in zip(aux, read):
+            count(aname, int(v))
     if (out.mask is None and not sort_keys and limit is None
             and all(v is None for v in valids)):
         return Rel(out.table, out.names, dicts=out.dicts)
-    n = out.num_rows
-    if out.mask is not None:
-        count_host_sync("rel.mask_count")
-        n = int(out.mask.sum())
     with span("rel.materialize", live_rows=n):
         out_d, out_v = _materialize_program(
             datas, valids, out.mask, n, dtypes, sort_keys, descending,
@@ -500,16 +581,21 @@ def _trust_ingest(col: Column) -> Column:
     return col
 
 
-def rel_from_df(df, device=None) -> Rel:
+def rel_from_df(df, decimals: "Optional[Dict[str, int]]" = None,
+                device=None) -> Rel:
     """pandas frame -> Rel on ``device`` (``cuda`` unless the caller
     passes another). Numeric columns upload directly (int32 widens to
     int64); string/object columns are dictionary-encoded (int64 codes +
-    a host-side sorted category array). Ingest stats are computed
-    exactly on the host and trusted. String columns with nulls need the
-    byte-level STRING column, which this slice does not carry: they
-    raise."""
+    a host-side sorted category array), and those with nulls stay STRING
+    columns (eager routes only). Ingest stats are computed exactly on the
+    host and trusted.
+
+    ``decimals`` maps integer column names to a cudf-style scale: the
+    column ingests as DECIMAL64 unscaled values (value = stored *
+    10^scale), and ``to_df`` decodes it to ``decimal.Decimal``."""
     import pandas as pd
     dev = resolve_device(device)
+    decimals = decimals or {}
     names, cols, dicts = [], [], {}
     for name in df.columns:
         s = df[name]
@@ -518,13 +604,23 @@ def rel_from_df(df, device=None) -> Rel:
             arr = np.ascontiguousarray(s.to_numpy())
             if arr.dtype == np.int32:
                 arr = arr.astype(np.int64)
+            col = Column.from_numpy(arr, device=dev)
+            if name in decimals:
+                expects(arr.dtype.kind in "iu",
+                        f"decimal ingest of {name!r} needs integer "
+                        "unscaled values")
+                col = Column(decimal64(decimals[name]), col.size,
+                             col.data.to(torch.int64))
         else:
-            arr, cats = dictionary_encode(s)
-            expects(not (arr < 0).any(),
-                    f"string column {name!r} has nulls: the STRING column "
-                    "type is not ported yet")
+            codes, cats = dictionary_encode(s)
+            if (codes < 0).any():  # nulls: a real STRING column
+                cols.append(Column.strings_from_list(
+                    [None if pd.isna(v) else str(v) for v in s],
+                    device=dev))
+                continue
             dicts[name] = cats
-        cols.append(_trust_ingest(Column.from_numpy(arr, device=dev)))
+            col = Column.from_numpy(codes, device=dev)
+        cols.append(_trust_ingest(col))
     return Rel(Table(cols), names, dicts=dicts)
 
 

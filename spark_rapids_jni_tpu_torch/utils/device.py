@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 from .errors import CudfLikeError
@@ -29,3 +30,14 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
         raise CudfLikeError(f"device {device!r} requested but CUDA is "
                             "not available")
     return dev
+
+
+def host_to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``. To a GPU it goes from pinned memory
+    without blocking, so a plan that uploads a small table mid-query
+    (a string look-up table, a category byte matrix) does not make the
+    host wait for the card."""
+    t = torch.from_numpy(np.require(arr, requirements=("C", "W")))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

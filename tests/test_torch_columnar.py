@@ -150,8 +150,14 @@ def test_entry_points_need_cuda_unless_told_otherwise(monkeypatch):
 
 
 def test_null_strings_raise_until_the_string_column_is_ported():
-    with pytest.raises(CudfLikeError, match="STRING"):
-        rel_from_df(pd.DataFrame({"s": ["a", None]}), device=CPU)
+    # the STRING column is ported: a string column with nulls now ingests
+    # as one, as the reference's does, instead of raising
+    df = pd.DataFrame({"s": ["a", None]})
+    rel = rel_from_df(df, device=CPU)
+    ref = ref_rel_from_df(df)
+    assert rel.col("s").dtype.id == ref.col("s").dtype.id
+    assert "s" not in rel.dicts and "s" not in ref.dicts
+    assert rel.col("s").to_pylist() == ref.col("s").to_pylist() == ["a", None]
 
 
 def test_dictionary_codes_round_trip(frames):

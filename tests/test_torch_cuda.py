@@ -468,3 +468,64 @@ def test_cuda_hashing_and_rows_equal_cpu(cuda_device):
         assert torch.equal(a.valid_bool(), b.valid_bool())
         ok = b.valid_bool()
         assert torch.equal(K.as_bytes(a.data)[ok], K.as_bytes(b.data)[ok])
+
+
+def _decimal_product(dev, n, seed, out_dtype):
+    """q15's shape: a DECIMAL32 product of two cent columns whose
+    overflow rows are NULL, on ``dev``."""
+    from spark_rapids_jni_tpu_torch import types as T
+    from spark_rapids_jni_tpu_torch.columnar import Column
+    from spark_rapids_jni_tpu_torch.ops import decimal_utils
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    a = torch.randint(100, 60_001, (n,), generator=g).to(dev)
+    b = torch.randint(0, 60_001, (n,), generator=g).to(dev)
+    ca = Column(T.decimal64(-2), n, a)
+    cb = Column(T.decimal64(-2), n, b)
+    return decimal_utils.multiply(ca, cb, out_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [10_000_000, 10_000_005])
+def test_cuda_bitmask_pack_decimal_validity(cuda_device, n):
+    # K3's vector form packs the overflow validity of a decimal result
+    # on 10M rows (q13-q15, q20); the result equals the CPU's, and K3
+    # agrees with its plain version on the validity and on views of it
+    # off a 16-byte boundary
+    from spark_rapids_jni_tpu_torch import types as T
+    before = K.LAUNCHES["bitmask_pack"]
+    got = _decimal_product(cuda_device, n, 15, T.decimal32(-4))
+    assert K.LAUNCHES["bitmask_pack"] == before + 1
+    want = _decimal_product(torch.device("cpu"), n, 15, T.decimal32(-4))
+    valid = got.valid_bool()
+    assert torch.equal(valid.cpu(), want.valid_bool())
+    assert torch.equal(got.validity.cpu().to(torch.int64),
+                       want.validity.to(torch.int64))
+    assert torch.equal(got.data.cpu()[want.valid_bool()],
+                       want.data[want.valid_bool()])
+    assert 0 < int((~valid).sum()) < n
+    for start in (0, 3, 5, 13):
+        view = valid[start:n - 1]
+        assert torch.equal(K.bitmask_pack(view), K.bitmask_pack_plain(view))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [379, 3790])
+def test_cuda_ragged_groupby_folded_value_mask(cuda_device, width):
+    # K2 with a value column whose validity (decimal overflow NULLs)
+    # folds into the live mask, as q15's groupby and q20's (10 states x
+    # 379 stores) give it, through the planner's cuda route
+    from spark_rapids_jni_tpu_torch import types as T
+    from spark_rapids_jni_tpu_torch.ops import fused_pipeline as fp
+    n = 10_000_000
+    col = _decimal_product(cuda_device, n, 16, T.decimal32(-4))
+    g = torch.Generator(device=cuda_device).manual_seed(width)
+    slots = torch.randint(0, width, (n,), generator=g, device=cuda_device,
+                          dtype=torch.int32)
+    mask = torch.rand(n, generator=g, device=cuda_device) > 0.3
+    live = mask & col.valid_bool()
+    before = K.LAUNCHES["ragged_groupby_sum_count"]
+    got = fp.dense_groupby_sum_count(slots, live, col.data, width, "cuda")
+    assert K.LAUNCHES["ragged_groupby_sum_count"] == before + 1
+    want = K.ragged_groupby_sum_count_plain(slots, live, col.data, width)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(got[1].sum()) == int(live.sum())

@@ -43,7 +43,11 @@ def test_sources_exist():
     for rel in ("tpcds/rel.py", "tpcds/carry.py", "ops/cuda_kernels.py",
                 "columnar/bitmask.py", "obs/__init__.py", "ops/hashing.py",
                 "ops/hive_hash.py", "ops/row_conversion.py",
-                "ops/row_layout.py", "columnar/strings.py"):
+                "ops/row_layout.py", "columnar/strings.py",
+                "utils/int128.py", "ops/decimal_utils.py",
+                "ops/string_ops.py", "tpcds/oplib/strings.py",
+                "tpcds/oplib/decimals.py", "tpcds/oplib/windows.py",
+                "tpcds/oplib/registry.py", "tpcds/queries.py"):
         assert rel in names
     for src in ("hash_join_probe.cu", "ragged_groupby.cu",
                 "bitmask_pack.cu", "murmur3.cu", "pack_rows.cu"):
@@ -77,6 +81,11 @@ def test_import_loads_no_jax_module():
         "import spark_rapids_jni_tpu_torch.ops.hashing\n"
         "import spark_rapids_jni_tpu_torch.ops.hive_hash\n"
         "import spark_rapids_jni_tpu_torch.ops.row_conversion\n"
+        "import spark_rapids_jni_tpu_torch.utils.int128\n"
+        "import spark_rapids_jni_tpu_torch.ops.decimal_utils\n"
+        "import spark_rapids_jni_tpu_torch.ops.string_ops\n"
+        "from spark_rapids_jni_tpu_torch.tpcds.oplib import registry\n"
+        "registry.ensure_loaded()\n"
         "import chip_smoke\n"
         "print(json.dumps(sorted(set(sys.modules) - before)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
