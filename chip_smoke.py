@@ -48,7 +48,46 @@ In order, it:
    hash to equal the same call with the table on the CPU, and every
    valid NaN row of a float column to hash like the canonical NaN; it
    prints rows/s of each table hash;
-7. row conversion (BASELINE config 2, the 32-column ``TestTables.java``
+7. the aggregation and date roster, six phases, each with the launch
+   counts set to 0 just before it runs once and read just after, every
+   K3 call recorded and held against its plain version (exact), its
+   warm wall time (median of 3) and rows/s printed beside K3's device
+   time, and the step's seconds on a line of its own:
+   (a) ``groupby_aggregate`` of store_sales by ss_item_sk: var and std
+   of ss_net_profit, first, last and nunique of ss_customer_sk, any and
+   all of ss_quantity > 10, equal to a pandas oracle (integers and bools
+   exact, var/std within rtol=1e-9, first/last in input order), and a
+   count by the STRUCT key (ss_store_sk, ss_promo_sk) equal to the count
+   by the two flat keys; K3 packs the six nullable results' validity;
+   (b) ``convert_to_rows_nested`` and ``convert_from_rows_nested`` of
+   1,000,000 seeded rows (the eight TestTables types,
+   STRUCT<INT32, FLOAT64, STRING 0-32 B>, LIST<INT64> of 0-8 elements,
+   STRUCT<STRUCT<INT16, DECIMAL64>, INT64>; 1% nulls at every node):
+   the round trip exact (NaN payloads byte for byte), K3's table form
+   launched once for the 18 nodes' validity;
+   (c) a bloom filter at Spark's runtime-filter defaults (8,388,608
+   bits, k = 6) over 1,000,000 distinct build keys (every ss_customer_sk
+   value and seeded int64s), probed with the build keys, the 10M
+   ss_customer_sk values (no false negative) and 10M absent keys (the
+   false-positive share printed beside its theoretical value); the words
+   equal the same build on the CPU; K3 packs the bit plane;
+   (d) HLL++ ``groupby_reduce`` of ss_customer_sk by ss_store_sk at
+   precision 9, ``estimate_column`` and ``reduce`` over the column: the
+   sketch words equal the CPU's on the first 1,000,000 rows, every
+   estimate of a group with at least 1,000 distinct values within
+   4 x 1.04 / sqrt(512) of the exact count;
+   (e) every datetime extractor, ``truncate`` on every unit and
+   ``add_interval_days`` over 10M seeded TIMESTAMP_MICROSECONDS of the
+   years 0001-9999 (0001-01-01, 9999-12-31, the 1582-10-04/15 switch
+   and pre-epoch values mixed in), and both rebases over their days:
+   equal to the CPU on the first 1,000,000 rows and to Python's
+   ``datetime`` on 10,000 sampled rows;
+   (f) ``convert_utc_to_timezone`` and ``convert_timezone_to_utc`` of
+   those timestamps in America/Los_Angeles, Europe/Berlin and
+   Asia/Kolkata (the TZif files are required): equal to the CPU on the
+   first 1,000,000 rows and to ``zoneinfo`` on the sampled rows up to
+   the transition table's horizon, the year 2200;
+8. row conversion (BASELINE config 2, the 32-column ``TestTables.java``
    schema, 200-byte rows): 1,000,000 rows all valid; 1,000,000 rows with
    1% nulls per column; 12,000,000 rows with nulls (two batches below
    2 GB: 10,737,408 and 1,262,592 rows); 1,000,000 rows plus two
@@ -64,10 +103,10 @@ In order, it:
    of row bytes both ways, and each conversion's wall time beside the
    device time of its K6 (to rows) or K3 (from rows) calls (the rest is
    host work, other kernels and idle card);
-8. prints the ``kernels`` JSON line (K1-K6, each with its launches on
-   its paths: K1-K3 on q1-q10 and q11-q20, K3 also, in its table form, on
-   the row conversions), the card again, and as the last line
-   ``{"ok": true, "device": {...}}``.
+9. prints the ``kernels`` JSON line (K1-K6, each with its launches on
+   its paths: K1-K3 on q1-q10 and q11-q20, K3 also on the roster and, in
+   its table form, on the row conversions and nested rows), the card
+   again, and as the last line ``{"ok": true, "device": {...}}``.
 
 Every kernel time is device time from CUDA events, the median of 10 runs
 after two warm-ups, with the queue held by a device-side sleep so that
@@ -78,12 +117,12 @@ over the card's 3.35 TB/s and its operations over 67 T/s, or, for K2,
 the updates of its busiest slot at one shared-memory atomic per SM
 clock. The ``kernels`` line sums each kernel over its calls on its
 paths: K1-K3 over q1-q10 and q11-q20, K4 and K5 over the hashing step,
-K6 and K3's table form over the row-conversion step.
+K3 over the roster, K6 and K3's table form over the row-conversion step.
 
-``--profile`` adds one warm run of each query, table hash and row
-conversion under ``torch.profiler``: the device time of its kernels, the
-device's idle share of the warm wall time, and the kernels that took
-most of it. Busy time and idle share read "not measured" when the
+``--profile`` adds one warm run of each query, table hash, roster phase
+and row conversion under ``torch.profiler``: the device time of its
+kernels, the device's idle share of the warm wall time, and the kernels
+that took most of it. Busy time and idle share read "not measured" when the
 profiler saw fewer launches of K1-K6 than the wrappers counted.
 
 It uses the first visible card only. It imports nothing of JAX nor of
@@ -96,8 +135,10 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import datetime as pydt
 import inspect
 import json
+import math
 import os
 import re
 import statistics
@@ -105,8 +146,10 @@ import subprocess
 import sys
 import time
 import warnings
+from zoneinfo import ZoneInfo
 
 import numpy as np
+import pandas as pd
 import torch
 
 from spark_rapids_jni_tpu_torch import types as T
@@ -114,8 +157,13 @@ from spark_rapids_jni_tpu_torch.columnar import Column, Table, bitmask
 from spark_rapids_jni_tpu_torch.columnar.strings import byte_matrix
 from spark_rapids_jni_tpu_torch.obs import kernel_stats, stats_since
 from spark_rapids_jni_tpu_torch.ops import cuda_kernels as K
-from spark_rapids_jni_tpu_torch.ops import hashing, hive_hash
+from spark_rapids_jni_tpu_torch.ops import (bloom_filter, groupby, hashing,
+                                            hive_hash, hllpp, nested_rows)
+from spark_rapids_jni_tpu_torch.ops import datetime as dto
+from spark_rapids_jni_tpu_torch.ops import datetime_rebase as reb
 from spark_rapids_jni_tpu_torch.ops import row_conversion as rc
+from spark_rapids_jni_tpu_torch.ops import timezone as tz
+from spark_rapids_jni_tpu_torch.ops.sort import gather_column
 from spark_rapids_jni_tpu_torch.tpcds import PLANS, QUERIES, generate
 from spark_rapids_jni_tpu_torch.tpcds.rel import rel_from_df, run_fused
 
@@ -139,7 +187,9 @@ KERNELS = (("hash_join_probe", (("q1-q10", "hash_join_probe"),
            ("bitmask_pack", (("q1-q10", "bitmask_pack"),
                              ("q11-q20", "bitmask_pack"),
                              ("row conversion", "bitmask_pack"),
-                             ("row conversion", "bitmask_pack_fields"))),
+                             ("row conversion", "bitmask_pack_fields"),
+                             ("roster", "bitmask_pack"),
+                             ("roster", "bitmask_pack_fields"))),
            ("murmur3_int32", (("hashing", "murmur3_int32"),)),
            ("murmur3_int64", (("hashing", "murmur3_int64"),)),
            ("pack_rows", (("row conversion", "pack_rows"),)))
@@ -1071,6 +1121,482 @@ def kernels_beside_wall(cases: list, totals: dict, card: str, log) -> None:
                 f"call(s) = {share:.3f} of it [{card}]")
 
 
+# --------------------------------------------------------------------------
+# The aggregation and date roster through the port's entry points
+# --------------------------------------------------------------------------
+
+ROSTER_NAMES = ("bitmask_pack", "bitmask_pack_fields")
+ROSTER_AGGS = [(0, "var"), (0, "std"), (1, "first"), (1, "last"),
+               (2, "any"), (2, "all"), (1, "nunique")]
+NESTED_ROWS = 1_000_000
+BLOOM_BITS, BLOOM_KEYS, BLOOM_HASHES = 8_388_608, 1_000_000, 6
+BLOOM_PROBES = 10_000_000
+HLL_P = 9  # Spark's default rsd = 0.05
+HLL_MIN_DISTINCT = 1000  # groups held to the error bound
+DATE_ROWS, ROSTER_CPU_ROWS, SAMPLE_ROWS = 10_000_000, 1_000_000, 10_000
+TZ_ZONES = ("America/Los_Angeles", "Europe/Berlin", "Asia/Kolkata")
+US_PER_DAY = 86_400_000_000
+EPOCH = pydt.datetime(1970, 1, 1)
+ONE_US = pydt.timedelta(microseconds=1)
+
+
+def _epoch_us(*ymd_hms) -> int:
+    return (pydt.datetime(*ymd_hms) - EPOCH) // ONE_US
+
+
+MIN_US, MAX_US = _epoch_us(1, 1, 1), _epoch_us(9999, 12, 31, 23, 59, 59,
+                                               999_999)
+# 0001-01-01, 9999-12-31, the 1582-10-04/15 switch, the epoch's
+# neighbours and other pre-epoch values
+DATE_EDGES = (MIN_US, MAX_US, _epoch_us(1582, 10, 4),
+              _epoch_us(1582, 10, 15), _epoch_us(1582, 10, 4, 23, 59, 59,
+                                                 999_999),
+              _epoch_us(1582, 10, 14), -1, 0, 1, -US_PER_DAY,
+              -US_PER_DAY - 1, _epoch_us(1900, 2, 28, 12),
+              _epoch_us(2000, 2, 29, 23, 59, 59, 1), _epoch_us(1, 3, 1))
+
+
+def roster_phase(name: str, fn, rows: int, calls: list, launches: dict,
+                 log, profile: bool):
+    """One roster phase: the launch counts set to 0 just before ``fn()``
+    runs once (every K3 call recorded) and read just after; then the
+    warm wall time (median of 3) and rows/s."""
+    K.reset_launch_counts()
+    with recording(calls, [name]):
+        out = fn()
+        torch.cuda.synchronize()
+    got = {n: K.LAUNCHES[n] for n in ROSTER_NAMES}
+    for n, v in got.items():
+        launches[n] = launches.get(n, 0) + v
+    ms = wall_ms(fn)
+    r = {"phase": name, "launches": got, "wall_ms": ms, "rows": rows,
+         "rows_per_s": rows / ms * 1e3}
+    log(f"roster {name}: {rows} rows in {ms:.3f} ms warm = "
+        f"{r['rows_per_s']:.4g} rows/s; K3 launches {json.dumps(got)}")
+    if profile:
+        r |= profile_run(fn, ms, f"roster {name}", log)
+    return out, r
+
+
+def _host(col: Column) -> np.ndarray:
+    return col.data.cpu().numpy()
+
+
+def roster_groupby(ss, calls, launches, log, profile):
+    """Phase 1: var/std of ss_net_profit, first/last/nunique of
+    ss_customer_sk, any/all of ss_quantity > 10 by ss_item_sk, and a
+    count by the STRUCT key (ss_store_sk, ss_promo_sk) against the same
+    count by the two flat keys; held against a pandas oracle."""
+    c = {k: ss.col(f"ss_{k}") for k in ("item_sk", "customer_sk",
+                                        "net_profit", "quantity",
+                                        "store_sk", "promo_sk")}
+    n = c["item_sk"].size
+    flag = Column(T.BOOL8, n, (c["quantity"].data > 10).to(torch.int8))
+    keys = Table([c["item_sk"]])
+    vals = Table([c["net_profit"], c["customer_sk"], flag])
+    pair = Column.struct_from_children([c["store_sk"], c["promo_sk"]],
+                                       field_names=("store", "promo"))
+    ones = Table([c["store_sk"]])
+
+    def fn():
+        return (groupby.groupby_aggregate(keys, vals, ROSTER_AGGS),
+                groupby.groupby_aggregate(Table([pair]), ones,
+                                          [(0, "count_all")]),
+                groupby.groupby_aggregate(Table([c["store_sk"],
+                                                 c["promo_sk"]]), ones,
+                                          [(0, "count_all")]))
+    (out, by_struct, by_flat), r = roster_phase(
+        "groupby", fn, n, calls, launches, log, profile)
+    _require(r["launches"]["bitmask_pack"] == 6,
+             "K3 did not pack the six nullable results' validity")
+
+    t0 = time.perf_counter()
+    df = pd.DataFrame({"item": _host(c["item_sk"]),
+                       "cust": _host(c["customer_sk"]),
+                       "profit": _host(c["net_profit"]),
+                       "flag": _host(c["quantity"]) > 10})
+    g = df.groupby("item", sort=True)
+    want = {"var": g.profit.var(), "std": g.profit.std(),
+            "first": g.cust.first(), "last": g.cust.last(),
+            "any": g.flag.any(), "all": g.flag.all(),
+            "nunique": g.cust.nunique(), "count": g.size()}
+    oracle_s = time.perf_counter() - t0
+    _require(out.num_rows == len(want["count"]) and np.array_equal(
+        _host(out.columns[0]), want["count"].index.to_numpy()),
+        "groupby keys differ from the oracle's")
+    two = want["count"].to_numpy() >= 2
+    for (_, agg), col in zip(ROSTER_AGGS, out.columns[1:]):
+        got, ok = col.to_numpy()
+        exp = want[agg].to_numpy()
+        if agg in ("var", "std"):
+            _require(np.array_equal(ok, two), f"{agg}: NULL where the "
+                     "oracle has fewer than two values, and only there")
+            np.testing.assert_allclose(got[ok], exp[ok], rtol=1e-9,
+                                       err_msg=agg)
+        else:
+            _require(ok.all() and np.array_equal(got, exp.astype(got.dtype)),
+                     f"{agg} differs from the oracle")
+    s0, s1 = by_struct.columns[0].children
+    _require(by_struct.num_rows == by_flat.num_rows and all(
+        torch.equal(a.data, b.data) for a, b in (
+            (s0, by_flat.columns[0]), (s1, by_flat.columns[1]),
+            (by_struct.columns[1], by_flat.columns[2]))),
+        "the STRUCT key's groups differ from the two flat keys'")
+    log(f"roster groupby: {out.num_rows} item groups equal the pandas "
+        f"oracle (var/std rtol 1e-9; oracle_s={oracle_s:.3f}); the STRUCT "
+        f"key gives the flat keys' {by_flat.num_rows} groups and counts")
+    return r | {"groups": out.num_rows, "struct_groups": by_struct.num_rows,
+                "oracle_s": oracle_s}
+
+
+def _list_column(dev, gen, n: int, null_share: float) -> Column:
+    """LIST<INT64> of 0-8 elements a row."""
+    lens = torch.randint(0, 9, (n,), generator=gen, device=dev)
+    offsets = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(lens, 0, out=offsets[1:])
+    total = int(offsets[-1])
+    return Column(T.LIST, n, None, _valid_words(dev, gen, n, null_share),
+                  children=(Column(T.INT32, n + 1, offsets.to(torch.int32)),
+                            Column(T.INT64, total, _randint(
+                                dev, gen, total, -2**63, 2**63 - 1))))
+
+
+def nested_table(dev, gen, n: int, share: float = 0.01) -> Table:
+    """The eight TestTables types, STRUCT<INT32, FLOAT64, STRING 0-32 B>,
+    LIST<INT64> of 0-8 elements and STRUCT<STRUCT<INT16, DECIMAL64>,
+    INT64>, ``share`` nulls at every node, floats with NaN payloads."""
+    def col(dt, data):
+        return Column(dt, n, data, _valid_words(dev, gen, n, share))
+
+    def struct(children, names=None):
+        return Column(T.STRUCT, n, None, _valid_words(dev, gen, n, share),
+                      children=tuple(children), field_names=names)
+    f64 = _with_specials(torch.randn(n, generator=gen, device=dev,
+                                     dtype=torch.float64), F64_SPECIALS, 89)
+    return Table(list(rows_table(dev, gen, n, share, 0, 1).columns) + [
+        struct([col(T.INT32, _randint(dev, gen, n, -2**31, 2**31,
+                                      torch.int32)),
+                col(T.FLOAT64, f64), string_column(dev, gen, n, share)],
+               ("i", "f", "s")),
+        _list_column(dev, gen, n, share),
+        struct([struct([col(T.INT16, _randint(dev, gen, n, -2**15, 2**15,
+                                              torch.int16)),
+                        col(T.decimal64(-2), _randint(dev, gen, n, -10**15,
+                                                      10**15))]),
+                col(T.INT64, _randint(dev, gen, n, -2**63, 2**63 - 1))])])
+
+
+def _same_nested(got: Column, want: Column) -> bool:
+    """Every validity bit of every node equal, and every valid row's
+    bytes (a STRING's or LIST's offsets and elements too)."""
+    ok = want.valid_bool()
+    if not torch.equal(got.valid_bool(), ok):
+        return False
+    if want.dtype.id == T.TypeId.STRUCT:
+        return all(_same_nested(a, b) for a, b in zip(got.children,
+                                                      want.children))
+    if want.dtype.id in (T.TypeId.STRING, T.TypeId.LIST):
+        idx = torch.nonzero(ok)[:, 0]
+        a, b = gather_column(got, idx), gather_column(want, idx)
+        return (torch.equal(a.offsets.data, b.offsets.data)
+                and torch.equal(K.as_bytes(a.child.data),
+                                K.as_bytes(b.child.data)))
+    return torch.equal(K.as_bytes(got.data)[ok], K.as_bytes(want.data)[ok])
+
+
+def roster_nested_rows(dev, gen, calls, launches, log, profile):
+    """Phase 2: ``convert_to_rows_nested`` then
+    ``convert_from_rows_nested`` of 1M seeded rows, exact round trip."""
+    t = nested_table(dev, gen, NESTED_ROWS)
+    tree = nested_rows.type_tree(t)
+    lay = nested_rows.NestedRowLayout(tree)
+
+    def fn():
+        rows = nested_rows.convert_to_rows_nested(t)
+        return rows, nested_rows.convert_from_rows_nested(rows, tree)
+    (rows, back), r = roster_phase("nested rows", fn, NESTED_ROWS, calls,
+                                   launches, log, profile)
+    _require(r["launches"]["bitmask_pack_fields"] == 1,
+             "the nested decode did not launch K3's table form once")
+    _require(all(_same_nested(a, b) for a, b in zip(back.columns,
+                                                    t.columns)),
+             "the nested round trip lost a value or a validity bit")
+    nbytes = int(rows.child.size)
+    log(f"roster nested rows: {NESTED_ROWS} rows x {lay.n_nodes} nodes "
+        f"({lay.var_start} fixed bytes a row, {nbytes} row bytes) round "
+        "trip exact, NaN payloads byte for byte")
+    return r | {"nodes": lay.n_nodes, "row_bytes": nbytes,
+                "fixed_bytes": lay.var_start}
+
+
+def roster_bloom(dev, gen, ss, calls, launches, log, profile):
+    """Phase 3: Spark's runtime-filter defaults (8,388,608 bits, k = 6)
+    over 1M distinct build keys (every ss_customer_sk value and seeded
+    int64s above 2^33); probes of the build keys, the 10M ss_customer_sk
+    values and 10M keys below -2^33, all absent."""
+    cust = ss.col("ss_customer_sk")
+    wide = torch.randint(2**33, 2**62, (BLOOM_KEYS + BLOOM_KEYS // 4,),
+                         generator=gen, device=dev).unique()
+    wide = wide[torch.randperm(wide.numel(), generator=gen, device=dev)]
+    build_keys = torch.cat([cust.data.unique(), wide])[:BLOOM_KEYS]
+    build = Column(T.INT64, BLOOM_KEYS, build_keys)
+    absent = Column(T.INT64, BLOOM_PROBES, torch.randint(
+        -2**62, -2**33, (BLOOM_PROBES,), generator=gen, device=dev))
+
+    def fn():
+        words = bloom_filter.build(build, BLOOM_BITS, BLOOM_HASHES)
+        return words, [bloom_filter.probe(words, c, BLOOM_HASHES)
+                       for c in (build, cust, absent)]
+    (words, (hit_build, hit_cust, hit_absent)), r = roster_phase(
+        "bloom filter", fn, BLOOM_KEYS + cust.size + BLOOM_PROBES, calls,
+        launches, log, profile)
+    _require(r["launches"]["bitmask_pack"] == 1,
+             "the bloom build did not pack its bit plane with K3")
+    _require(int(build_keys.unique().numel()) == BLOOM_KEYS,
+             "the build keys are not distinct")
+    _require(bool(hit_build.all()) and bool(hit_cust.all()),
+             "a false negative: a build key did not pass the filter")
+    want = bloom_filter.build(Column(T.INT64, BLOOM_KEYS, build_keys.cpu()),
+                              BLOOM_BITS, BLOOM_HASHES)
+    _require(torch.equal(words.cpu(), want),
+             "the filter words differ from the same build on the CPU")
+    fp = float(hit_absent.float().mean())
+    theory = (1 - math.exp(-BLOOM_HASHES * BLOOM_KEYS / BLOOM_BITS)) \
+        ** BLOOM_HASHES
+    set_bits = int(bitmask.unpack(words, BLOOM_BITS).sum())
+    _require(fp < 2 * theory, f"false-positive share {fp} against the "
+             f"theoretical {theory}")
+    log(f"roster bloom filter: no false negative over {BLOOM_KEYS} build "
+        f"keys and {cust.size} ss_customer_sk probes; false-positive share "
+        f"{fp:.6f} over {BLOOM_PROBES} absent keys, theoretical "
+        f"{theory:.6f}; {set_bits} of {BLOOM_BITS} bits set; words equal "
+        "the CPU build")
+    return r | {"false_positive_share": fp, "theoretical": theory,
+                "bits_set": set_bits}
+
+
+def roster_hllpp(dev, ss, calls, launches, log, profile):
+    """Phase 4: ``groupby_reduce`` of ss_customer_sk by ss_store_sk at
+    precision 9, ``estimate_column``, and ``reduce`` over the column."""
+    store, cust = ss.col("ss_store_sk"), ss.col("ss_customer_sk")
+    keys = Table([store])
+
+    def fn():
+        gk, sk = hllpp.groupby_reduce(keys, cust, HLL_P)
+        whole = hllpp.reduce(cust, HLL_P)
+        return gk, sk, hllpp.estimate_column(sk, HLL_P), whole, \
+            hllpp.estimate(whole, HLL_P)
+    (gk, sk, est, whole, west), r = roster_phase(
+        "hllpp", fn, cust.size, calls, launches, log, profile)
+    est_ms = wall_ms(lambda: hllpp.estimate_column(sk, HLL_P))
+    # the same calls on the first rows, on the card and on the CPU
+    m = ROSTER_CPU_ROWS
+    heads = [(Table([rc.slice_rows(store, 0, m)]), rc.slice_rows(cust, 0, m)),
+             (Table([head_on_cpu(store, m)]), head_on_cpu(cust, m))]
+    (ck, cs), (pk, ps) = [hllpp.groupby_reduce(k, v, HLL_P) for k, v in heads]
+    _require(torch.equal(ck.columns[0].data.cpu(), pk.columns[0].data)
+             and torch.equal(cs.cpu(), ps)
+             and torch.equal(hllpp.reduce(heads[0][1], HLL_P).cpu(),
+                             hllpp.reduce(heads[1][1], HLL_P)),
+             f"HLL++ sketch words differ from the CPU's on {m} rows")
+    # exact distinct counts per store
+    pair = store.data * (1 << 24) + cust.data
+    uniq = pair.unique()
+    exact = torch.bincount(uniq >> 24, minlength=int(store.data.max()) + 1)
+    exact = exact[gk.columns[0].data].cpu()
+    got = est.data.cpu()
+    big = exact >= HLL_MIN_DISTINCT
+    err = ((got - exact).abs().double() / exact.clamp(min=1).double())[big]
+    bound = 4 * 1.04 / math.sqrt(1 << HLL_P)
+    whole_exact = int(cust.data.unique().numel())
+    whole_err = abs(int(west) - whole_exact) / whole_exact
+    _require(bool(big.any()) and float(err.max()) <= bound
+             and whole_err <= bound,
+             f"HLL++ estimates off by up to {float(err.max()):.4f} "
+             f"(whole column {whole_err:.4f}), bound {bound:.4f}")
+    log(f"roster hllpp: {gk.num_rows} store sketches ({int(big.sum())} with "
+        f">= 1000 distinct) within {float(err.max()):.4f} of the exact "
+        f"counts, whole column {int(west)} against {whole_exact} "
+        f"({whole_err:.4f}); bound {bound:.4f}; sketch words equal the "
+        f"CPU's on {m} rows; estimate_column {est_ms:.3f} ms = "
+        f"{est_ms / r['wall_ms']:.3f} of the phase's wall time")
+    return r | {"groups": gk.num_rows, "max_rel_err": float(err.max()),
+                "whole_rel_err": whole_err, "estimate_ms": est_ms,
+                "estimate_share": est_ms / r["wall_ms"]}
+
+
+def date_calls(col: Column, days: Column) -> dict:
+    """Every extractor, ``truncate`` on every unit and
+    ``add_interval_days`` over TIMESTAMP_MICROSECONDS; both rebases over
+    TIMESTAMP_DAYS."""
+    out = {f: getattr(dto, f)(col) for f in DATE_FIELDS}
+    out |= {f"truncate {u}": dto.truncate(col, u)
+            for u in dto.TRUNCATE_UNITS}
+    out["add_interval_days 40"] = dto.add_interval_days(col, 40)
+    out["gregorian_to_julian"] = reb.rebase_gregorian_to_julian(days)
+    out["julian_to_gregorian"] = reb.rebase_julian_to_gregorian(days)
+    return out
+
+
+DATE_FIELDS = ("extract_year", "extract_month", "extract_day",
+               "extract_hour", "extract_minute", "extract_second",
+               "extract_microsecond", "day_of_week", "day_of_year")
+_JULIAN_MONTHS = (0, 31, 59, 90, 120, 151, 181, 212, 243, 273, 304, 334)
+CUTOVER = pydt.date(1582, 10, 15)  # the hybrid calendar's first Gregorian day
+
+
+def _julian_day(y: int, m: int, d: int) -> int:
+    """Days since 1970-01-01 of a proleptic Julian date, by counting."""
+    def ordinal(y, m, d):
+        return 365 * (y - 1) + (y - 1) // 4 + _JULIAN_MONTHS[m - 1] \
+            + (m > 2 and y % 4 == 0) + d
+    return ordinal(y, m, d) - ordinal(1969, 12, 19)  # = 1970-01-01
+
+
+def _julian_to_gregorian(day: int) -> int:
+    """The proleptic Julian date of ``day`` read as a Gregorian date (a
+    Julian February 29 the Gregorian year lacks rolls to March 1)."""
+    y = 1968 + (day // 366 if day >= 0 else day // 365)  # a lower bound
+    while _julian_day(y + 1, 1, 1) <= day:
+        y += 1
+    m = max(k for k in range(1, 13) if _julian_day(y, k, 1) <= day)
+    first = (pydt.date(y, m, 1) - EPOCH.date()).days
+    return first + day - _julian_day(y, m, 1)
+
+
+def python_dates(us: int) -> dict:
+    """``date_calls`` of one row by Python's ``datetime`` (the rebases by
+    counting Julian days)."""
+    dt = EPOCH + pydt.timedelta(microseconds=us)
+    day = (dt.date() - EPOCH.date()).days
+
+    def trunc(**zero):
+        return (dt.replace(**zero) - EPOCH) // ONE_US
+    return {"extract_year": dt.year, "extract_month": dt.month,
+            "extract_day": dt.day, "extract_hour": dt.hour,
+            "extract_minute": dt.minute, "extract_second": dt.second,
+            "extract_microsecond": dt.microsecond,
+            "day_of_week": dt.isoweekday() % 7 + 1,
+            "day_of_year": dt.timetuple().tm_yday,
+            "truncate day": trunc(hour=0, minute=0, second=0,
+                                  microsecond=0),
+            "truncate hour": trunc(minute=0, second=0, microsecond=0),
+            "truncate minute": trunc(second=0, microsecond=0),
+            "truncate second": trunc(microsecond=0),
+            "add_interval_days 40":
+                (dt - EPOCH + pydt.timedelta(days=40)) // ONE_US,
+            "gregorian_to_julian": day if dt.date() >= CUTOVER
+            else _julian_day(dt.year, dt.month, dt.day),
+            "julian_to_gregorian": day if dt.date() >= CUTOVER
+            else _julian_to_gregorian(day)}
+
+
+def roster_dates(dev, gen, calls, launches, log, profile):
+    """Phase 5: 10M seeded TIMESTAMP_MICROSECONDS over the years
+    0001-9999 with the edge values mixed in; every extractor, truncate
+    unit, add_interval_days, and both rebases over their days."""
+    n = DATE_ROWS
+    ts = torch.randint(MIN_US, MAX_US + 1, (n,), generator=gen, device=dev)
+    edges = torch.tensor(DATE_EDGES, device=dev)
+    at = torch.arange(0, n, 997, device=dev)
+    ts[at] = edges[torch.arange(at.numel(), device=dev) % edges.numel()]
+    col = Column(T.TIMESTAMP_MICROSECONDS, n, ts)
+    days = Column(T.TIMESTAMP_DAYS, n, (ts // US_PER_DAY).to(torch.int32))
+    out, r = roster_phase("dates", lambda: date_calls(col, days), n, calls,
+                          launches, log, profile)
+    m = ROSTER_CPU_ROWS
+    cpu = date_calls(head_on_cpu(col, m), head_on_cpu(days, m))
+    for name, c in cpu.items():
+        _require(torch.equal(out[name].data[:m].cpu(), c.data),
+                 f"{name}: the card's first {m} rows differ from the CPU's")
+    pick = torch.randperm(n, generator=gen, device=dev)[:SAMPLE_ROWS]
+    pick[:len(DATE_EDGES)] = torch.arange(0, 997 * len(DATE_EDGES), 997,
+                                          device=dev)
+    got = {k: v.data[pick].tolist() for k, v in out.items()}
+    for i, us in enumerate(ts[pick].tolist()):
+        for k, w in python_dates(us).items():
+            _require(got[k][i] == w, f"{k} of {us} us: {got[k][i]}, "
+                     f"Python's datetime {w}")
+    log(f"roster dates: {len(out)} calls over {n} rows equal the CPU's on "
+        f"the first {m} rows and Python's datetime on {SAMPLE_ROWS} sampled "
+        f"rows (the {len(DATE_EDGES)} edge values among them)")
+    return r | {"calls": len(out)}, col, pick
+
+
+def roster_timezone(col: Column, pick, calls, launches, log, profile):
+    """Phase 6: both conversions over the 10M timestamps in three zones;
+    equal to the CPU on the first 1M rows and to ``zoneinfo`` on the
+    sampled rows up to the transition table's horizon (the year 2200,
+    as in the reference: past it the table's last offset holds)."""
+    def fn():
+        return {f"{z} {way}": getattr(tz, way)(col, z) for z in TZ_ZONES
+                for way in ("convert_utc_to_timezone",
+                            "convert_timezone_to_utc")}
+    out, r = roster_phase("timezone", fn, col.size, calls, launches, log,
+                          profile)
+    m = ROSTER_CPU_ROWS
+    head = head_on_cpu(col, m)
+    for name, c in out.items():
+        z, way = name.split(" ")
+        _require(torch.equal(c.data[:m].cpu(), getattr(tz, way)(head, z).data),
+                 f"{name}: the card's first {m} rows differ from the CPU's")
+    us = col.data[pick].tolist()
+    # Python's datetime ends at the year 1: a zone's local time within a
+    # day of 0001-01-01 may lie before it
+    lo_us = MIN_US + US_PER_DAY
+    hi_us = _epoch_us(tz.RULE_HORIZON_YEAR + 1, 1, 1) - 2 * US_PER_DAY
+    within = [i for i, v in enumerate(us) if lo_us <= v < hi_us]
+    for z in TZ_ZONES:
+        zone = ZoneInfo(z)
+        lo = out[f"{z} convert_utc_to_timezone"].data[pick].tolist()
+        ut = out[f"{z} convert_timezone_to_utc"].data[pick].tolist()
+        for i in within:
+            at = EPOCH + pydt.timedelta(microseconds=us[i])
+            off = at.replace(tzinfo=pydt.timezone.utc).astimezone(zone) \
+                .utcoffset() // ONE_US
+            wall = at.replace(tzinfo=zone, fold=0).utcoffset() // ONE_US
+            _require(lo[i] == us[i] + off and ut[i] == us[i] - wall,
+                     f"{z} at {us[i]} us differs from zoneinfo")
+    log(f"roster timezone: {len(out)} conversions over {col.size} rows "
+        f"equal the CPU's on the first {m} rows and zoneinfo on the "
+        f"{len(within)} sampled rows from 0001-01-02 to "
+        f"{tz.RULE_HORIZON_YEAR}-12-30 in {', '.join(TZ_ZONES)} (the other "
+        f"{len(us) - len(within)} lie past the transition table's horizon "
+        "or within a day of the year 1, and are held against the CPU "
+        "only)")
+    return r | {"held_rows": len(within),
+                "not_held": len(us) - len(within)}
+
+
+def run_roster(dev, gen, rels: dict, log, profile: bool = False):
+    """Step 7: the roster's six phases on store_sales and seeded data."""
+    ss = rels["store_sales"]
+    calls, launches, phases = [], {}, []
+    phases.append(roster_groupby(ss, calls, launches, log, profile))
+    phases.append(roster_nested_rows(dev, gen, calls, launches, log,
+                                     profile))
+    phases.append(roster_bloom(dev, gen, ss, calls, launches, log, profile))
+    phases.append(roster_hllpp(dev, ss, calls, launches, log, profile))
+    r, col, pick = roster_dates(dev, gen, calls, launches, log, profile)
+    phases.append(r)
+    phases.append(roster_timezone(col, pick, calls, launches, log, profile))
+    for name in ROSTER_NAMES:
+        _require(launches.get(name, 0) > 0,
+                 f"kernel {name} was not launched on the roster path")
+    return {"phases": phases, "launches": launches}, calls
+
+
+def k3_beside_wall(phases: list, totals: dict, card: str, log) -> None:
+    """Each roster phase's warm wall time beside the device time of its
+    K3 calls (both forms)."""
+    for r in phases:
+        ms = [c["ms"] for name in ROSTER_NAMES
+              for c in totals[name]["per_call"] if c["query"] == r["phase"]]
+        r["k3_ms"] = sum(ms)
+        log(f"roster {r['phase']}: {r['wall_ms']:.3f} ms wall, K3 "
+            f"{sum(ms):.4f} ms in {len(ms)} call(s) [{card}]")
+
+
 def kernel_entries(totals: dict, launches: dict, card: str, stress: list,
                    log) -> list:
     """The ``kernels`` line: each kernel of ``KERNELS`` summed over its
@@ -1129,7 +1655,7 @@ def main(argv=None) -> int:
                     help="directory for the build log and a JSON report")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one warm run of each query, table "
-                    "hash and row conversion")
+                    "hash, roster phase and row conversion")
     args = ap.parse_args(argv)
     # one card: the device count printed at the end is the one used
     os.environ["CUDA_VISIBLE_DEVICES"] = \
@@ -1184,13 +1710,23 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     hashed, calls = run_hashing(dev, gen, rels, log, args.profile)
-    del rels
     log("hashing kernel calls, each equal to its plain version:")
     totals["hashing"] = path_kernels(calls, hashed["launches"], HASH_NAMES,
                                      log)
     del calls
     hashed["step_s"] = time.perf_counter() - t0
     log(f"hashing step: {hashed['step_s']:.3f} s")
+
+    t0 = time.perf_counter()
+    roster, calls = run_roster(dev, gen, rels, log, args.profile)
+    del rels
+    log("roster kernel calls, each equal to its plain version:")
+    totals["roster"] = path_kernels(calls, roster["launches"], ROSTER_NAMES,
+                                    log)
+    del calls
+    k3_beside_wall(roster["phases"], totals["roster"], card, log)
+    roster["step_s"] = time.perf_counter() - t0
+    log(f"roster step: {roster['step_s']:.3f} s")
 
     t0 = time.perf_counter()
     rows, calls = run_row_conversion(dev, gen, log, args.profile)
@@ -1206,6 +1742,7 @@ def main(argv=None) -> int:
         totals, {"q1-q10": main_path["launches"],
                  "q11-q20": oplib["launches"],
                  "hashing": hashed["launches"],
+                 "roster": roster["launches"],
                  "row conversion": rows["launches"]}, card, stress, log)
     if args.out:
         with open(os.path.join(args.out, "chip_smoke_report.json"),
@@ -1214,7 +1751,8 @@ def main(argv=None) -> int:
                        "build_s": build_s, "stress": stress,
                        "path_kernels": totals, "main_path": main_path,
                        "q11_q20": oplib,
-                       "hashing": hashed, "row_conversion": rows,
+                       "hashing": hashed, "roster": roster,
+                       "row_conversion": rows,
                        "sf": SF, "seed": SEED}, f, indent=1, sort_keys=True,
                       default=str)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -3,9 +3,13 @@ optional children.
 
 Mirrors ``spark_rapids_jni_tpu/columnar/column.py``: fixed-width columns
 hold ``data`` ((N, 2) int64 [lo, hi] for DECIMAL128); STRING and LIST
-columns hold no data and two children, int32 offsets (N + 1) and a byte
-child (uint8 chars for STRING, int8 bytes for LIST), like cudf's
-strings and lists columns. ``value_range``/``unique`` are the
+columns hold no data and two children, int32 offsets (N + 1) and an
+element child (uint8 chars for STRING; for LIST int8 bytes in a row
+batch, any fixed-width type in a column), like cudf's strings and lists
+columns. A STRUCT column holds no data and one child per field, each of
+the parent's row count; a null struct row leaves its children as they
+are (readers consult the parent's mask first), and ``field_names`` is
+schema metadata. ``value_range``/``unique`` are the
 host-side ingest stats (Parquet-chunk-style min/max and a primary-key
 signal) that the dense planner trusts once verified; ``_stats_flags``
 memoizes that verification as (range_ok, unique_ok).
@@ -20,7 +24,7 @@ import numpy as np
 import torch
 
 from ..types import (DType, TypeId, SIZE_TYPE, SIZE_TYPE_MAX, INT8, INT32,
-                     LIST, STRING, UINT8, decimal128)
+                     LIST, STRING, STRUCT, UINT8, decimal128)
 from ..utils.errors import expects
 from . import bitmask
 
@@ -67,8 +71,9 @@ def np_to_dtype(np_dtype) -> DType:
 @dataclass
 class Column:
     """A device column: ``data`` (N,) in the storage dtype (None for
-    STRING and LIST), optional ``validity`` (packed uint32 words; None =
-    all valid) and ``children`` (offsets, bytes) for STRING and LIST."""
+    STRING, LIST and STRUCT), optional ``validity`` (packed uint32 words;
+    None = all valid), ``children`` ((offsets, elements) for STRING and
+    LIST, the fields for STRUCT) and a STRUCT's ``field_names``."""
 
     dtype: DType
     size: int
@@ -77,6 +82,7 @@ class Column:
     value_range: Optional[Tuple[int, int]] = None
     unique: Optional[bool] = None
     children: Tuple["Column", ...] = field(default_factory=tuple)
+    field_names: Optional[Tuple[str, ...]] = None
 
     @staticmethod
     def from_numpy(values: np.ndarray, valid: Optional[np.ndarray] = None,
@@ -161,6 +167,46 @@ class Column:
                                 Column(UINT8, int(chr_.shape[0]), chr_)))
 
     @staticmethod
+    def struct_from_children(children: Sequence["Column"],
+                             valid: Optional[np.ndarray] = None,
+                             field_names: Optional[Sequence[str]] = None
+                             ) -> "Column":
+        """STRUCT over equal-length child columns, on their device, with
+        an optional host bool validity and one name per field."""
+        expects(len(children) > 0, "struct needs at least one field")
+        n = children[0].size
+        for c in children:
+            expects(c.size == n, "struct children must share a row count")
+        if valid is not None:
+            valid = np.asarray(valid, dtype=bool)
+            expects(valid.shape == (n,), "validity shape mismatch")
+        if field_names is not None:
+            expects(len(field_names) == len(children),
+                    "one field name per struct child")
+            field_names = tuple(field_names)
+        return Column(STRUCT, n, None,
+                      pack_validity(valid, children[0].device),
+                      children=tuple(children), field_names=field_names)
+
+    @staticmethod
+    def list_from_arrays(offsets: np.ndarray, elements: np.ndarray,
+                         valid: Optional[np.ndarray] = None,
+                         elem_dtype: Optional[DType] = None, *,
+                         device: torch.device) -> "Column":
+        """LIST of a fixed-width element type from host int32 offsets
+        (N + 1), the elements and an optional bool validity; a null row's
+        offsets may span elements, which readers then ignore."""
+        offsets = np.asarray(offsets)
+        expects(offsets.ndim == 1 and offsets.shape[0] >= 1,
+                "offsets need N + 1 entries")
+        n = int(offsets.shape[0]) - 1
+        elems = Column.from_numpy(np.asarray(elements), None, elem_dtype,
+                                  device=device)
+        off = torch.from_numpy(offsets.astype(SIZE_TYPE)).to(device)
+        return Column(LIST, n, None, pack_validity(valid, device),
+                      children=(Column(INT32, n + 1, off), elems))
+
+    @staticmethod
     def list_of_int8(child_bytes: torch.Tensor,
                      offsets: torch.Tensor) -> "Column":
         """``list<int8>``, the row-batch type of ``convert_to_rows``, on
@@ -185,8 +231,26 @@ class Column:
 
     @property
     def device(self) -> torch.device:
-        return (self.data if self.data is not None
-                else self.children[0].data).device
+        return (self.data.device if self.data is not None
+                else self.children[0].device)
+
+    @property
+    def has_nulls(self) -> bool:
+        return self.validity is not None
+
+    def type_signature(self) -> tuple:
+        """Structural type identity: (id, scale), and for STRUCT the
+        fields' signatures (a DType alone makes every struct equal)."""
+        if self.dtype.id == TypeId.STRUCT:
+            return (int(self.dtype.id), self.dtype.scale,
+                    tuple(c.type_signature() for c in self.children))
+        return (int(self.dtype.id), self.dtype.scale)
+
+    def null_count(self) -> int:
+        """Null rows (a host sync)."""
+        if self.validity is None:
+            return 0
+        return self.size - int(self.valid_bool().sum())
 
     def valid_bool(self) -> torch.Tensor:
         """Validity as a dense bool vector (all-True if no mask)."""
@@ -205,11 +269,23 @@ class Column:
         return values, valid
 
     def to_pylist(self) -> list:
-        """Host values, None for nulls: str for STRING, bytes for LIST,
-        ``decimal.Decimal`` for DECIMAL128."""
+        """Host values, None for nulls: str for STRING, bytes for a LIST
+        of int8 (a row batch), a list of element values for another
+        LIST, a tuple of field values for STRUCT, ``decimal.Decimal``
+        for DECIMAL128."""
         valid = self.valid_bool().cpu().numpy()
+        if self.dtype.id == TypeId.STRUCT:
+            fields = [c.to_pylist() for c in self.children]
+            return [tuple(f[i] for f in fields) if ok else None
+                    for i, ok in enumerate(valid)]
         if self.dtype.id in (TypeId.STRING, TypeId.LIST):
             offs = self.offsets.data.cpu().numpy()
+            if self.dtype.id == TypeId.LIST \
+                    and self.child.dtype.id != TypeId.INT8:
+                elems = self.child.to_pylist()
+                items = [elems[offs[i]:offs[i + 1]]
+                         for i in range(self.size)]
+                return [v if ok else None for v, ok in zip(items, valid)]
             raw = self.child.data.cpu().numpy().tobytes()
             items = [raw[offs[i]:offs[i + 1]] for i in range(self.size)]
             if self.dtype.id == TypeId.STRING:

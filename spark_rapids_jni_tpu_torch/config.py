@@ -7,7 +7,8 @@ reference's names: ``SRT_JOIN_METHOD`` (``auto``/``xla``/``cuda``) and
 ``SRT_DENSE_GROUPBY`` (``auto``/``scatter``/``onehot``/``cuda``), with
 ``cuda`` in place of the reference's ``pallas``, and
 ``SRT_STRING_ROUTE`` (``auto``/``dict``/``bytes``) picks the string
-operators' route. ``SRT_METRICS`` turns span recording on.
+operators' route. ``SRT_METRICS`` turns span recording on. ``TZDIR``
+names the TZif database the timezone operators read.
 """
 
 from __future__ import annotations
@@ -45,6 +46,11 @@ def string_route() -> str:
     categories' bytes on the device); anything else reads as ``auto``."""
     mode = env_str("SRT_STRING_ROUTE", "auto")
     return mode if mode in ("auto", "dict", "bytes") else "auto"
+
+
+def tzdir() -> str:
+    """``TZDIR``: the directory of TZif zone files."""
+    return env_str("TZDIR", "/usr/share/zoneinfo")
 
 
 def metrics_enabled() -> bool:

@@ -7,8 +7,15 @@ each column maps to ONE int64 key whose SIGNED order equals the value
 order (the unsigned lane order with the sign bit flipped):
 
 - signed integers widen to int64; uint64 flips its sign bit;
-- floats take the IEEE total-order transform on their bit patterns
-  (NaN sorts greatest, -NaN least, as in the reference);
+- floats take the IEEE total-order transform on their bit patterns. A
+  float64 NaN first becomes the canonical ``0x7FF8000000000000``, as on
+  the reference's TPU route (``utils/floatbits._f64_bits_arithmetic``),
+  so every float64 NaN is one value, after +inf (Spark's order); -0.0
+  stays below 0.0 and float32 keys keep their raw bits, as in the
+  reference;
+- a STRUCT maps to several keys, per field a validity plane (always,
+  so the key count is a function of the type) and then the field's keys
+  masked to 0 on its null rows (the reference's ``key_lanes``);
 - descending order is ``~key`` (bitwise not is an order-reversing
   bijection on int64).
 
@@ -33,16 +40,18 @@ from ..obs import traced
 _SIGN64 = -(1 << 63)  # int64 with only the sign bit set
 _MAX64 = (1 << 63) - 1
 _MAX32 = (1 << 31) - 1
+CANONICAL_NAN64 = 0x7FF8000000000000
 
 
 @traced("keys.sort_key")
 def sort_key(col: Column, *, descending: bool = False) -> torch.Tensor:
-    """One int64 key per row whose signed order is the column's value
+    """One int64 key per row whose signed order is a leaf column's value
     order (null slots carry storage junk; callers add a null plane)."""
     tid = col.dtype.id
     data = col.data
     if tid == TypeId.FLOAT64:
-        b = float64_to_bits(data)
+        b = torch.where(torch.isnan(data), CANONICAL_NAN64,
+                        float64_to_bits(data))
         key = torch.where(b < 0, b ^ _MAX64, b)
     elif tid == TypeId.FLOAT32:
         b = float32_to_bits(data)
@@ -54,6 +63,25 @@ def sort_key(col: Column, *, descending: bool = False) -> torch.Tensor:
     else:
         key = data.to(torch.int64)
     return ~key if descending else key
+
+
+def key_columns(col: Column, *, descending: bool = False
+                ) -> List[torch.Tensor]:
+    """int64 keys, most significant first, whose joint order is the
+    column's value order: one for a leaf, and for a STRUCT per field its
+    validity plane (nulls first) and its keys masked to 0 on null rows."""
+    if col.dtype.id != TypeId.STRUCT:
+        return [sort_key(col, descending=descending)]
+    keys: List[torch.Tensor] = []
+    for ch in col.children:
+        # a STRING field's key count would depend on its data, which
+        # breaks the count-is-a-function-of-the-type rule row_ranks needs
+        expects(ch.dtype.id != TypeId.STRING,
+                "STRING fields inside STRUCT keys are not supported")
+        valid = ch.valid_bool()
+        keys.append(valid.to(torch.int64))
+        keys.extend(torch.where(valid, k, 0) for k in key_columns(ch))
+    return [~k for k in keys] if descending else keys
 
 
 def null_plane(col: Column, *, nulls_first: bool = True) -> torch.Tensor:
@@ -90,7 +118,7 @@ def lexsort_indices(columns: Sequence[Column],
     for col, desc, nf in zip(columns, descending, nulls_first):
         if col.validity is not None:
             keys.append(null_plane(col, nulls_first=nf))
-        keys.append(sort_key(col, descending=desc))
+        keys.extend(key_columns(col, descending=desc))
     return stable_lexsort(keys)
 
 
@@ -106,24 +134,26 @@ def row_ranks(tables: Sequence[Table], *, nulls_equal: bool = False
     a null key in a group of its own; ``True`` (GROUP BY) groups nulls.
     """
     expects(len(tables) > 0, "need at least one table")
-    schema0 = [(c.dtype.id, c.dtype.scale) for c in tables[0].columns]
+    schema0 = [c.type_signature() for c in tables[0].columns]
     for t in tables[1:]:
-        expects([(c.dtype.id, c.dtype.scale) for c in t.columns] == schema0,
-                "key tables must share a schema")
+        expects([c.type_signature() for c in t.columns] == schema0,
+                "key tables must share a schema (struct fields included)")
     total = sum(t.num_rows for t in tables)
     expects(total < 2**31, "combined rank input must stay under 2^31 rows")
     keys: List[torch.Tensor] = []
     any_null = None
     for ci in range(len(schema0)):
         cols = [t.columns[ci] for t in tables]
-        key = torch.cat([sort_key(c) for c in cols])
+        per_table = [key_columns(c) for c in cols]
+        col_keys = [torch.cat([pt[k] for pt in per_table])
+                    for k in range(len(per_table[0]))]
         if any(c.validity is not None for c in cols):
             valid = torch.cat([c.valid_bool() for c in cols])
             keys.append(valid.to(torch.int64))
-            keys.append(torch.where(valid, key, 0))
+            keys.extend(torch.where(valid, k, 0) for k in col_keys)
             any_null = ~valid if any_null is None else any_null | ~valid
         else:
-            keys.append(key)
+            keys.extend(col_keys)
     if not nulls_equal and any_null is not None:
         iota = torch.arange(1, total + 1, dtype=torch.int64,
                             device=keys[0].device)

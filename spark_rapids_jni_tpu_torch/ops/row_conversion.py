@@ -205,7 +205,7 @@ def _to_row_images_var(table: Table, max_lens: Tuple[int, ...]
     return images, sizes
 
 
-def _compact_images(images: torch.Tensor, sizes: torch.Tensor) -> Column:
+def compact_images(images: torch.Tensor, sizes: torch.Tensor) -> Column:
     """Bytes [0, sizes[i]) of each row image, row after row, as one
     ``list<int8>`` column."""
     n, w = images.shape
@@ -234,13 +234,19 @@ def _convert_to_rows_var(table: Table) -> List[Column]:
                        for c in table.columns])
         bmax = max_lens if row_count == num_rows else tuple(
             max_length(c) for c, s in zip(batch.columns, is_str) if s)
-        out.append(_compact_images(*_to_row_images_var(batch, bmax)))
+        out.append(compact_images(*_to_row_images_var(batch, bmax)))
     return out
 
 
 # --------------------------------------------------------------------------
 # Rows -> columns
 # --------------------------------------------------------------------------
+
+def dense(x: torch.Tensor) -> torch.Tensor:
+    """A packed copy of a strided slot view (``contiguous`` keeps the
+    stride of a one-row view, which byte views then refuse)."""
+    return x.clone(memory_format=torch.contiguous_format)
+
 
 def _decode_fixed(mat: torch.Tensor, lay: RowLayout):
     """Per column of a (N, >= var_start) uint8 fixed-section matrix: its
@@ -252,14 +258,12 @@ def _decode_fixed(mat: torch.Tensor, lay: RowLayout):
     for dt, start, size in zip(lay.schema, lay.starts, lay.sizes):
         if dt.id == TypeId.STRING:
             words = mat.view(torch.int32)[:, start // 4:start // 4 + 2]
-            datas.append((words[:, 0].contiguous(),
-                          words[:, 1].contiguous()))
+            datas.append((dense(words[:, 0]), dense(words[:, 1])))
         elif dt.id == TypeId.DECIMAL128:
-            datas.append(mat.view(torch.int64)[:, start // 8:start // 8 + 2]
-                         .contiguous())
+            datas.append(dense(
+                mat.view(torch.int64)[:, start // 8:start // 8 + 2]))
         else:
-            datas.append(mat.view(dt.to_torch())[:, start // size]
-                         .contiguous())
+            datas.append(dense(mat.view(dt.to_torch())[:, start // size]))
     # every column's validity words in one K3 launch, read in place
     words = bitmask.pack_fields(
         mat[:, lay.validity_offset:lay.validity_offset + lay.validity_bytes],

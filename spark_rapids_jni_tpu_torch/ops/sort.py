@@ -23,21 +23,26 @@ def sorted_order(keys: Table, descending: Optional[Sequence[bool]] = None,
 def gather_column(col: Column, indices: torch.Tensor) -> Column:
     """Row gather of one column. Gathered values are a subset of the
     source, so its ingest min/max stay valid (possibly loose) bounds;
-    an empty result drops them. A STRING column's bytes are gathered
-    through new offsets (one host sync: the gathered byte count)."""
+    an empty result drops them. A STRING or LIST column's elements are
+    gathered through new offsets (one host sync: the gathered element
+    count); a STRUCT gathers each field and keeps its field names."""
     validity = None
     if col.validity is not None:
         validity = bitmask.pack(col.valid_bool()[indices])
     n_out = int(indices.shape[0])
-    if col.dtype.id == TypeId.STRING:
-        return _gather_strings(col, indices.to(torch.int64), validity)
+    if col.dtype.id in (TypeId.STRING, TypeId.LIST):
+        return _gather_ragged(col, indices.to(torch.int64), validity)
+    if col.dtype.id == TypeId.STRUCT:
+        return Column(col.dtype, n_out, None, validity, children=tuple(
+            gather_column(c, indices) for c in col.children),
+            field_names=col.field_names)
     data = col.data[indices]
     return Column(col.dtype, n_out, data, validity,
                   value_range=col.value_range if n_out else None)
 
 
-def _gather_strings(col: Column, indices: torch.Tensor,
-                    validity) -> Column:
+def _gather_ragged(col: Column, indices: torch.Tensor,
+                   validity) -> Column:
     offs = col.offsets.data.to(torch.int64)
     starts = offs[indices]
     lens = offs[indices + 1] - starts
@@ -49,10 +54,9 @@ def _gather_strings(col: Column, indices: torch.Tensor,
         torch.arange(n, device=offs.device), lens, output_size=total)
     pos = starts[row] + torch.arange(total, device=offs.device) \
         - new_offs[row]
-    chars = col.child.data[pos]
     return Column(col.dtype, n, None, validity, children=(
         Column(col.offsets.dtype, n + 1, new_offs.to(torch.int32)),
-        Column(col.child.dtype, total, chars)))
+        gather_column(col.child, pos)))
 
 
 @traced("sort.gather")

@@ -8,7 +8,8 @@ feeds both packages identical ingested state.
 
 ``table_from_arrays`` builds the port's ``Table`` from the host arrays a
 caller hands the reference's column constructors: values, bool validity,
-STRING offsets with chars, DECIMAL128 [lo, hi] words.
+STRING offsets with chars, DECIMAL128 [lo, hi] words, LIST offsets with
+elements, and STRUCT fields, recursively.
 """
 
 from __future__ import annotations
@@ -63,28 +64,46 @@ def table_from_arrays(dtypes: Sequence[Tuple[int, int]], datas: Sequence,
                       valids: Sequence[Optional[np.ndarray]],
                       device=None) -> Table:
     """Host arrays -> a port ``Table`` on ``device`` (``cuda`` unless the
-    caller passes another). Per column: its (type id, scale); its data,
-    which is the values for a single-lane fixed-width type, the (N, 2)
-    [lo, hi] 64-bit words for DECIMAL128 and (int32 offsets, uint8 chars)
-    for STRING; and its bool validity (None = all valid)."""
+    caller passes another). Per column: its (type id, scale); its data;
+    and its bool validity (None = all valid). The data is the values for
+    a single-lane fixed-width type (timestamps and durations included),
+    the (N, 2) [lo, hi] 64-bit words for DECIMAL128, (int32 offsets,
+    uint8 chars) for STRING, (int32 offsets, elements, the elements'
+    (type id, scale)) for LIST, and for STRUCT the fields' (dtypes,
+    datas, valids), the same three lists again, optionally followed by
+    the field names."""
     expects(len(dtypes) == len(datas) == len(valids),
             "one dtype, data entry and validity entry per column")
     dev = resolve_device(device)
-    cols = []
-    for (tid, scale), data, valid in zip(dtypes, datas, valids):
-        dt = DType(TypeId(int(tid)), int(scale))
-        if dt.id == TypeId.STRING:
-            offsets, chars = data
-            cols.append(Column.strings_from_arrays(offsets, chars, valid,
-                                                   device=dev))
-        elif dt.id == TypeId.DECIMAL128:
-            words = np.ascontiguousarray(data)
-            expects(words.ndim == 2 and words.shape[1] == 2
-                    and words.dtype.itemsize == 8,
-                    "DECIMAL128 data is (N, 2) 64-bit [lo, hi] words")
-            cols.append(Column(dt, int(words.shape[0]),
-                               torch.from_numpy(words.view(np.int64).copy())
-                               .to(dev), pack_validity(valid, dev)))
-        else:
-            cols.append(Column.from_numpy(data, valid, dt, device=dev))
-    return Table(cols)
+    return Table([_column_from_arrays(dt, data, valid, dev)
+                  for dt, data, valid in zip(dtypes, datas, valids)])
+
+
+def _column_from_arrays(dtype: Tuple[int, int], data, valid,
+                        dev: torch.device) -> Column:
+    dt = DType.from_ids(int(dtype[0]), int(dtype[1]))
+    if dt.id == TypeId.STRING:
+        offsets, chars = data
+        return Column.strings_from_arrays(offsets, chars, valid, device=dev)
+    if dt.id == TypeId.LIST:
+        offsets, elements, elem = data
+        return Column.list_from_arrays(
+            offsets, elements, valid,
+            DType.from_ids(int(elem[0]), int(elem[1])), device=dev)
+    if dt.id == TypeId.STRUCT:
+        child_dtypes, child_datas, child_valids, *names = data
+        expects(len(child_dtypes) == len(child_datas) == len(child_valids),
+                "one dtype, data entry and validity entry per field")
+        children = [_column_from_arrays(d, x, v, dev) for d, x, v in
+                    zip(child_dtypes, child_datas, child_valids)]
+        return Column.struct_from_children(
+            children, valid, names[0] if names else None)
+    if dt.id == TypeId.DECIMAL128:
+        words = np.ascontiguousarray(data)
+        expects(words.ndim == 2 and words.shape[1] == 2
+                and words.dtype.itemsize == 8,
+                "DECIMAL128 data is (N, 2) 64-bit [lo, hi] words")
+        return Column(dt, int(words.shape[0]),
+                      torch.from_numpy(words.view(np.int64).copy()).to(dev),
+                      pack_validity(valid, dev))
+    return Column.from_numpy(data, valid, dt, device=dev)

@@ -7,8 +7,10 @@ like cudf's one-byte bool, DECIMAL32/64 -> int32/int64 with the scale on
 the DType). DECIMAL128 is fixed-width with two int64 lanes per row: data
 of shape (N, 2) holding the [lo, hi] words of the two's-complement value
 (the bits of the reference's (N, 2) uint64). STRING and LIST have no data
-of their own: an int32 offsets child plus a uint8 (STRING) or int8 (LIST)
-byte child. STRUCT keeps its id and has no storage here yet.
+of their own: an int32 offsets child plus a uint8 chars child (STRING)
+or an element child (LIST: int8 bytes for a row batch, any fixed-width
+type for a column). STRUCT has no data either: a validity mask and one
+child column per field, all of the parent's row count.
 """
 
 from __future__ import annotations
@@ -120,6 +122,15 @@ class DType:
                            TypeId.DECIMAL128)
 
     @property
+    def is_nested(self) -> bool:
+        """Types whose data lives in child columns."""
+        return self.id in (TypeId.STRING, TypeId.LIST, TypeId.STRUCT)
+
+    @property
+    def is_timestamp(self) -> bool:
+        return TypeId.TIMESTAMP_DAYS <= self.id <= TypeId.TIMESTAMP_NANOSECONDS
+
+    @property
     def is_integral(self) -> bool:
         return TypeId.INT8 <= self.id <= TypeId.UINT64
 
@@ -150,6 +161,11 @@ class DType:
         """Device (torch) storage dtype."""
         return _TORCH[self.storage_dtype]
 
+    @staticmethod
+    def from_ids(type_id: int, scale: int = 0) -> "DType":
+        """Rebuild from the (type id, scale) wire encoding."""
+        return DType(TypeId(type_id), scale)
+
     def __repr__(self) -> str:
         if self.is_decimal:
             return f"DType({self.id.name}, scale={self.scale})"
@@ -158,14 +174,17 @@ class DType:
 
 BOOL8 = DType(TypeId.BOOL8)
 INT8 = DType(TypeId.INT8)
+INT16 = DType(TypeId.INT16)
 INT32 = DType(TypeId.INT32)
 INT64 = DType(TypeId.INT64)
 UINT8 = DType(TypeId.UINT8)
 FLOAT32 = DType(TypeId.FLOAT32)
 FLOAT64 = DType(TypeId.FLOAT64)
 TIMESTAMP_DAYS = DType(TypeId.TIMESTAMP_DAYS)
+TIMESTAMP_MICROSECONDS = DType(TypeId.TIMESTAMP_MICROSECONDS)
 STRING = DType(TypeId.STRING)
 LIST = DType(TypeId.LIST)
+STRUCT = DType(TypeId.STRUCT)
 
 
 def decimal32(scale: int) -> DType:

@@ -529,3 +529,221 @@ def test_cuda_ragged_groupby_folded_value_mask(cuda_device, width):
     want = K.ragged_groupby_sum_count_plain(slots, live, col.data, width)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert int(got[1].sum()) == int(live.sum())
+
+
+# --------------------------------------------------------------------------
+# The aggregation and date roster on the card against the same calls on
+# the CPU, and K3 on the roster's shapes
+# --------------------------------------------------------------------------
+
+def _roster_table(dev, n, seed):
+    """A nested table on ``dev`` from seeded host arrays: INT64, FLOAT64
+    with NaN payloads, STRUCT<INT32, STRING, STRUCT<FLOAT32>>, LIST<INT64>
+    and BOOL8, nulls at every node (9 nodes: not a multiple of 8)."""
+    import numpy as np
+    from spark_rapids_jni_tpu_torch import types as T
+    from spark_rapids_jni_tpu_torch.tpcds.carry import table_from_arrays
+    r = np.random.default_rng(seed)
+
+    def valid():
+        return r.random(n) > 0.1
+
+    def ids(dt):
+        return (int(dt.id), dt.scale)
+    f64 = r.standard_normal(n)
+    f64.view(np.int64)[::7] = -0x7FFFFFFFFFFFF  # a -NaN payload
+    lens = r.integers(0, 33, n)
+    soffs = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    chars = r.integers(97, 123, int(soffs[-1])).astype(np.uint8)
+    llens = r.integers(0, 9, n)
+    loffs = np.concatenate([[0], np.cumsum(llens)]).astype(np.int32)
+    inner = ([ids(T.FLOAT32)], [r.standard_normal(n).astype(np.float32)],
+             [valid()])
+    struct = ([ids(T.INT32), ids(T.STRING), ids(T.STRUCT)],
+              [r.integers(-9, 9, n).astype(np.int32), (soffs, chars), inner],
+              [valid(), valid(), valid()])
+    return table_from_arrays(
+        [ids(T.INT64), ids(T.FLOAT64), ids(T.STRUCT), ids(T.LIST),
+         ids(T.BOOL8)],
+        [r.integers(0, 50, n), f64, struct,
+         (loffs, r.integers(-2**62, 2**62, int(loffs[-1])), ids(T.INT64)),
+         r.integers(0, 2, n).astype(np.int8)],
+        [valid(), valid(), valid(), valid(), valid()], device=dev)
+
+
+def _key_struct(t):
+    """A STRUCT key over the roster table's fields that may be keys:
+    STRUCT<INT64, STRUCT<FLOAT32>, BOOL8>."""
+    from spark_rapids_jni_tpu_torch.columnar import Column
+    return Column.struct_from_children(
+        [t.columns[0], t.columns[2].children[2], t.columns[4]])
+
+
+@pytest.mark.cuda
+def test_cuda_groupby_roster_aggs_equal_cpu(cuda_device):
+    # the seven new aggregations (and a STRUCT key) on the card equal the
+    # CPU's: integers and bools exact, var/std within rtol=1e-9 (atomic
+    # float sums change the order); K3 packs each result's validity
+    from spark_rapids_jni_tpu_torch.columnar import Table
+    from spark_rapids_jni_tpu_torch.ops import groupby
+    n = 100_003
+    aggs = [(1, "var"), (1, "std"), (0, "first"), (0, "last"),
+            (4, "any"), (4, "all"), (1, "nunique"), (0, "nunique")]
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        t = _roster_table(dev, n, 21)
+        out[dev.type] = [groupby.groupby_aggregate(Table([k]), t, aggs)
+                         for k in (t.columns[0], _key_struct(t))]
+        if dev.type == "cuda":
+            K.reset_launch_counts()
+            groupby.groupby_aggregate(Table([t.columns[0]]), t, aggs)
+            # the key's validity, and six results (nunique has no nulls)
+            assert K.LAUNCHES["bitmask_pack"] == 7
+            valid = groupby.groupby_aggregate(
+                Table([t.columns[0]]), t, aggs[:1]).columns[1].valid_bool()
+            assert torch.equal(K.bitmask_pack(valid),
+                               K.bitmask_pack_plain(valid))
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert got.num_rows == want.num_rows
+        for (_, agg), g, w in zip([(0, "key")] + aggs, got.columns,
+                                  want.columns):
+            assert torch.equal(g.valid_bool().cpu(), w.valid_bool()), agg
+            if agg in ("var", "std"):
+                ok = w.valid_bool()
+                torch.testing.assert_close(g.data.cpu()[ok], w.data[ok],
+                                           rtol=1e-9, atol=0, equal_nan=True)
+            elif g.data is not None:
+                ok = w.valid_bool()
+                assert torch.equal(g.data.cpu()[ok], w.data[ok]), agg
+
+
+@pytest.mark.cuda
+def test_cuda_sort_keys_struct_and_nan_equal_cpu(cuda_device):
+    from spark_rapids_jni_tpu_torch.columnar import Table
+    from spark_rapids_jni_tpu_torch.ops.sort import sorted_order
+    t, tc = _roster_table(cuda_device, 50_001, 3), _roster_table("cpu",
+                                                                 50_001, 3)
+    got = sorted_order(Table([t.columns[1], _key_struct(t)]), [True, False])
+    want = sorted_order(Table([tc.columns[1], _key_struct(tc)]),
+                        [True, False])
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 33, 100_003])
+def test_cuda_nested_rows_equal_cpu(cuda_device, n):
+    # the rows' bytes equal the CPU's; the decode reads the 9 nodes'
+    # validity with one launch of K3's table form, equal to its plain
+    # version on those bytes
+    from spark_rapids_jni_tpu_torch.ops import nested_rows
+    t, tc = _roster_table(cuda_device, n, n), _roster_table("cpu", n, n)
+    tree = nested_rows.type_tree(t)
+    lay = nested_rows.NestedRowLayout(tree)
+    assert lay.n_nodes == 9
+    rows = nested_rows.convert_to_rows_nested(t)
+    want = nested_rows.convert_to_rows_nested(tc)
+    assert torch.equal(rows.child.data.cpu(), want.child.data)
+    K.reset_launch_counts()
+    back = nested_rows.convert_from_rows_nested(rows, tree)
+    assert K.LAUNCHES["bitmask_pack_fields"] == 1
+    fixed = rows.child.data.view(torch.uint8).reshape(-1)
+    starts = rows.offsets.data[:-1].to(torch.int64)
+    vbytes = fixed[starts[:, None] + lay.validity_offset
+                   + torch.arange(lay.validity_bytes, device=cuda_device)]
+    assert torch.equal(K.bitmask_pack_fields(vbytes, lay.n_nodes),
+                       K.bitmask_pack_fields_plain(vbytes, lay.n_nodes))
+    ref = nested_rows.convert_from_rows_nested(want, tree)
+
+    def leaves(col):
+        yield col
+        for ch in col.children:
+            yield from leaves(ch)
+    for a, b in zip(back.columns, ref.columns):
+        for x, y in zip(leaves(a), leaves(b)):
+            assert torch.equal(x.valid_bool().cpu(), y.valid_bool())
+            if x.data is not None:
+                assert torch.equal(K.as_bytes(x.data).cpu(),
+                                   K.as_bytes(y.data))
+
+
+@pytest.mark.cuda
+def test_cuda_bloom_filter_equals_cpu(cuda_device):
+    # Spark's runtime-filter size: 8,388,608 bits, k = 6; K3 packs the
+    # bit plane in one launch, equal to its plain version on a plane of
+    # that size
+    import numpy as np
+    from spark_rapids_jni_tpu_torch.columnar import Column
+    from spark_rapids_jni_tpu_torch.ops import bloom_filter
+    keys = np.random.default_rng(6).integers(-2**62, 2**62, 1_000_000)
+    valid = np.arange(keys.size) % 97 != 0
+    probe = np.random.default_rng(7).integers(-2**62, 2**62, 1_000_000)
+    words = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        K.reset_launch_counts()
+        words[dev.type] = bloom_filter.build(
+            Column.from_numpy(keys, valid, device=dev), 8_388_608, 6)
+        if dev.type == "cuda":
+            assert K.LAUNCHES["bitmask_pack"] == 1
+        words[dev.type + "_hits"] = bloom_filter.probe(
+            words[dev.type], Column.from_numpy(probe, device=dev), 6)
+    assert torch.equal(words["cuda"].cpu(), words["cpu"])
+    assert torch.equal(words["cuda_hits"].cpu(), words["cpu_hits"])
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    plane = torch.rand(8_388_608, generator=g, device=cuda_device) < 0.5
+    assert torch.equal(K.bitmask_pack(plane), K.bitmask_pack_plain(plane))
+
+
+@pytest.mark.cuda
+def test_cuda_hllpp_equals_cpu(cuda_device):
+    import numpy as np
+    from spark_rapids_jni_tpu_torch.columnar import Column, Table
+    from spark_rapids_jni_tpu_torch.ops import hllpp
+    r = np.random.default_rng(9)
+    n = 500_003
+    keys, vals = r.integers(0, 40, n), r.integers(0, 200_000, n)
+    valid = r.random(n) > 0.05
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        col = Column.from_numpy(vals, valid, device=dev)
+        gk, sk = hllpp.groupby_reduce(
+            Table([Column.from_numpy(keys, device=dev)]), col, 9)
+        out[dev.type] = (hllpp.reduce(col, 9), sk, gk.columns[0].data,
+                         hllpp.estimate_column(sk, 9).data,
+                         hllpp.estimate(hllpp.reduce(col, 14), 14))
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_cuda_dates_and_timezones_equal_cpu(cuda_device):
+    import os
+    import numpy as np
+    from spark_rapids_jni_tpu_torch import config
+    from spark_rapids_jni_tpu_torch import types as T
+    from spark_rapids_jni_tpu_torch.columnar import Column
+    from spark_rapids_jni_tpu_torch.ops import datetime as dto
+    from spark_rapids_jni_tpu_torch.ops import datetime_rebase as reb
+    from spark_rapids_jni_tpu_torch.ops import timezone as tz
+    r = np.random.default_rng(10)
+    us = r.integers(-62135596800000000, 253402300799999999, 1_000_003)
+    days = (us // 86_400_000_000).astype(np.int32)
+    fns = [getattr(dto, f) for f in (
+        "extract_year", "extract_month", "extract_day", "extract_hour",
+        "extract_minute", "extract_second", "extract_microsecond",
+        "day_of_week", "day_of_year")]
+    fns += [lambda c, u=u: dto.truncate(c, u) for u in dto.TRUNCATE_UNITS]
+    fns += [lambda c: dto.add_interval_days(c, -40),
+            reb.rebase_gregorian_to_julian, reb.rebase_julian_to_gregorian]
+    zones = [z for z in ("America/Los_Angeles", "Europe/Berlin",
+                         "Asia/Kolkata")
+             if os.path.isfile(os.path.join(config.tzdir(), z))]
+    for z in zones:
+        fns += [lambda c, z=z: tz.convert_utc_to_timezone(c, z),
+                lambda c, z=z: tz.convert_timezone_to_utc(c, z)]
+    for arr, dt in ((us, T.TIMESTAMP_MICROSECONDS), (days, T.TIMESTAMP_DAYS)):
+        on_card = Column.from_numpy(arr, None, dt, device=cuda_device)
+        on_cpu = Column.from_numpy(arr, None, dt, device="cpu")
+        for fn in fns if dt == T.TIMESTAMP_MICROSECONDS else fns[:9] + [
+                reb.rebase_gregorian_to_julian,
+                reb.rebase_julian_to_gregorian]:
+            assert torch.equal(fn(on_card).data.cpu(), fn(on_cpu).data)

@@ -295,3 +295,24 @@ def test_empty_table_and_rejections():
         rc.convert_from_rows(rows[0], got.schema()[:-1])
     with pytest.raises(CudfLikeError, match="list"):
         rc.convert_from_rows(got.columns[0], got.schema())
+
+
+@pytest.mark.parametrize("schema", [TEST_TABLES_8,
+                                    TEST_TABLES_8 + [(TypeId.STRING, 0)]],
+                         ids=["fixed", "string"])
+def test_one_row_batch_decodes_to_dense_columns(schema):
+    # a one-row batch's decoded columns are packed copies: a strided
+    # one-row view keeps its stride through ``contiguous``, and byte
+    # views of it (hashing, packing rows again) refuse it
+    from spark_rapids_jni_tpu_torch.ops import cuda_kernels as K
+    arrays = _arrays(np.random.default_rng(1), schema, 1, 0.0)
+    _, got = _both(arrays)
+    rows = rc.convert_to_rows(got)
+    back = rc.convert_from_rows(rows[0], got.schema())
+    _tables_equal(back, arrays)
+    for col in back.columns:
+        if col.data is not None:
+            assert col.data.stride() == (1,)
+            K.as_bytes(col.data)
+    assert torch.equal(rc.convert_to_rows(back)[0].child.data,
+                       rows[0].child.data)
