@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (spark_rapids_jni_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--out DIR] [--profile]
+    python3 chip_smoke.py [--out DIR] [--profile] [--queries-only]
 
 In order, it:
 
@@ -87,7 +87,41 @@ In order, it:
    Asia/Kolkata (the TZif files are required): equal to the CPU on the
    first 1,000,000 rows and to ``zoneinfo`` on the sampled rows up to
    the transition table's horizon, the year 2200;
-8. row conversion (BASELINE config 2, the 32-column ``TestTables.java``
+8. the cast and string-function roster, seven phases run as the roster's
+   are (launch counts set to 0 just before each and read just after,
+   every K3 call recorded and held against its plain version, warm wall
+   time, rows/s and peak memory allocated beside K3's device time), each
+   call's first 1,000,000 rows equal to the same call on the CPU:
+   (a) ``cast_integer_to_string`` of store_sales' ss_item_sk and
+   ss_customer_sk and of seeded int64 over the full range (the edges
+   mixed in), 10% nulls, 1% of the strings each wrapped in whitespace,
+   '+' or a fraction or replaced by an overflow, an empty string or
+   garbage; ``cast_to_integer`` to INT64, INT32 and INT8, ANSI on an
+   all-valid column, ``conv`` 10 -> 16 -> -10: int -> string -> int
+   exact, and Spark's grammar and NumberConverter's rules on 10,000
+   sampled rows; (b) ``cast_float_to_string`` of float64 and float32
+   random bit patterns (every exponent, subnormals, specials), 1% each
+   of five literal forms mixed in, ``cast_to_float`` back (NaN and the
+   infinities exact, the other rows' ulps from their source counted),
+   and on 10,000 sampled rows Java's layout of Python's shortest digits,
+   the reference's arithmetic bit for bit, and the exact round trip
+   where that arithmetic rounds once; (c) ``cast_decimal_to_string`` of seeded
+   DECIMAL64 at scale -2, ``cast_to_decimal`` at -2 (exact), at 0
+   (HALF_UP, every row) and to DECIMAL32 (NULL exactly on overflow);
+   (d) the roster's 10M timestamps as strings in every form Spark reads
+   (yyyy to fractions of 0-6 digits, ' ' or 'T', Z, offsets, UTC, a
+   region id), ``cast_to_date`` and ``cast_to_timestamp`` in UTC and
+   America/Los_Angeles against ``datetime``/``zoneinfo`` on 10,000
+   sampled rows; (e) 10,000,000 composed URLs of up to 96 bytes (1% with
+   a forbidden byte or a bad escape) through ``parse_url`` for its
+   eight parts and QUERY with a key, against the parts they were
+   composed of; (f) the hashing step's STRING column through
+   ``regexp_contains`` and ``regexp_full_match`` with six patterns of
+   the device subset (no host route taken) against Python's ``re``; (g)
+   on a 100,000-row head, a backreference through the host route,
+   ``regexp_extract`` and ``format_number`` of float64, INT64 and
+   DECIMAL64 at d = 0, 2 and 5;
+9. row conversion (BASELINE config 2, the 32-column ``TestTables.java``
    schema, 200-byte rows): 1,000,000 rows all valid; 1,000,000 rows with
    1% nulls per column; 12,000,000 rows with nulls (two batches below
    2 GB: 10,737,408 and 1,262,592 rows); 1,000,000 rows plus two
@@ -103,10 +137,11 @@ In order, it:
    of row bytes both ways, and each conversion's wall time beside the
    device time of its K6 (to rows) or K3 (from rows) calls (the rest is
    host work, other kernels and idle card);
-9. prints the ``kernels`` JSON line (K1-K6, each with its launches on
-   its paths: K1-K3 on q1-q10 and q11-q20, K3 also on the roster and, in
-   its table form, on the row conversions and nested rows), the card
-   again, and as the last line ``{"ok": true, "device": {...}}``.
+10. prints the ``kernels`` JSON line (K1-K6, each with its launches on
+    its paths: K1-K3 on q1-q10 and q11-q20, K3 also on the roster, the
+    strings step and, in its table form, on the row conversions and
+    nested rows), the card again, and as the last line
+    ``{"ok": true, "device": {...}}``.
 
 Every kernel time is device time from CUDA events, the median of 10 runs
 after two warm-ups, with the queue held by a device-side sleep so that
@@ -117,10 +152,11 @@ over the card's 3.35 TB/s and its operations over 67 T/s, or, for K2,
 the updates of its busiest slot at one shared-memory atomic per SM
 clock. The ``kernels`` line sums each kernel over its calls on its
 paths: K1-K3 over q1-q10 and q11-q20, K4 and K5 over the hashing step,
-K3 over the roster, K6 and K3's table form over the row-conversion step.
+K3 over the roster and the strings step, K6 and K3's table form over the
+row-conversion step.
 
-``--profile`` adds one warm run of each query, table hash, roster phase
-and row conversion under ``torch.profiler``: the device time of its
+``--profile`` adds one warm run of each query, table hash, roster and
+strings phase and row conversion under ``torch.profiler``: the device time of its
 kernels, the device's idle share of the warm wall time, and the kernels
 that took most of it. Busy time and idle share read "not measured" when the
 profiler saw fewer launches of K1-K6 than the wrappers counted.
@@ -128,7 +164,10 @@ profiler saw fewer launches of K1-K6 than the wrappers counted.
 It uses the first visible card only. It imports nothing of JAX nor of
 the JAX package. Without a CUDA device, or outside a checkout of the
 repository, it exits non-zero and prints no result. ``--out DIR`` also
-writes the build log and a JSON report there.
+writes the build log and a JSON report there. ``--queries-only`` builds
+the kernels, then only times q1-q20 (``query_times``) and prints their
+warm medians as its last line: run it in two trees in turns to compare
+their query times without the rest of the smoke around them.
 """
 
 from __future__ import annotations
@@ -136,6 +175,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import datetime as pydt
+import decimal
 import inspect
 import json
 import math
@@ -154,11 +194,16 @@ import torch
 
 from spark_rapids_jni_tpu_torch import types as T
 from spark_rapids_jni_tpu_torch.columnar import Column, Table, bitmask
-from spark_rapids_jni_tpu_torch.columnar.strings import byte_matrix
+from spark_rapids_jni_tpu_torch.columnar.strings import (
+    byte_matrix, lengths as str_lengths, strings_from_matrix)
 from spark_rapids_jni_tpu_torch.obs import kernel_stats, stats_since
 from spark_rapids_jni_tpu_torch.ops import cuda_kernels as K
 from spark_rapids_jni_tpu_torch.ops import (bloom_filter, groupby, hashing,
                                             hive_hash, hllpp, nested_rows)
+from spark_rapids_jni_tpu_torch.ops import cast_strings as cs
+from spark_rapids_jni_tpu_torch.ops import float_to_string as fts
+from spark_rapids_jni_tpu_torch.ops import parse_uri as pu
+from spark_rapids_jni_tpu_torch.ops import regexp as rx
 from spark_rapids_jni_tpu_torch.ops import datetime as dto
 from spark_rapids_jni_tpu_torch.ops import datetime_rebase as reb
 from spark_rapids_jni_tpu_torch.ops import row_conversion as rc
@@ -189,7 +234,8 @@ KERNELS = (("hash_join_probe", (("q1-q10", "hash_join_probe"),
                              ("row conversion", "bitmask_pack"),
                              ("row conversion", "bitmask_pack_fields"),
                              ("roster", "bitmask_pack"),
-                             ("roster", "bitmask_pack_fields"))),
+                             ("roster", "bitmask_pack_fields"),
+                             ("strings", "bitmask_pack"))),
            ("murmur3_int32", (("hashing", "murmur3_int32"),)),
            ("murmur3_int64", (("hashing", "murmur3_int64"),)),
            ("pack_rows", (("row conversion", "pack_rows"),)))
@@ -751,6 +797,20 @@ def run_main_path(dev, sf: float, seed: int, log, profile: bool = False):
                   "ingest_s": ingest_s}, calls, rels, data
 
 
+def query_times(dev) -> dict:
+    """q1-q20's warm times as the main paths take them (step 3): the
+    miniature generated and ingested, a cold pass over the queries, then
+    each query's ``wall_ms``; no checks."""
+    data = generate(sf=SF, seed=SEED)
+    rels = {name: rel_from_df(df, device=dev) for name, df in data.items()}
+    del data
+    queries = Q1_10 + Q11_20
+    for q in queries:
+        run_fused(PLANS[q], rels, device=dev)
+    return {q: wall_ms(lambda q=q: run_fused(PLANS[q], rels, device=dev))
+            for q in queries}
+
+
 def overflow_rows(data: dict) -> int:
     """Rows of q15's DECIMAL32 product over 2^31 - 1, the oracle's way
     (exact Python integers)."""
@@ -972,7 +1032,7 @@ def run_hashing(dev, gen, rels: dict, log, profile: bool = False):
                      "the canonical NaN")
         log(f"hashing: {int(nan.sum())} valid NaN rows of {col.dtype!r} "
             "hash like the canonical NaN (murmur3, xxhash64, hive)")
-    return {"rates": rates, "launches": launches}, calls
+    return {"rates": rates, "launches": launches}, calls, table.columns[8]
 
 
 # (label, rows, null share per column, STRING columns, repeats of the
@@ -1156,26 +1216,41 @@ DATE_EDGES = (MIN_US, MAX_US, _epoch_us(1582, 10, 4),
               _epoch_us(2000, 2, 29, 23, 59, 59, 1), _epoch_us(1, 3, 1))
 
 
-def roster_phase(name: str, fn, rows: int, calls: list, launches: dict,
-                 log, profile: bool):
-    """One roster phase: the launch counts set to 0 just before ``fn()``
-    runs once (every K3 call recorded) and read just after; then the
-    warm wall time (median of 3) and rows/s."""
+def run_phase(step: str, name: str, fn, rows: int, calls: list,
+              launches: dict, names: tuple, log, profile: bool):
+    """One phase of a step: the launch counts set to 0 just before
+    ``fn()`` runs once (every call of the ``names`` wrappers recorded) and
+    read just after, with the counters that run moved; then the warm wall
+    time (median of 3), rows/s and the peak memory allocated on the card
+    from the first run to the last."""
     K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    before = kernel_stats()
     with recording(calls, [name]):
         out = fn()
         torch.cuda.synchronize()
-    got = {n: K.LAUNCHES[n] for n in ROSTER_NAMES}
+    counters = stats_since(before)
+    got = {n: K.LAUNCHES[n] for n in names}
     for n, v in got.items():
         launches[n] = launches.get(n, 0) + v
     ms = wall_ms(fn)
+    peak = torch.cuda.max_memory_allocated()
     r = {"phase": name, "launches": got, "wall_ms": ms, "rows": rows,
-         "rows_per_s": rows / ms * 1e3}
-    log(f"roster {name}: {rows} rows in {ms:.3f} ms warm = "
-        f"{r['rows_per_s']:.4g} rows/s; K3 launches {json.dumps(got)}")
+         "rows_per_s": rows / ms * 1e3, "peak_bytes": peak,
+         "counters": counters}
+    log(f"{step} {name}: {rows} rows in {ms:.3f} ms warm = "
+        f"{r['rows_per_s']:.4g} rows/s; peak {peak / 2**30:.2f} GiB "
+        f"allocated; K3 launches {json.dumps(got)}")
     if profile:
-        r |= profile_run(fn, ms, f"roster {name}", log)
+        r |= profile_run(fn, ms, f"{step} {name}", log)
     return out, r
+
+
+def roster_phase(name: str, fn, rows: int, calls: list, launches: dict,
+                 log, profile: bool):
+    """One roster phase (``run_phase``)."""
+    return run_phase("roster", name, fn, rows, calls, launches,
+                     ROSTER_NAMES, log, profile)
 
 
 def _host(col: Column) -> np.ndarray:
@@ -1583,18 +1658,889 @@ def run_roster(dev, gen, rels: dict, log, profile: bool = False):
     for name in ROSTER_NAMES:
         _require(launches.get(name, 0) > 0,
                  f"kernel {name} was not launched on the roster path")
+    return {"phases": phases, "launches": launches}, calls, col
+
+
+# --------------------------------------------------------------------------
+# The cast and string-function step through the port's entry points
+# --------------------------------------------------------------------------
+
+STRING_NAMES = ("bitmask_pack",)
+STR_ROWS, STR_CPU_ROWS, HEAD_ROWS = 10_000_000, 1_000_000, 100_000
+INT_EDGES = (-2**63, 2**63 - 1, 0, -1, 1, 10**18, -10**18, 2**31,
+             -2**31 - 1, 127, -128)
+# the integer strings' edits, 1% of the rows each: (prefix, suffix) or a
+# replacement of the whole row
+INT_WRAPS = (("  ", ""), ("", "\t "), ("+", ""), ("", ".9"), ("", ".25"))
+INT_REPLACE = ("9223372036854775808", "-9223372036854775809", "", "12x4",
+               "1e5", "--7")
+FLOAT_LITERALS = ("inf", "Infinity", "nan", " -1.5E-3 ", "1e10")
+DEC_SCALE = -2
+# yyyy, yyyy-mm, yyyy-mm-dd, then hh:mm:ss with 0-6 fraction digits
+TS_FORMS = 10
+TS_ZONES = ("", "Z", "+05:30", "-08:00", "+00:00", "-03:30", "+14:00",
+            " UTC", "UTC", " America/Los_Angeles")
+TS_ZONE_WEIGHTS = (40, 8, 6, 6, 4, 4, 2, 12, 8, 10)
+TS_ZONE_MINUTES = (None, 0, 330, -480, 0, -210, 840, 0, 0, None)
+LA = "America/Los_Angeles"
+REGEX_PATTERNS = (r"\d+", r"(ab|Zq)+\s*$", r"[^a-z0-9 ]\w",
+                  r"^(ab|09|  )*[a-z]?$")
+REGEX_FULL = (r"(ab|Zq|09|..)*[a-z]?", r"[\w ]*")
+REGEX_HOST = r"(ab)\1"        # a backreference: the host route
+EXTRACT = ((r"(\d+)", 1), (r"([a-z])(b|q)", 2))
+FORMAT_DIGITS = (0, 2, 5)
+
+
+def table_piece(dev, strings, pick):
+    """(bytes (N, w) uint8, lengths (N,)) of ``strings[pick]``."""
+    raw = [s.encode() if isinstance(s, str) else bytes(s) for s in strings]
+    w = max(max(len(b) for b in raw), 1)
+    tab = np.zeros((len(raw), w), np.uint8)
+    for i, b in enumerate(raw):
+        tab[i, :len(b)] = np.frombuffer(b, np.uint8)
+    lens = torch.tensor([len(b) for b in raw], device=dev)
+    return torch.from_numpy(tab).to(dev)[pick], lens[pick]
+
+
+def concat(pieces, keep=None):
+    """Row-wise concatenation of (bytes (N, w), lengths (N,)) pieces, a
+    piece dropped from the rows where its ``keep`` mask is False ->
+    ((N, sum of w) uint8, lengths)."""
+    n = pieces[0][0].shape[0]
+    dev = pieces[0][0].device
+    width = sum(b.shape[1] for b, _ in pieces)
+    pos = torch.arange(width, device=dev)[None, :]
+    out = torch.zeros((n, width), dtype=torch.uint8, device=dev)
+    start = torch.zeros(n, dtype=torch.int64, device=dev)
+    for k, (b, lens) in enumerate(pieces):
+        lens = lens.to(torch.int64)
+        if keep is not None and keep[k] is not None:
+            lens = torch.where(keep[k], lens, 0)
+        rel = pos - start[:, None]
+        src = torch.gather(b, 1, rel.clamp(0, b.shape[1] - 1))
+        out = torch.where((rel >= 0) & (rel < lens[:, None]), src, out)
+        start = start + lens
+    return out, start
+
+
+def _picks(dev, gen, n, weights):
+    """Seeded choice of one of ``len(weights)`` kinds a row."""
+    w = torch.tensor(weights, dtype=torch.float64, device=dev)
+    return torch.multinomial(w, n, replacement=True, generator=gen)
+
+
+def _same_result(got: Column, want: Column) -> bool:
+    """The first rows of ``got`` equal ``want`` (on the CPU): every
+    validity bit, and every valid value's bytes (a STRING's lengths and
+    bytes of every row)."""
+    g = head_on_cpu(got, want.size)
+    ok = want.valid_bool()
+    if not torch.equal(g.valid_bool(), ok):
+        return False
+    if want.dtype.id == T.TypeId.STRING:
+        lg, lw = str_lengths(g), str_lengths(want)
+        w = int(lw.max()) if want.size else 0
+        return torch.equal(lg, lw) and torch.equal(byte_matrix(g, w)[0],
+                                                   byte_matrix(want, w)[0])
+    return torch.equal(K.as_bytes(g.data)[ok], K.as_bytes(want.data)[ok])
+
+
+def same_on_cpu(out: dict, calls: dict, inputs: dict, m: int, what: str):
+    """Each call's first ``m`` rows equal the same call with its input's
+    first ``m`` rows on the CPU."""
+    heads = {k: head_on_cpu(v, min(m, v.size)) for k, v in inputs.items()}
+    for name, (fn, arg) in calls.items():
+        _require(_same_result(out[name], fn(heads[arg])),
+                 f"{what} {name}: the card's first {m} rows differ from the "
+                 "CPU's")
+
+
+def string_phase(name, fn, rows, calls, launches, log, profile):
+    """One strings phase (``run_phase``)."""
+    return run_phase("strings", name, fn, rows, calls, launches,
+                     STRING_NAMES, log, profile)
+
+
+def _sample(dev, gen, n: int, k: int) -> list:
+    return torch.randperm(n, generator=gen, device=dev)[:k].tolist()
+
+
+def _host_strings(col: Column, rows: list) -> list:
+    """The values of ``rows`` of a STRING column, None for nulls."""
+    idx = torch.tensor(rows, device=col.device)
+    return gather_column(col, idx).to_pylist()
+
+
+def strings_integers(dev, gen, ss, calls, launches, log, profile):
+    """Phase (a): three int64 sources (ss_item_sk and ss_customer_sk of
+    store_sales, seeded int64 over the full range with the edges mixed
+    in), 10% nulls; their strings with 1% of the rows each wrapped in
+    whitespace, '+', a fraction, or replaced by an overflow, an empty
+    string or garbage; cast back to INT64, INT32 and INT8, ANSI on an
+    all-valid column, and conv 10 -> 16 -> -10."""
+    n = STR_ROWS
+    wide = torch.randint(-2**63, 2**63 - 1, (n,), generator=gen, device=dev)
+    at = torch.arange(0, n, 997, device=dev)
+    wide[at] = torch.tensor(INT_EDGES, device=dev)[
+        torch.arange(at.numel(), device=dev) % len(INT_EDGES)]
+    sources = {k: Column(T.INT64, n, ss.col(k).data.to(torch.int64),
+                         _valid_words(dev, gen, n, 0.1))
+               for k in ("ss_item_sk", "ss_customer_sk")}
+    sources["seeded"] = Column(T.INT64, n, wide,
+                               _valid_words(dev, gen, n, 0.1))
+    plain = {k: cs.cast_integer_to_string(c) for k, c in sources.items()}
+    kinds = len(INT_WRAPS) + len(INT_REPLACE)
+    kind = _picks(dev, gen, n, [100 - kinds] + [1] * kinds)
+    wrap = (kind - 1).clamp(0, len(INT_WRAPS) - 1)
+    swap = (kind - 1 - len(INT_WRAPS)).clamp(0, len(INT_REPLACE) - 1)
+    is_wrap = (kind >= 1) & (kind <= len(INT_WRAPS))
+    is_swap = kind > len(INT_WRAPS)
+    mixed = {}
+    for k, s in plain.items():
+        mat, lens = byte_matrix(s, 20)
+        mat, lens = concat([table_piece(dev, [p for p, _ in INT_WRAPS], wrap),
+                            (mat, lens),
+                            table_piece(dev, [x for _, x in INT_WRAPS], wrap),
+                            table_piece(dev, INT_REPLACE, swap)],
+                           keep=[is_wrap, ~is_swap, is_wrap, is_swap])
+        mixed[k] = strings_from_matrix(mat, lens, sources[k].valid_bool())
+    all_valid = cs.cast_integer_to_string(Column(T.INT64, n, wide))
+    del plain
+
+    def fn():
+        out = {f"to_string {k}": cs.cast_integer_to_string(c)
+               for k, c in sources.items()}
+        for k, s in mixed.items():
+            for dt in (T.INT64, T.INT32, T.INT8):
+                out[f"to {dt.id.name} {k}"] = cs.cast_to_integer(s, dt)
+        out["ansi INT64"] = cs.cast_to_integer(all_valid, ansi=True)
+        out["conv 10 16"] = cs.conv(mixed["seeded"], 10, 16)
+        out["conv 16 -10"] = cs.conv(out["conv 10 16"], 16, -10)
+        return out
+    out, r = string_phase("integers", fn, n, calls, launches, log, profile)
+    _require(r["launches"]["bitmask_pack"] == len(out),
+             f"K3 launched {r['launches']} times in {len(out)} calls with "
+             "nullable results")
+
+    # the first rows on the CPU
+    cpu_calls = {f"to_string {k}": (cs.cast_integer_to_string, k)
+                 for k in sources}
+    for k in mixed:
+        for dt in (T.INT64, T.INT32, T.INT8):
+            cpu_calls[f"to {dt.id.name} {k}"] = (
+                lambda c, dt=dt: cs.cast_to_integer(c, dt), f"mixed {k}")
+    cpu_calls["ansi INT64"] = (lambda c: cs.cast_to_integer(c, ansi=True),
+                               "all valid")
+    cpu_calls["conv 10 16"] = (lambda c: cs.conv(c, 10, 16), "mixed seeded")
+    cpu_calls["conv 16 -10"] = (lambda c: cs.conv(c, 16, -10), "hex")
+    same_on_cpu(out, cpu_calls, {**sources, **{f"mixed {k}": v for k, v in
+                                              mixed.items()},
+                                 "all valid": all_valid,
+                                 "hex": out["conv 10 16"]},
+                STR_CPU_ROWS, "strings integers")
+
+    # round trips on the untouched rows: int -> string -> int exact,
+    # narrow types NULL exactly where the value does not fit
+    for k, src in sources.items():
+        v, ok = src.data, src.valid_bool() & (kind == 0)
+        for dt in (T.INT64, T.INT32, T.INT8):
+            got = out[f"to {dt.id.name} {k}"]
+            info = torch.iinfo(dt.to_torch())
+            fits = (v >= info.min) & (v <= info.max)
+            gv = got.valid_bool()
+            _require(torch.equal(gv[ok], fits[ok])
+                     and torch.equal(got.data.to(torch.int64)[ok & fits],
+                                     v[ok & fits]),
+                     f"{k}: int -> string -> {dt.id.name} is not exact")
+    _require(torch.equal(out["ansi INT64"].data, wide)
+             and bool(out["ansi INT64"].valid_bool().all()),
+             "ANSI: the all-valid column did not come back exact")
+    back = out["conv 16 -10"]
+    # conv round trip and Python's int on sampled rows; cast_to_integer
+    # of the edited rows against Spark's toLong grammar
+    rows = _sample(dev, gen, n, SAMPLE_ROWS)
+    strs = _host_strings(mixed["seeded"], rows)
+    got = {name: out[name].data[rows].tolist() for name in (
+        "to INT64 seeded", "to INT32 seeded", "to INT8 seeded")}
+    okb = {name: out[name].valid_bool()[rows].tolist() for name in got}
+    hexs = _host_strings(out["conv 10 16"], rows)
+    decs = _host_strings(back, rows)
+    for i, s in enumerate(strs):
+        for name, (lo, hi) in (("to INT64 seeded", (-2**63, 2**63 - 1)),
+                               ("to INT32 seeded", (-2**31, 2**31 - 1)),
+                               ("to INT8 seeded", (-128, 127))):
+            want = None if s is None else spark_to_long(s, lo, hi)
+            have = got[name][i] if okb[name][i] else None
+            _require(have == want, f"{name} of {s!r}: {have}, Spark {want}")
+        want_hex = None if not s else conv_oracle(s, 10, 16)
+        _require(hexs[i] == want_hex,
+                 f"conv({s!r}, 10, 16): {hexs[i]}, Python {want_hex}")
+        want_dec = None if not want_hex else conv_oracle(want_hex, 16, -10)
+        _require(decs[i] == want_dec, f"conv({want_hex!r}, 16, -10): "
+                 f"{decs[i]}, Python {want_dec}")
+    log(f"strings integers: {len(out)} calls over {n} rows equal the CPU's on "
+        f"the first {STR_CPU_ROWS} rows; int -> string -> int exact on the "
+        f"{int((kind == 0).sum())} untouched rows of each source; "
+        f"cast_to_integer and conv equal Spark's grammar and "
+        f"NumberConverter's rules on {SAMPLE_ROWS} sampled rows")
+    return r
+
+
+_WS = " \t\n\x0b\x0c\r"
+_LONG = re.compile(r"([+-]?)(\d+)(\.\d*)?")
+
+
+def spark_to_long(s: str, lo: int, hi: int):
+    """Spark's UTF8String.toLong (non-ANSI): trimmed sign and digits, a
+    fraction truncated; out of range -> None."""
+    m = _LONG.fullmatch(s.strip(_WS))
+    if not m:
+        return None
+    v = int(m[1] + m[2])
+    return v if lo <= v <= hi else None
+
+
+def conv_oracle(s: str, from_base: int, to_base: int):
+    """NumberConverter's rules (Spark's conv) on Python ints."""
+    neg = s.startswith("-")
+    body = s[1:] if neg else s
+    v = 0
+    for ch in body:
+        d = int(ch, 36) if ch.isalnum() and ch.isascii() else 99
+        if d >= from_base:
+            break
+        v = min(v * from_base + d, 2**64 - 1)
+    if neg and to_base > 0:
+        v = (2**64 - 1) if v >= 2**63 else (-v) % 2**64
+    negative = neg and to_base < 0
+    if to_base < 0 and v >= 2**63:
+        v, negative = 2**64 - v, True
+    b = abs(to_base)
+    digits = ""
+    while True:
+        digits = "0123456789ABCDEFGHIJKLMNOPQRSTUVWXYZ"[v % b] + digits
+        v //= b
+        if not v:
+            break
+    return ("-" if negative else "") + digits
+
+
+def java_float_string(x: float, f32: bool) -> str:
+    """Java's Double.toString / Float.toString layout of Python's
+    shortest round-tripping digits (numpy's for float32)."""
+    if math.isnan(x):
+        return "NaN"
+    if math.isinf(x):
+        return "-Infinity" if x < 0 else "Infinity"
+    sign = "-" if math.copysign(1.0, x) < 0 else ""
+    if x == 0:
+        return sign + "0.0"
+    if f32:
+        mant, e = np.format_float_scientific(
+            np.float32(abs(x)), unique=True, trim="-").split("e")
+        digs, exp = mant.replace(".", ""), int(e)
+    else:
+        t = decimal.Decimal(repr(abs(x))).as_tuple()
+        digs = "".join(map(str, t.digits))
+        exp = len(t.digits) - 1 + t.exponent
+    digs = digs.rstrip("0") or "0"
+    nd = len(digs)
+    if -3 <= exp <= 6:
+        if exp >= nd - 1:
+            body = digs + "0" * (exp - nd + 1) + ".0"
+        elif exp >= 0:
+            body = digs[:exp + 1] + "." + digs[exp + 1:]
+        else:
+            body = "0." + "0" * (-exp - 1) + digs
+    else:
+        body = digs[0] + "." + (digs[1:] or "0") + "E" + str(exp)
+    return sign + body
+
+
+def _float_bits(dev, gen, n, f32: bool):
+    """Random bit patterns of every exponent (subnormals and NaN payloads
+    among them), the specials mixed in."""
+    if f32:
+        x = torch.randint(-2**31, 2**31, (n,), generator=gen, device=dev,
+                          dtype=torch.int32).view(torch.float32)
+        return _with_specials(x, F32_SPECIALS, 89)
+    x = torch.randint(-2**63, 2**63 - 1, (n,), generator=gen,
+                      device=dev).view(torch.float64)
+    return _with_specials(x, F64_SPECIALS, 97)
+
+
+def strings_floats(dev, gen, calls, launches, log, profile):
+    """Phase (b): float64 and float32 random bit patterns, 10% nulls,
+    through cast_float_to_string, 1% each of five literal forms mixed
+    into the float64 strings, and cast_to_float back."""
+    n = STR_ROWS
+    src = {w: Column(T.FLOAT32 if w == 32 else T.FLOAT64, n,
+                     _float_bits(dev, gen, n, w == 32),
+                     _valid_words(dev, gen, n, 0.1)) for w in (64, 32)}
+    plain = fts.cast_float_to_string(src[64])
+    kind = _picks(dev, gen, n, [100 - len(FLOAT_LITERALS)]
+                  + [1] * len(FLOAT_LITERALS))
+    mat, lens = byte_matrix(plain, 26)
+    mat, lens = concat([(mat, lens), table_piece(
+        dev, FLOAT_LITERALS, (kind - 1).clamp(min=0))],
+        keep=[kind == 0, kind > 0])
+    mixed = strings_from_matrix(mat, lens, src[64].valid_bool())
+    strs32 = fts.cast_float_to_string(src[32])
+    del plain
+
+    def fn():
+        return {"to_string float64": fts.cast_float_to_string(src[64]),
+                "to_string float32": fts.cast_float_to_string(src[32]),
+                "to FLOAT64": cs.cast_to_float(mixed),
+                "to FLOAT32": cs.cast_to_float(strs32, T.FLOAT32)}
+    out, r = string_phase("floats", fn, n, calls, launches, log, profile)
+    _require(r["launches"]["bitmask_pack"] == len(out),
+             f"K3 launched {r['launches']} times in {len(out)} calls")
+    same_on_cpu(out, {
+        "to_string float64": (fts.cast_float_to_string, "f64"),
+        "to_string float32": (fts.cast_float_to_string, "f32"),
+        "to FLOAT64": (cs.cast_to_float, "mixed"),
+        "to FLOAT32": (lambda c: cs.cast_to_float(c, T.FLOAT32), "s32")},
+        {"f64": src[64], "f32": src[32], "mixed": mixed, "s32": strs32},
+        STR_CPU_ROWS, "strings floats")
+
+    # float -> string -> float: the ulps between each valid, finite row
+    # and its round trip (the reference's arithmetic is not correctly
+    # rounded), NaN to NaN and infinities exact
+    ulps = {}
+    for w, name in ((64, "to FLOAT64"), (32, "to FLOAT32")):
+        x, back = src[w].data, out[name]
+        ok = src[w].valid_bool() & ((kind == 0) if w == 64 else True)
+        _require(bool((back.valid_bool() | ~ok).all()),
+                 f"float{w} -> string -> float lost a valid row")
+        fin = ok & torch.isfinite(x)
+        _require(bool(((torch.isnan(back.data) == torch.isnan(x))
+                       & ((back.data == x) | ~torch.isinf(x)) | ~ok).all()),
+                 f"float{w} -> string -> float: NaN or infinity changed")
+        ints = torch.int64 if w == 64 else torch.int32
+        d = (back.data.view(ints).to(torch.int64)
+             - x.view(ints).to(torch.int64)).abs()[fin]
+        ulps[w] = {k: int(v) for k, v in zip(
+            ("rows", "exact", "1 ulp", "more"),
+            (d.numel(), (d == 0).sum(), (d == 1).sum(), (d > 1).sum()))}
+    # the literal forms
+    lit = out["to FLOAT64"].data[kind > 0]
+    want = torch.tensor([float(s) for s in FLOAT_LITERALS],
+                        dtype=torch.float64, device=dev)[kind[kind > 0] - 1]
+    _require(bool(((lit == want) | (torch.isnan(lit) & torch.isnan(want)))
+                  .all()), "a literal form parsed wrong")
+    # on sampled rows: Java's layout of the shortest digits, the round
+    # trip equal to a Python model of the reference's arithmetic, and
+    # exact where that arithmetic rounds once
+    rows = _sample(dev, gen, n, SAMPLE_ROWS)
+    literal = (kind[rows] > 0).tolist()
+    exact = 0
+    for w, name in ((64, "to_string float64"), (32, "to_string float32")):
+        got = _host_strings(out[name], rows)
+        vals = src[w].data[rows].tolist()
+        okv = src[w].valid_bool()[rows].tolist()
+        back = out["to FLOAT64" if w == 64 else "to FLOAT32"].data[rows]
+        ints = torch.int64 if w == 64 else torch.int32
+        back_bits = back.view(ints).tolist()
+        nan = torch.isnan(back).tolist()
+        for g, v, o, b, bn, lit_row in zip(got, vals, okv, back_bits, nan,
+                                           literal):
+            want_s = java_float_string(v, w == 32) if o else None
+            _require(g == want_s, f"float{w} {v!r}: {g}, Java {want_s}")
+            if not o or (w == 64 and lit_row):
+                continue
+            m = reference_float(g)
+            m = np.float64(m) if w == 64 else np.float32(m)
+            _require((bn and math.isnan(m)) or b == int(m.view(
+                np.int64 if w == 64 else np.int32)),
+                f"cast_to_float({g!r}) as float{w}: not the reference's "
+                "arithmetic")
+            if exact_path(g):
+                exact += 1
+                _require(bn == math.isnan(v) and (bn or b == int(np.array(
+                    v, np.float64 if w == 64 else np.float32).view(
+                        np.int64 if w == 64 else np.int32))),
+                    f"float{w} {v!r} -> {g} -> float is not exact")
+    log(f"strings floats: {len(out)} calls over {n} rows equal the CPU's on "
+        f"the first {STR_CPU_ROWS} rows; Java's layout of the shortest "
+        f"digits and the reference's arithmetic on {SAMPLE_ROWS} sampled "
+        f"rows of each width, {exact} of them on its exact path and back "
+        f"bit for bit; round trip of the finite rows in ulps: "
+        f"float64 {ulps[64]}, float32 {ulps[32]}")
+    return r | {"round_trip_ulps": ulps}
+
+
+def reference_float(s: str) -> float:
+    """The reference's string -> float arithmetic in Python floats (no
+    subnormal flush): the first 19 mantissa digits accumulated as
+    acc * 10 + d, times the C library's 10.0 ** e."""
+    t = s.strip(_WS)
+    neg = t[:1] == "-"
+    t = t[1:] if t[:1] in "+-" else t
+    if t.lower() in ("inf", "infinity"):
+        return -math.inf if neg else math.inf
+    if t.lower() == "nan":
+        return math.nan
+    mant, _, exp = t.lower().partition("e")
+    ints, _, frac = mant.partition(".")
+    acc = 0.0
+    for d in (ints + frac)[:19]:
+        acc = acc * 10.0 + int(d)
+    e = (int(exp or 0) + max(len(ints) - 19, 0)
+         - min(len(frac), max(19 - len(ints), 0)))
+    v = acc * (0.0 if e < -323 else math.inf if e > 308 else 10.0 ** e)
+    return -v if neg else v
+
+
+def exact_path(s: str) -> bool:
+    """Java's form of a finite float whose digits are below 2^53 and whose
+    power of ten is 10^0 to 10^22: the reference's one multiply rounds
+    it correctly."""
+    if s[-1:].isalpha():
+        return False  # NaN, Infinity
+    mant, _, exp = s.lstrip("-").partition("E")
+    ints, _, frac = mant.partition(".")
+    return int(ints + frac) <= 2 ** 53 and 0 <= int(exp or 0) - len(frac) <= 22
+
+
+def strings_decimals(dev, gen, calls, launches, log, profile):
+    """Phase (c): seeded DECIMAL64 at scale -2 over the full int64 range,
+    10% nulls, through cast_decimal_to_string, then cast_to_decimal at
+    scales -2 and 0 (HALF_UP) and to DECIMAL32 (overflow -> NULL)."""
+    n = STR_ROWS
+    v = torch.randint(-2**63, 2**63 - 1, (n,), generator=gen, device=dev)
+    # a third of the rows below 2^31 in magnitude, to fit DECIMAL32
+    small = torch.rand(n, generator=gen, device=dev) < 1 / 3
+    v = torch.where(small, v % (2**32) - 2**31, v)
+    src = Column(T.decimal64(DEC_SCALE), n, v, _valid_words(dev, gen, n, 0.1))
+    strs = cs.cast_decimal_to_string(src)
+
+    def fn():
+        return {"to_string": cs.cast_decimal_to_string(src),
+                "to DECIMAL64(-2)": cs.cast_to_decimal(strs, T.decimal64(-2)),
+                "to DECIMAL64(0)": cs.cast_to_decimal(strs, T.decimal64(0)),
+                "to DECIMAL32(-2)": cs.cast_to_decimal(strs, T.decimal32(-2))}
+    out, r = string_phase("decimals", fn, n, calls, launches, log, profile)
+    _require(r["launches"]["bitmask_pack"] == len(out),
+             f"K3 launched {r['launches']} times in {len(out)} calls")
+    same_on_cpu(out, {
+        "to_string": (cs.cast_decimal_to_string, "src"),
+        "to DECIMAL64(-2)": (lambda c: cs.cast_to_decimal(
+            c, T.decimal64(-2)), "strs"),
+        "to DECIMAL64(0)": (lambda c: cs.cast_to_decimal(
+            c, T.decimal64(0)), "strs"),
+        "to DECIMAL32(-2)": (lambda c: cs.cast_to_decimal(
+            c, T.decimal32(-2)), "strs")},
+        {"src": src, "strs": strs}, STR_CPU_ROWS, "strings decimals")
+    ok = src.valid_bool()
+    exact = out["to DECIMAL64(-2)"]
+    _require(torch.equal(exact.valid_bool(), ok)
+             and torch.equal(exact.data[ok], v[ok]),
+             "decimal -> string -> decimal is not exact")
+    # HALF_UP to scale 0, away from zero: v = 100 q + r, 0 <= r < 100
+    q, rem = v // 100, torch.remainder(v, 100)
+    want = torch.where(v >= 0, q + (rem >= 50).to(torch.int64),
+                       q + (rem > 50).to(torch.int64))
+    got = out["to DECIMAL64(0)"]
+    _require(torch.equal(got.valid_bool(), ok)
+             and torch.equal(got.data[ok], want[ok]),
+             "the HALF_UP cast to scale 0 is off")
+    fits = ok & (v.abs() <= 2**31 - 1) & (v != -2**63)
+    d32 = out["to DECIMAL32(-2)"]
+    _require(torch.equal(d32.valid_bool(), fits)
+             and torch.equal(d32.data[fits].to(torch.int64), v[fits]),
+             "DECIMAL32: NULL not exactly where the value overflows")
+    rows = _sample(dev, gen, n, SAMPLE_ROWS)
+    for g, x, o in zip(_host_strings(out["to_string"], rows),
+                       v[rows].tolist(), ok[rows].tolist()):
+        want_s = str(decimal.Decimal(x).scaleb(DEC_SCALE)) if o else None
+        _require(g == want_s, f"decimal {x}e-2: {g}, Python {want_s}")
+    log(f"strings decimals: {len(out)} calls over {n} rows equal the CPU's "
+        f"on the first {STR_CPU_ROWS} rows; the round trip exact, HALF_UP "
+        f"exact on every row, DECIMAL32 NULL exactly on the "
+        f"{int((ok & ~fits).sum())} overflowing rows; Python's Decimal on "
+        f"{SAMPLE_ROWS} sampled rows")
+    return r
+
+
+def _fixed_digits(width: int, count: int):
+    """Table of the zero-padded decimal strings of 0 .. count - 1."""
+    return [f"{i:0{width}d}" for i in range(count)]
+
+
+def timestamp_strings(dev, gen, ts: Column):
+    """The timestamps' strings in every form Spark's cast reads: yyyy,
+    yyyy-mm, yyyy-mm-dd, then ' ' or 'T' and hh:mm:ss with 0-6 fraction
+    digits and a zone (none, Z, an offset, UTC or a region id); 10%
+    nulls. -> (column, form, zone)."""
+    n = ts.size
+    us = ts.data
+    days = torch.div(us, US_PER_DAY, rounding_mode="floor")
+    tod = us - days * US_PER_DAY
+    y, mo, d = dto.civil_from_days(days)
+    form = torch.randint(0, TS_FORMS, (n,), generator=gen, device=dev)
+    zone = _picks(dev, gen, n, TS_ZONE_WEIGHTS)
+    zone = torch.where(form >= 3, zone, 0)
+    sep = torch.randint(0, 2, (n,), generator=gen, device=dev)
+    k = (form - 3).clamp(min=0)  # fraction digits
+    frac = tod % 1_000_000
+    pieces = [table_piece(dev, _fixed_digits(4, 10000), y),
+              table_piece(dev, ["-"], torch.zeros_like(y)),
+              table_piece(dev, _fixed_digits(2, 13), mo),
+              table_piece(dev, ["-"], torch.zeros_like(y)),
+              table_piece(dev, _fixed_digits(2, 32), d),
+              table_piece(dev, [" ", "T"], sep),
+              table_piece(dev, _fixed_digits(2, 24),
+                          tod // 3_600_000_000),
+              table_piece(dev, [":"], torch.zeros_like(y)),
+              table_piece(dev, _fixed_digits(2, 60),
+                          tod // 60_000_000 % 60),
+              table_piece(dev, [":"], torch.zeros_like(y)),
+              table_piece(dev, _fixed_digits(2, 60),
+                          tod // 1_000_000 % 60),
+              table_piece(dev, ["."], torch.zeros_like(y))]
+    keep = [None, form >= 1, form >= 1, form >= 2, form >= 2] + \
+        [form >= 3] * 6 + [k > 0]
+    for i in range(6):  # the i-th fraction digit
+        pieces.append(table_piece(dev, list("0123456789"),
+                                  frac // 10 ** (5 - i) % 10))
+        keep.append(k > i)
+    pieces.append(table_piece(dev, TS_ZONES, zone))
+    keep.append(None)
+    mat, lens = concat(pieces, keep)
+    valid = torch.rand(n, generator=gen, device=dev) >= 0.1
+    return strings_from_matrix(mat, lens, valid), form, zone
+
+
+def python_timestamp(us: int, form: int, zone: int, default_tz: str):
+    """(days of the date cast, micros of the timestamp cast or None) of
+    the string ``timestamp_strings`` made, by Python's datetime and
+    zoneinfo."""
+    dt = EPOCH + pydt.timedelta(microseconds=us)
+    if form == 0:
+        dt = dt.replace(month=1, day=1, hour=0, minute=0, second=0,
+                        microsecond=0)
+    elif form == 1:
+        dt = dt.replace(day=1, hour=0, minute=0, second=0, microsecond=0)
+    elif form == 2:
+        dt = dt.replace(hour=0, minute=0, second=0, microsecond=0)
+    else:
+        k = form - 3
+        dt = dt.replace(microsecond=dt.microsecond // 10 ** (6 - k)
+                        * 10 ** (6 - k))
+    day = (dt.date() - EPOCH.date()).days
+    local = (dt - EPOCH) // ONE_US
+    minutes = TS_ZONE_MINUTES[zone]
+    if zone == 0:
+        if default_tz == "UTC":
+            return day, local
+        off = dt.replace(tzinfo=ZoneInfo(default_tz), fold=0).utcoffset()
+        return day, local - off // ONE_US
+    if minutes is None:  # a region id: NULL, as in the reference
+        return day, None
+    return day, local - minutes * 60_000_000
+
+
+def strings_dates(dev, gen, ts: Column, calls, launches, log, profile):
+    """Phase (d): the roster's 10M timestamps as strings in every form
+    Spark reads, cast_to_date and cast_to_timestamp in UTC and in
+    America/Los_Angeles."""
+    strs, form, zone = timestamp_strings(dev, gen, ts)
+    n = strs.size
+
+    def fn():
+        return {"to_date": cs.cast_to_date(strs),
+                "to_timestamp UTC": cs.cast_to_timestamp(strs, "UTC"),
+                f"to_timestamp {LA}": cs.cast_to_timestamp(strs, LA)}
+    out, r = string_phase("dates", fn, n, calls, launches, log, profile)
+    _require(r["launches"]["bitmask_pack"] == len(out),
+             f"K3 launched {r['launches']} times in {len(out)} calls")
+    same_on_cpu(out, {
+        "to_date": (cs.cast_to_date, "s"),
+        "to_timestamp UTC": (lambda c: cs.cast_to_timestamp(c, "UTC"), "s"),
+        f"to_timestamp {LA}": (lambda c: cs.cast_to_timestamp(c, LA), "s")},
+        {"s": strs}, STR_CPU_ROWS, "strings dates")
+    rows = _sample(dev, gen, n, SAMPLE_ROWS)
+    us = ts.data[rows].tolist()
+    f, z = form[rows].tolist(), zone[rows].tolist()
+    ok = strs.valid_bool()[rows].tolist()
+    got = {k: (v.data[rows].tolist(), v.valid_bool()[rows].tolist())
+           for k, v in out.items()}
+    horizon = _epoch_us(tz.RULE_HORIZON_YEAR, 1, 1)
+    held = 0
+    for i in range(len(rows)):
+        for name, zone_id in (("to_date", None), ("to_timestamp UTC", "UTC"),
+                              (f"to_timestamp {LA}", LA)):
+            vals, valid = got[name]
+            have = vals[i] if valid[i] else None
+            if zone_id == LA and z[i] == 0 and not (
+                    MIN_US + US_PER_DAY <= us[i] < horizon):
+                continue  # past the zone table's horizon: the CPU only
+            day, stamp = python_timestamp(us[i], f[i], z[i], zone_id or "UTC")
+            want = None if not ok[i] else day if zone_id is None else stamp
+            _require(have == want, f"{name} of the form-{f[i]} zone-{z[i]} "
+                     f"string of {us[i]} us: {have}, Python {want}")
+            held += 1
+    log(f"strings dates: {len(out)} calls over {n} rows equal the CPU's on "
+        f"the first {STR_CPU_ROWS} rows and Python's datetime and zoneinfo "
+        f"in {held} checks on {SAMPLE_ROWS} sampled rows (zone-less "
+        f"{LA} rows after {tz.RULE_HORIZON_YEAR} held against the CPU "
+        "only)")
+    return r
+
+
+URL_SCHEMES = ("http://", "https://", "ftp://", "s3a://", "HTTP://")
+URL_USERS = ("alice@", "u:p@", "x%41y@", "bob.s@")
+URL_HOSTS = ("example.com", "www.Example.org", "a.b-c.d", "h0st",
+             "x_y~z.io", "10.0.0.1", "192.168.1.254", "[::1]",
+             "[2001:db8::7]", "[fe80::1:2]")
+URL_PORTS = (":80", ":8080", ":443")
+URL_PATHS = ("", "/", "/a/b", "/index.html", "/x.y/z_w", "/%41b/c")
+URL_KEYS = ("k", "id", "q", "pg", "x")
+URL_VALUES = ("1", "abc", "", "a%20b", "42")
+URL_FRAGS = ("#top", "#s-2", "#")
+URL_BAD = ("# x", "#a|b", "%zz", "%4")  # a forbidden byte, a bad escape
+URL_MAX = 96
+
+
+def url_strings(dev, gen, n: int):
+    """Seeded URLs: hierarchical (scheme, userinfo, host, port, path, 1-6
+    query keys, fragment), opaque mailto: and relative ones; 1% with a
+    forbidden byte or a bad '%' escape; 10% nulls. -> (column, picks)."""
+    def pick(count):
+        return torch.randint(0, count, (n,), generator=gen, device=dev)
+
+    def some(p):
+        return torch.rand(n, generator=gen, device=dev) < p
+    p = {"kind": _picks(dev, gen, n, (85, 8, 7)),  # hier, mailto, relative
+         "scheme": pick(len(URL_SCHEMES)), "user": pick(len(URL_USERS)),
+         "host": pick(len(URL_HOSTS)), "port": pick(len(URL_PORTS)),
+         "path": pick(len(URL_PATHS)), "nkeys": pick(7),
+         "frag": pick(len(URL_FRAGS)), "bad": pick(len(URL_BAD)),
+         "has_user": some(0.3), "has_port": some(0.3),
+         "has_frag": some(0.3), "is_bad": some(0.01)}
+    p["keys"] = [pick(len(URL_KEYS)) for _ in range(6)]
+    p["values"] = [pick(len(URL_VALUES)) for _ in range(6)]
+    hier, mail = p["kind"] == 0, p["kind"] == 1
+    zero = torch.zeros(n, dtype=torch.int64, device=dev)
+    pieces = [table_piece(dev, URL_SCHEMES, p["scheme"]),
+              table_piece(dev, ["mailto:"], zero),
+              table_piece(dev, URL_USERS, p["user"]),
+              table_piece(dev, URL_HOSTS, p["host"]),
+              table_piece(dev, URL_PORTS, p["port"]),
+              table_piece(dev, URL_PATHS, p["path"])]
+    keep = [hier, mail, (hier | mail) & p["has_user"], hier | mail,
+            hier & p["has_port"], ~mail]
+    for i in range(6):
+        pieces += [table_piece(dev, ["?" if i == 0 else "&"], zero),
+                   table_piece(dev, URL_KEYS, p["keys"][i]),
+                   table_piece(dev, ["="], zero),
+                   table_piece(dev, URL_VALUES, p["values"][i])]
+        keep += [p["nkeys"] > i] * 4
+    pieces += [table_piece(dev, URL_FRAGS, p["frag"]),
+               table_piece(dev, URL_BAD, p["bad"])]
+    keep += [p["has_frag"], p["is_bad"]]
+    mat, lens = concat(pieces, keep)
+    lens = lens.clamp(max=URL_MAX)
+    valid = torch.rand(n, generator=gen, device=dev) >= 0.1
+    return strings_from_matrix(mat[:, :URL_MAX], lens, valid), p
+
+
+def python_url_parts(p: dict, i: int) -> dict:
+    """The parts java.net.URI gives the URL ``url_strings`` composed from
+    picks ``p`` at row ``i`` (host ints), None where absent."""
+    kind = p["kind"][i]
+    user = URL_USERS[p["user"][i]][:-1] if p["has_user"][i] else None
+    host = URL_HOSTS[p["host"][i]]
+    port = URL_PORTS[p["port"][i]] if p["has_port"][i] else ""
+    path = URL_PATHS[p["path"][i]]
+    pairs = [(URL_KEYS[p["keys"][j][i]], URL_VALUES[p["values"][j][i]])
+             for j in range(p["nkeys"][i])]
+    query = "&".join(f"{k}={v}" for k, v in pairs) if pairs else None
+    ref = URL_FRAGS[p["frag"][i]][1:] if p["has_frag"][i] else None
+    key_k = next((v for k, v in pairs if k == "k"), None)
+    if kind == 1:  # mailto:[user@]host[?query]: opaque, no query parsed
+        return {"PROTOCOL": "mailto", "HOST": None, "PATH": None,
+                "QUERY": None, "REF": ref, "AUTHORITY": None, "FILE": None,
+                "USERINFO": None, "QUERY k": None}
+    scheme = URL_SCHEMES[p["scheme"][i]][:-3] if kind == 0 else None
+    auth = ((user + "@" if user else "") + host + port) if kind == 0 \
+        else None
+    return {"PROTOCOL": scheme, "HOST": host if kind == 0 else None,
+            "PATH": path, "QUERY": query, "REF": ref, "AUTHORITY": auth,
+            "FILE": path + ("?" + query if query is not None else ""),
+            "USERINFO": user if kind == 0 else None, "QUERY k": key_k}
+
+
+URL_PARTS = ("PROTOCOL", "HOST", "PATH", "QUERY", "REF", "AUTHORITY",
+             "FILE", "USERINFO")
+
+
+def strings_urls(dev, gen, calls, launches, log, profile):
+    """Phase (e): 10M seeded URLs through parse_url for each of the eight
+    parts and for QUERY with the key 'k'."""
+    urls, picks = url_strings(dev, gen, STR_ROWS)
+    n = urls.size
+
+    def fn():
+        out = {part: pu.parse_url(urls, part) for part in URL_PARTS}
+        out["QUERY k"] = pu.parse_url(urls, "QUERY", "k")
+        return out
+    out, r = string_phase("urls", fn, n, calls, launches, log, profile)
+    _require(r["launches"]["bitmask_pack"] == len(out),
+             f"K3 launched {r['launches']} times in {len(out)} calls")
+    cpu_calls = {part: (lambda c, part=part: pu.parse_url(c, part), "u")
+                 for part in URL_PARTS}
+    cpu_calls["QUERY k"] = (lambda c: pu.parse_url(c, "QUERY", "k"), "u")
+    same_on_cpu(out, cpu_calls, {"u": urls}, STR_CPU_ROWS, "strings urls")
+    rows = _sample(dev, gen, n, SAMPLE_ROWS)
+    hp = {k: ([t[rows].tolist() for t in v] if isinstance(v, list)
+              else v[rows].tolist()) for k, v in picks.items()}
+    ok = urls.valid_bool()[rows].tolist()
+    lens = str_lengths(urls)[rows].tolist()
+    got = {k: _host_strings(v, rows) for k, v in out.items()}
+    held = 0
+    for i in range(len(rows)):
+        if lens[i] >= URL_MAX:
+            continue  # cut at 96 bytes: held against the CPU only
+        if hp["is_bad"][i]:
+            want = dict.fromkeys(got)  # NULL in every part
+        else:
+            want = python_url_parts(hp, i)
+        for part, vals in got.items():
+            w = want[part] if ok[i] else None
+            _require(vals[i] == w, f"parse_url {part} of "
+                     f"{_host_strings(urls, [rows[i]])[0]!r}: {vals[i]}, "
+                     f"the composed part {w}")
+            held += 1
+    log(f"strings urls: {len(out)} calls over {n} URLs equal the CPU's on "
+        f"the first {STR_CPU_ROWS} rows and the parts they were composed "
+        f"of in {held} checks on {SAMPLE_ROWS} sampled rows (the "
+        f"{sum(x >= URL_MAX for x in lens)} cut at {URL_MAX} bytes held "
+        "against the CPU only)")
+    return r
+
+
+def _python_re(pattern: str, strs: list, full: bool) -> list:
+    """Python's re with ASCII classes (Java's \\d \\w \\s), None on
+    null rows."""
+    rx_ = re.compile(pattern, re.ASCII)
+    fn = rx_.fullmatch if full else rx_.search
+    return [None if s is None else int(bool(fn(s))) for s in strs]
+
+
+def strings_regex(dev, gen, col: Column, calls, launches, log, profile):
+    """Phase (f): the hashing step's 0-32-byte UTF-8 STRING column through
+    regexp_contains and regexp_full_match with patterns of the device
+    subset; none may take the host route."""
+    n = col.size
+
+    def fn():
+        out = {f"contains {p}": rx.regexp_contains(col, p)
+               for p in REGEX_PATTERNS}
+        out |= {f"full_match {p}": rx.regexp_full_match(col, p)
+                for p in REGEX_FULL}
+        return out
+    out, r = string_phase("regex", fn, n, calls, launches, log, profile)
+    fallbacks = r["counters"].get("regexp.host_fallback_calls", 0)
+    _require(fallbacks == 0, f"{fallbacks} device-subset pattern calls took "
+             "the host route")
+    _require(r["launches"]["bitmask_pack"] == len(out),
+             f"K3 launched {r['launches']} times in {len(out)} calls")
+    cpu_calls = {f"contains {p}": (lambda c, p=p: rx.regexp_contains(c, p),
+                                   "s") for p in REGEX_PATTERNS}
+    cpu_calls |= {f"full_match {p}": (lambda c, p=p: rx.regexp_full_match(
+        c, p), "s") for p in REGEX_FULL}
+    same_on_cpu(out, cpu_calls, {"s": col}, STR_CPU_ROWS, "strings regex")
+    rows = _sample(dev, gen, n, SAMPLE_ROWS)
+    strs = _host_strings(col, rows)
+    for name, c in out.items():
+        kind, pattern = name.split(" ", 1)
+        want = _python_re(pattern, strs, kind == "full_match")
+        got = [v if ok else None for v, ok in zip(
+            c.data[rows].tolist(), c.valid_bool()[rows].tolist())]
+        _require(got == want, f"{name} differs from Python's re on the "
+                 "sampled rows")
+    log(f"strings regex: {len(out)} calls over {n} rows, none on the host "
+        f"route, equal the CPU's on the first {STR_CPU_ROWS} rows and "
+        f"Python's re on {SAMPLE_ROWS} sampled rows")
+    return r
+
+
+def strings_head(dev, gen, col: Column, calls, launches, log, profile):
+    """Phase (g): host code on a 100,000-row head: a backreference
+    through regexp's host route, regexp_extract, and format_number of
+    float64, INT64 and DECIMAL64 at d = 0, 2 and 5."""
+    m = HEAD_ROWS
+    head = rc.slice_rows(col, 0, m)
+    nums = {"float64": Column(T.FLOAT64, m, torch.randn(
+                m, generator=gen, device=dev, dtype=torch.float64) * 1e6,
+                _valid_words(dev, gen, m, 0.1)),
+            "int64": Column(T.INT64, m, torch.randint(
+                -2**63, 2**63 - 1, (m,), generator=gen, device=dev),
+                _valid_words(dev, gen, m, 0.1))}
+    nums["decimal64"] = Column(T.decimal64(-2), m, nums["int64"].data,
+                               nums["int64"].validity)
+
+    def calls_on(s, cols):
+        out = {"host route": rx.regexp_contains(s, REGEX_HOST)}
+        out |= {f"extract {p} {g}": rx.regexp_extract(s, p, g)
+                for p, g in EXTRACT}
+        out |= {f"format_number {k} {d}": cs.format_number(c, d)
+                for k, c in cols.items() for d in FORMAT_DIGITS}
+        return out
+    out, r = string_phase("head", lambda: calls_on(head, nums), m, calls,
+                          launches, log, profile)
+    _require(r["counters"].get("regexp.host_fallback_calls") == 1,
+             "the backreference did not take the host route once")
+    _require(r["launches"]["bitmask_pack"] == 1,
+             "K3 did not pack the host route's validity")
+    want = calls_on(head_on_cpu(head, m),
+                    {k: head_on_cpu(c, m) for k, c in nums.items()})
+    for name, c in want.items():
+        _require(_same_result(out[name], c), f"strings head {name} differs "
+                 "from the CPU's")
+    strs = head_on_cpu(head, m).to_pylist()
+    _require(out["host route"].to_pylist()
+             == [None if s is None else int(bool(re.search(REGEX_HOST, s)))
+                 for s in strs], "the host route differs from Python's re")
+    log(f"strings head: {len(out)} host calls over {m} rows equal the "
+        "CPU's; the host route equals Python's re")
+    return r
+
+
+def run_strings(dev, gen, ss, ts: Column, text: Column, log,
+                profile: bool = False):
+    """Step 8: the cast and string-function phases."""
+    calls, launches, phases = [], {}, []
+    phases.append(strings_integers(dev, gen, ss, calls, launches, log,
+                                   profile))
+    phases.append(strings_floats(dev, gen, calls, launches, log, profile))
+    phases.append(strings_decimals(dev, gen, calls, launches, log, profile))
+    phases.append(strings_dates(dev, gen, ts, calls, launches, log,
+                                profile))
+    phases.append(strings_urls(dev, gen, calls, launches, log, profile))
+    phases.append(strings_regex(dev, gen, text, calls, launches, log,
+                                profile))
+    phases.append(strings_head(dev, gen, text, calls, launches, log,
+                               profile))
+    for name in STRING_NAMES:
+        _require(launches.get(name, 0) > 0,
+                 f"kernel {name} was not launched on the strings path")
     return {"phases": phases, "launches": launches}, calls
 
 
-def k3_beside_wall(phases: list, totals: dict, card: str, log) -> None:
-    """Each roster phase's warm wall time beside the device time of its
-    K3 calls (both forms)."""
+def k3_beside_wall(step: str, phases: list, totals: dict, names: tuple,
+                   card: str, log) -> None:
+    """Each phase's warm wall time beside the device time of its K3
+    calls (both forms)."""
     for r in phases:
-        ms = [c["ms"] for name in ROSTER_NAMES
+        ms = [c["ms"] for name in names
               for c in totals[name]["per_call"] if c["query"] == r["phase"]]
         r["k3_ms"] = sum(ms)
-        log(f"roster {r['phase']}: {r['wall_ms']:.3f} ms wall, K3 "
-            f"{sum(ms):.4f} ms in {len(ms)} call(s) [{card}]")
+        log(f"{step} {r['phase']}: {r['wall_ms']:.3f} ms wall, K3 "
+            f"{sum(ms):.4f} ms in {len(ms)} call(s), peak "
+            f"{r['peak_bytes'] / 2**30:.2f} GiB allocated [{card}]")
 
 
 def kernel_entries(totals: dict, launches: dict, card: str, stress: list,
@@ -1655,7 +2601,12 @@ def main(argv=None) -> int:
                     help="directory for the build log and a JSON report")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one warm run of each query, table "
-                    "hash, roster phase and row conversion")
+                    "hash, roster and strings phase and row conversion")
+    ap.add_argument("--queries-only", action="store_true",
+                    help="only time q1-q20 as step 3 does (a cold pass, "
+                    "then each query's warm median of 3), without the "
+                    "oracles, kernel checks and later steps; print the "
+                    "times as the last line, and no result")
     args = ap.parse_args(argv)
     # one card: the device count printed at the end is the one used
     os.environ["CUDA_VISIBLE_DEVICES"] = \
@@ -1679,6 +2630,9 @@ def main(argv=None) -> int:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke_build.log"), "w") as f:
             f.write(K.library_path().with_suffix(".log").read_text())
+    if args.queries_only:
+        print(json.dumps({"queries_warm_ms": query_times(dev)}), flush=True)
+        return 0
     Card.read()
     log(f"card: {Card.sms} SMs, max SM clock {Card.sm_hz / 1e6:.0f} MHz")
 
@@ -1709,7 +2663,7 @@ def main(argv=None) -> int:
     del calls
 
     t0 = time.perf_counter()
-    hashed, calls = run_hashing(dev, gen, rels, log, args.profile)
+    hashed, calls, text = run_hashing(dev, gen, rels, log, args.profile)
     log("hashing kernel calls, each equal to its plain version:")
     totals["hashing"] = path_kernels(calls, hashed["launches"], HASH_NAMES,
                                      log)
@@ -1718,15 +2672,28 @@ def main(argv=None) -> int:
     log(f"hashing step: {hashed['step_s']:.3f} s")
 
     t0 = time.perf_counter()
-    roster, calls = run_roster(dev, gen, rels, log, args.profile)
-    del rels
+    roster, calls, stamps = run_roster(dev, gen, rels, log, args.profile)
     log("roster kernel calls, each equal to its plain version:")
     totals["roster"] = path_kernels(calls, roster["launches"], ROSTER_NAMES,
                                     log)
     del calls
-    k3_beside_wall(roster["phases"], totals["roster"], card, log)
+    k3_beside_wall("roster", roster["phases"], totals["roster"],
+                   ROSTER_NAMES, card, log)
     roster["step_s"] = time.perf_counter() - t0
     log(f"roster step: {roster['step_s']:.3f} s")
+
+    t0 = time.perf_counter()
+    strings, calls = run_strings(dev, gen, rels["store_sales"], stamps, text,
+                                 log, args.profile)
+    del rels, stamps, text
+    log("strings kernel calls, each equal to its plain version:")
+    totals["strings"] = path_kernels(calls, strings["launches"],
+                                     STRING_NAMES, log)
+    del calls
+    k3_beside_wall("strings", strings["phases"], totals["strings"],
+                   STRING_NAMES, card, log)
+    strings["step_s"] = time.perf_counter() - t0
+    log(f"strings step: {strings['step_s']:.3f} s")
 
     t0 = time.perf_counter()
     rows, calls = run_row_conversion(dev, gen, log, args.profile)
@@ -1743,6 +2710,7 @@ def main(argv=None) -> int:
                  "q11-q20": oplib["launches"],
                  "hashing": hashed["launches"],
                  "roster": roster["launches"],
+                 "strings": strings["launches"],
                  "row conversion": rows["launches"]}, card, stress, log)
     if args.out:
         with open(os.path.join(args.out, "chip_smoke_report.json"),
@@ -1752,7 +2720,7 @@ def main(argv=None) -> int:
                        "path_kernels": totals, "main_path": main_path,
                        "q11_q20": oplib,
                        "hashing": hashed, "roster": roster,
-                       "row_conversion": rows,
+                       "strings": strings, "row_conversion": rows,
                        "sf": SF, "seed": SEED}, f, indent=1, sort_keys=True,
                       default=str)
     print(json.dumps({"kernels": kernels}), flush=True)

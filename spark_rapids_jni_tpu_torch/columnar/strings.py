@@ -22,8 +22,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..types import TypeId
+from ..types import INT32, SIZE_TYPE_MAX, STRING, UINT8, TypeId
 from ..utils.errors import expects
+from . import bitmask
 from .column import Column
 
 
@@ -81,3 +82,30 @@ def from_byte_matrix(mat: np.ndarray, lens: np.ndarray,
     # row-major boolean selection lands row i's bytes at offsets[i]
     chars = mat[np.arange(mat.shape[1])[None, :] < lens[:, None]]
     return Column.strings_from_arrays(offsets, chars, valid, device=device)
+
+
+def strings_from_matrix(mat: torch.Tensor, lens: torch.Tensor,
+                        valid: Optional[torch.Tensor] = None) -> Column:
+    """A STRING column assembled on ``mat``'s device from a uint8 byte
+    matrix and per-row lengths: the offsets are the lengths' running
+    sum and the chars each row's first ``lens`` bytes in row-major
+    order (host syncs: the widest row, the byte count and whether any
+    row is null). A validity with nulls is packed by K3
+    (``bitmask.pack``); with none the column has no mask, as
+    :func:`from_byte_matrix` gives it."""
+    n, width = mat.shape
+    lens = lens.to(torch.int64)
+    offsets = torch.zeros(n + 1, dtype=torch.int64, device=mat.device)
+    torch.cumsum(lens, 0, out=offsets[1:])
+    expects(n == 0 or int(lens.max()) <= width,
+            "row length exceeds byte-matrix width")
+    expects(int(offsets[-1]) <= SIZE_TYPE_MAX,
+            "chars buffer must stay below 2GB")
+    pos = torch.arange(width, device=mat.device)
+    chars = mat.to(torch.uint8)[pos < lens[:, None]]
+    words = None
+    if valid is not None and not bool(valid.all()):
+        words = bitmask.pack(valid)
+    return Column(STRING, n, None, words, children=(
+        Column(INT32, n + 1, offsets.to(torch.int32)),
+        Column(UINT8, int(chars.shape[0]), chars)))

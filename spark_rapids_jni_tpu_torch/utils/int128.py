@@ -16,7 +16,10 @@ lane is an int64 tensor holding the uint64 BIT PATTERN, and:
   two halves can pass 2^63 and wraps, which is its uint64 bit pattern.
 
 Everything is elementwise and branch-free; ``divmod_u64`` is a Python
-loop of 128 shift-subtract steps of tensor ops.
+loop of 128 shift-subtract steps of tensor ops. ``udiv10`` and
+``udivmod_small`` divide a uint64 by a small constant in two int64
+divisions (the logical half, then the dropped bit), and ``srl_v`` /
+``sll_v`` shift by per-lane amounts, for Ryu and the casts.
 """
 
 from __future__ import annotations
@@ -47,6 +50,44 @@ def srl(x: torch.Tensor, k: int) -> torch.Tensor:
     if k == 0:
         return x
     return (x >> k) & ((1 << (64 - k)) - 1)
+
+
+def srl_v(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Logical right shift by per-lane amounts ``0 <= k < 64``."""
+    k = k.clamp(0, 63)
+    return (x >> k) & ~(torch.full_like(x, _SIGN) >> k << 1)
+
+
+def sll_v(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Left shift by per-lane amounts ``0 <= k <= 64``; 64 gives 0."""
+    return torch.where(k >= 64, 0, x << k.clamp(0, 63))
+
+
+def udiv10(x: torch.Tensor) -> torch.Tensor:
+    """Unsigned floor(x / 10) of uint64 bit patterns: halve logically,
+    then the half (below 2^63) divides by 5 as int64."""
+    return srl(x, 1) // 5
+
+
+def udivmod_small(x: torch.Tensor, d: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Unsigned (x // d, x % d) of uint64 bit patterns by ``1 <= d < 2^62``:
+    divide the logical half, then the dropped bit and twice the remainder
+    give at most one more unit of the quotient."""
+    h = srl(x, 1)
+    q, r = h // d, h % d
+    r2 = 2 * r + (x & 1)
+    up = r2 >= d
+    return 2 * q + up.to(torch.int64), torch.where(up, r2 - d, r2)
+
+
+def mul_add_u64(a: IntLike, b: IntLike, c: IntLike
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Unsigned a * b + c over uint64 bit patterns: (the low 64 bits,
+    True where the exact result passes 2^64 - 1)."""
+    p = mul_u64(a, b)
+    lo = p.lo + c
+    return lo, (p.hi != 0) | ult(lo, p.lo)
 
 
 def ult(a: IntLike, b: IntLike) -> torch.Tensor:

@@ -747,3 +747,87 @@ def test_cuda_dates_and_timezones_equal_cpu(cuda_device):
                 reb.rebase_gregorian_to_julian,
                 reb.rebase_julian_to_gregorian]:
             assert torch.equal(fn(on_card).data.cpu(), fn(on_cpu).data)
+
+
+def _cast_inputs():
+    """Seeded strings for every cast (digits, signs, fractions,
+    exponents, literals, dates, zones and garbage) and the numbers the
+    to-string casts take, 10% nulls."""
+    import numpy as np
+    r = np.random.default_rng(12)
+    n = 200_003
+    pieces = ["12", "-7", "+3", " 9 ", "1.5", "e3", "E-2", "inf", "NaN",
+              "2015-03-18", " 12:03:17", ".123456", "Z", "+05:30", " UTC",
+              "x", "", "9223372036854775808", "-0", "ff", "0.0001"]
+    pick = r.integers(0, len(pieces), (n, 3))
+    strs = ["".join(pieces[i] for i in row) for row in pick]
+    valid = r.random(n) > 0.1
+    strs = [s if v else None for s, v in zip(strs, valid)]
+    ints = r.integers(-2**63, 2**63 - 1, n, dtype=np.int64)
+    bits = r.integers(0, 1 << 64, n, dtype=np.uint64)
+    return strs, ints, bits.view(np.float64), \
+        bits.astype(np.uint32).view(np.float32), valid
+
+
+@pytest.mark.cuda
+def test_cuda_casts_equal_cpu_and_launch_k3(cuda_device):
+    import numpy as np
+    from spark_rapids_jni_tpu_torch import types as T
+    from spark_rapids_jni_tpu_torch.columnar import Column
+    from spark_rapids_jni_tpu_torch.ops import cast_strings as cs
+    from spark_rapids_jni_tpu_torch.ops import regexp as rx
+    strs, *_ = _cast_inputs()
+    calls = {
+        "int64": lambda c: cs.cast_to_integer(c),
+        "int8": lambda c: cs.cast_to_integer(c, T.INT8),
+        "float64": lambda c: cs.cast_to_float(c),
+        "float32": lambda c: cs.cast_to_float(c, T.FLOAT32),
+        "decimal64": lambda c: cs.cast_to_decimal(c, T.decimal64(-2)),
+        "decimal32": lambda c: cs.cast_to_decimal(c, T.decimal32(0)),
+        "date": cs.cast_to_date,
+        "timestamp": cs.cast_to_timestamp,
+        "contains": lambda c: rx.regexp_contains(c, r"[0-9]+\.[0-9]"),
+        "full_match": lambda c: rx.regexp_full_match(c, r"-?\d+(\.\d*)?"),
+    }
+    on_card = Column.strings_from_list(strs, device=cuda_device)
+    on_cpu = Column.strings_from_list(strs, device="cpu")
+    for name, fn in calls.items():
+        before = K.LAUNCHES["bitmask_pack"]
+        got = fn(on_card)
+        assert K.LAUNCHES["bitmask_pack"] == before + 1, name
+        want = fn(on_cpu)
+        ok = want.valid_bool()
+        assert torch.equal(got.valid_bool().cpu(), ok), name
+        assert torch.equal(K.as_bytes(got.data.cpu())[ok],
+                           K.as_bytes(want.data)[ok]), name
+
+
+@pytest.mark.cuda
+def test_cuda_string_outputs_equal_cpu(cuda_device):
+    from spark_rapids_jni_tpu_torch import types as T
+    from spark_rapids_jni_tpu_torch.columnar import Column
+    from spark_rapids_jni_tpu_torch.ops import cast_strings as cs
+    from spark_rapids_jni_tpu_torch.ops import float_to_string as fts
+    from spark_rapids_jni_tpu_torch.ops import parse_uri
+    strs, ints, f64, f32, valid = _cast_inputs()
+    urls = [None if s is None else f"http://u@h{s[:4]}:80/p?k={s}#r"
+            for s in strs]
+    for dev_col, fn in (
+            (lambda d: Column.from_numpy(ints, valid, device=d),
+             cs.cast_integer_to_string),
+            (lambda d: Column.from_numpy(ints, valid, T.decimal64(-4),
+                                         device=d),
+             cs.cast_decimal_to_string),
+            (lambda d: Column.from_numpy(f64, valid, device=d),
+             fts.cast_float_to_string),
+            (lambda d: Column.from_numpy(f32, valid, device=d),
+             fts.cast_float_to_string),
+            (lambda d: Column.strings_from_list(strs, device=d),
+             lambda c: cs.conv(c, 16, -10)),
+            (lambda d: Column.strings_from_list(urls, device=d),
+             lambda c: parse_uri.parse_url(c, "QUERY", "k")),
+            (lambda d: Column.strings_from_list(urls, device=d),
+             lambda c: parse_uri.parse_url(c, "HOST"))):
+        got = fn(dev_col(cuda_device))
+        assert got.device.type == cuda_device.type
+        assert got.to_pylist() == fn(dev_col("cpu")).to_pylist()
