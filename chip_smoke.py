@@ -121,7 +121,35 @@ In order, it:
    on a 100,000-row head, a backreference through the host route,
    ``regexp_extract`` and ``format_number`` of float64, INT64 and
    DECIMAL64 at d = 0, 2 and 5;
-9. row conversion (BASELINE config 2, the 32-column ``TestTables.java``
+9. roster II, five phases run as the strings step's are (launch counts
+   set to 0 just before each and read just after, every K3 call recorded
+   and held against its plain version, warm wall time, rows/s and peak
+   memory allocated beside K3's device time, the synchronising CUDA
+   calls of a run and the host-route counters printed), each call's
+   first 1,000,000 rows (an aggregation: the call on the first 1,000,000
+   input rows) equal to the same call on the CPU: (a) over store_sales
+   with the hashing step's STRING column and a STRUCT (ss_store_sk,
+   ss_promo_sk), 10% NULL quantities and profits: ``apply_boolean_mask``
+   by ss_quantity > 10, ``slice_rows``, ``concatenate`` of two halves
+   (equal to the table), ``if_else``, a four-branch ``case_when`` and
+   ``coalesce``, equal to numpy on every row; (b) ``interleave_bits`` of
+   four 10M-row INT32 columns with 10% nulls and ``hilbert_index`` at
+   k = 3 x 21 and k = 2 x 31 bits, equal to bit-by-bit oracles on 10,000
+   sampled rows; (c) by ss_item_sk: ``group_percentile`` of
+   ss_net_profit at p = 0, 0.25, 0.5, 0.99, 1 equal to pandas' linear
+   quantile (rtol 1e-12), ``group_histogram`` of ss_quantity equal to
+   pandas' counts, ``merge_histograms`` of the halves equal to the whole,
+   ``percentile_from_histogram`` equal to ``group_percentile``, and
+   ``percentile_approx`` of a t-digest (delta = 100) merged from halves
+   within the k1 rank bound of each group's exact rank; (d)
+   ``get_json_object`` with nine paths over 10,000,000 seeded documents
+   of 16-128 bytes built on the card (nested objects and arrays, four
+   whitespace styles, 1% escapes, 1% malformed, 10% NULL), equal to the
+   port's Python walker on 10,000 sampled rows, the escape rows on the
+   host unescape route and none on the Python walker; (e)
+   ``from_json_to_map`` and ``get_map_value`` on a 100,000-row head of
+   those documents, equal to Python's ``json`` on every row;
+10. row conversion (BASELINE config 2, the 32-column ``TestTables.java``
    schema, 200-byte rows): 1,000,000 rows all valid; 1,000,000 rows with
    1% nulls per column; 12,000,000 rows with nulls (two batches below
    2 GB: 10,737,408 and 1,262,592 rows); 1,000,000 rows plus two
@@ -137,10 +165,10 @@ In order, it:
    of row bytes both ways, and each conversion's wall time beside the
    device time of its K6 (to rows) or K3 (from rows) calls (the rest is
    host work, other kernels and idle card);
-10. prints the ``kernels`` JSON line (K1-K6, each with its launches on
+11. prints the ``kernels`` JSON line (K1-K6, each with its launches on
     its paths: K1-K3 on q1-q10 and q11-q20, K3 also on the roster, the
-    strings step and, in its table form, on the row conversions and
-    nested rows), the card again, and as the last line
+    strings step, roster II and, in its table form, on the row
+    conversions and nested rows), the card again, and as the last line
     ``{"ok": true, "device": {...}}``.
 
 Every kernel time is device time from CUDA events, the median of 10 runs
@@ -152,13 +180,13 @@ over the card's 3.35 TB/s and its operations over 67 T/s, or, for K2,
 the updates of its busiest slot at one shared-memory atomic per SM
 clock. The ``kernels`` line sums each kernel over its calls on its
 paths: K1-K3 over q1-q10 and q11-q20, K4 and K5 over the hashing step,
-K3 over the roster and the strings step, K6 and K3's table form over the
-row-conversion step.
+K3 over the roster, the strings step and roster II, K6 and K3's table
+form over the row-conversion step.
 
-``--profile`` adds one warm run of each query, table hash, roster and
-strings phase and row conversion under ``torch.profiler``: the device time of its
-kernels, the device's idle share of the warm wall time, and the kernels
-that took most of it. Busy time and idle share read "not measured" when the
+``--profile`` adds one warm run of each query, table hash, roster,
+strings and roster II phase and row conversion under ``torch.profiler``:
+the device time of its kernels, the device's idle share of the warm wall
+time, and the kernels that took most of it. Busy time and idle share read "not measured" when the
 profiler saw fewer launches of K1-K6 than the wrappers counted.
 
 It uses the first visible card only. It imports nothing of JAX nor of
@@ -208,6 +236,12 @@ from spark_rapids_jni_tpu_torch.ops import datetime as dto
 from spark_rapids_jni_tpu_torch.ops import datetime_rebase as reb
 from spark_rapids_jni_tpu_torch.ops import row_conversion as rc
 from spark_rapids_jni_tpu_torch.ops import timezone as tz
+from spark_rapids_jni_tpu_torch.ops import (
+    apply_boolean_mask, case_when, coalesce, concatenate, get_json_object,
+    histogram as hg, if_else, map_utils as mu, slice_rows, tdigest as td,
+    zorder)
+from spark_rapids_jni_tpu_torch.ops.get_json_object import (_eval_py,
+                                                             _parse_path)
 from spark_rapids_jni_tpu_torch.ops.sort import gather_column
 from spark_rapids_jni_tpu_torch.tpcds import PLANS, QUERIES, generate
 from spark_rapids_jni_tpu_torch.tpcds.rel import rel_from_df, run_fused
@@ -235,7 +269,8 @@ KERNELS = (("hash_join_probe", (("q1-q10", "hash_join_probe"),
                              ("row conversion", "bitmask_pack_fields"),
                              ("roster", "bitmask_pack"),
                              ("roster", "bitmask_pack_fields"),
-                             ("strings", "bitmask_pack"))),
+                             ("strings", "bitmask_pack"),
+                             ("roster II", "bitmask_pack"))),
            ("murmur3_int32", (("hashing", "murmur3_int32"),)),
            ("murmur3_int64", (("hashing", "murmur3_int64"),)),
            ("pack_rows", (("row conversion", "pack_rows"),)))
@@ -2530,6 +2565,576 @@ def run_strings(dev, gen, ss, ts: Column, text: Column, log,
     return {"phases": phases, "launches": launches}, calls
 
 
+# --------------------------------------------------------------------------
+# Roster II: copying, conditionals, z-order, percentiles, JSON and maps
+# --------------------------------------------------------------------------
+
+ROSTER2_NAMES = ("bitmask_pack",)
+R2_CPU_ROWS, MAP_ROWS = 1_000_000, 100_000
+ZORDER_ROWS, JSON_ROWS = 10_000_000, 10_000_000
+R2_PCTS = (0.0, 0.25, 0.5, 0.99, 1.0)
+TDIGEST_DELTA = 100
+QTY_CUT = 10  # ss_quantity is 1-20: the filter keeps about half the rows
+# the documents: pieces picked a row (weights beside), 16-128 bytes
+JSON_OPEN = ('{"a":', '{ "a" : ', '{\n  "a": ', '{"a" :')
+JSON_PAD = tuple(" " * i for i in range(2, 30, 3))
+JSON_A = ('{"b":1,"c":"x"}', '{"b": [10, 20], "c": null}',
+          '[1,{"c":"deep"},true]', '[ {"c": 2} , {"c": "y"} ]', '"str"',
+          '-12.5e3', 'null', '{"b":{"c":[7,8]}}', '{ "b" : "spaced" }',
+          '[]', '{}', '[0,{"c":{"d":1}}]')
+JSON_MID = (',"k":', ', "k" : ', ',\n  "k": ', ',"b":[1,2],"k":')
+JSON_K = ('"v"', '42', '"a long value, with commas, and spaces"', 'true',
+          '[1, 2, 3]', '{"z": "w"}', '""', '"q\\"t"', '"e\\n\\u00e9"',
+          '"\\ud83d\\ude00 x"')
+JSON_K_WEIGHTS = (30, 20, 15, 10, 10, 8, 7, 1 / 3, 1 / 3, 1 / 3)  # 1% escapes
+JSON_TAIL = ('}', ' }', '\n}', ',"n":null}')
+JSON_PATHS = ("$.a", "$.a.b", "$.a[1].c", "$['k']", "$.a.c", "$.a[0]",
+              "$.b", "$", "$.a.b.c[0]")
+
+
+def roster2_phase(name, fn, rows, calls, launches, log, profile):
+    """One roster II phase (``run_phase``), then the synchronising CUDA
+    calls of one more run (``torch.cuda.set_sync_debug_mode``)."""
+    out, r = run_phase("roster II", name, fn, rows, calls, launches,
+                       ROSTER2_NAMES, log, profile)
+    _, r["syncs"] = _count_syncs(fn)
+    host = {k: v for k, v in r["counters"].items()
+            if k.startswith(("get_json_object.", "map_utils."))}
+    log(f"roster II {name}: {r['syncs']} synchronising calls a run; "
+        f"host routes {json.dumps(host)}")
+    return out, r
+
+
+def _to_cpu(col: Column) -> Column:
+    return Column(col.dtype, col.size,
+                  None if col.data is None else col.data.cpu(),
+                  None if col.validity is None else col.validity.cpu(),
+                  children=tuple(_to_cpu(c) for c in col.children),
+                  field_names=col.field_names)
+
+
+def _rows(col: Column, start: int, end: int) -> Column:
+    """Rows [start, end) of a column of any type, on its device."""
+    return gather_column(col, torch.arange(start, min(end, col.size),
+                                           device=col.device))
+
+
+def _rows_cpu(col: Column, start: int, end: int) -> Column:
+    """Rows [start, end) of a column of any type, on the CPU."""
+    return _to_cpu(_rows(col, start, end))
+
+
+def _same_column(got: Column, want: Column) -> bool:
+    """Every validity bit, every valid value's bytes, and a STRING's,
+    LIST's or STRUCT's offsets and children, of two CPU columns."""
+    if got.size != want.size or got.dtype.id != want.dtype.id or \
+            not torch.equal(got.valid_bool(), want.valid_bool()):
+        return False
+    if want.dtype.id == T.TypeId.STRING:
+        return _same_result(got, want)
+    if want.data is not None:
+        ok = want.valid_bool()
+        return torch.equal(K.as_bytes(got.data)[ok],
+                           K.as_bytes(want.data)[ok])
+    if want.dtype.id == T.TypeId.LIST:
+        return torch.equal(got.offsets.data, want.offsets.data) and \
+            _same_column(got.child, want.child)
+    return all(_same_column(g, w) for g, w in zip(got.children,
+                                                  want.children))
+
+
+def _same_outputs(out: dict, want: dict) -> list:
+    """The names of the results (Columns or Tables) whose first rows on
+    the card differ from ``want``'s on the CPU."""
+    bad = []
+    for name, w in want.items():
+        g = out[name]
+        gc = g.columns if isinstance(g, Table) else [g]
+        wc = w.columns if isinstance(w, Table) else [w]
+        if not all(_same_column(_rows_cpu(a, 0, b.size), b)
+                   for a, b in zip(gc, wc)):
+            bad.append(name)
+    return bad
+
+
+def _nullable(col: Column, dev, gen, share: float) -> Column:
+    return Column(col.dtype, col.size, col.data,
+                  _valid_words(dev, gen, col.size, share))
+
+
+def _host_pair(col: Column):
+    return col.data.cpu().numpy(), col.valid_bool().cpu().numpy()
+
+
+def roster2_copying(dev, gen, ss, text: Column, calls, launches, log,
+                    profile):
+    """Phase (a): apply_boolean_mask by ss_quantity > 10 (10% NULL
+    quantities drop), slice_rows, concatenate of two halves, if_else, a
+    four-branch case_when and coalesce over store_sales, with the
+    hashing step's STRING column and a STRUCT beside; against numpy."""
+    c = {k: ss.col(f"ss_{k}") for k in ("item_sk", "net_profit",
+                                        "quantity", "store_sk", "promo_sk",
+                                        "sales_price")}
+    n = c["item_sk"].size
+    _require(text.size >= n, "the STRING column is shorter than store_sales")
+    strs = text if text.size == n else rc.slice_rows(text, 0, n)
+    qty = _nullable(c["quantity"], dev, gen, 0.1)
+    keep = Column(T.BOOL8, n, (qty.data > QTY_CUT).to(torch.int8),
+                  qty.validity)
+    profit = _nullable(c["net_profit"], dev, gen, 0.1)
+    price = _nullable(c["sales_price"], dev, gen, 0.3)
+    neg = Column(T.FLOAT64, n, -c["net_profit"].data,
+                 _valid_words(dev, gen, n, 0.05))
+    pair = Column.struct_from_children(
+        [c["store_sk"], _nullable(c["promo_sk"], dev, gen, 0.05)],
+        field_names=("store", "promo"))
+    table = Table([c["item_sk"], profit, strs, pair])
+    conds = [Column(T.BOOL8, n, (qty.data > 15).to(torch.int8),
+                    qty.validity),
+             keep,
+             Column(T.BOOL8, n, (profit.data < 0).to(torch.int8),
+                    profit.validity),
+             Column(T.BOOL8, n, (c["item_sk"].data % 2 == 0).to(torch.int8))]
+    values = [profit, neg, price, Column(T.FLOAT64, n, c["sales_price"].data
+                                         * 2)]
+    cut = (n // 7, n - n // 5)
+
+    def fn():
+        return {"mask": apply_boolean_mask(table, keep),
+                "slice": slice_rows(table, *cut),
+                "concat": concatenate([slice_rows(table, 0, n // 2),
+                                       slice_rows(table, n // 2, n)]),
+                "if_else": if_else(keep, profit, neg),
+                "case_when": case_when(list(zip(conds, values))),
+                "coalesce": coalesce([price, profit, neg])}
+    out, r = roster2_phase("copying", fn, n, calls, launches, log, profile)
+    _require(r["launches"]["bitmask_pack"] > 0,
+             "K3 packed no copied or conditional validity")
+
+    # numpy: every row of the fixed-width results, STRING lengths
+    t0 = time.perf_counter()
+    h = {k: _host_pair(v) for k, v in (("item", c["item_sk"]),
+                                       ("profit", profit), ("neg", neg),
+                                       ("price", price), ("qty", qty),
+                                       ("promo", pair.children[1]))}
+    h["store"] = _host_pair(c["store_sk"])
+    h["v3"] = (_host(values[3]), np.ones(n, bool))
+    lens = str_lengths(strs).cpu().numpy()
+    svalid = strs.valid_bool().cpu().numpy()
+    q, qv = h["qty"]
+    sel = {"mask": np.flatnonzero((q > QTY_CUT) & qv),
+           "slice": np.arange(*cut), "concat": np.arange(n)}
+    for name, rows in sel.items():
+        t = out[name]
+        _require(t.num_rows == rows.size, f"{name}: {t.num_rows} rows, "
+                 f"numpy {rows.size}")
+        for col, key in ((t.columns[0], "item"), (t.columns[1], "profit"),
+                         (t.columns[3].children[0], "store"),
+                         (t.columns[3].children[1], "promo")):
+            got, ok = _host_pair(col)
+            vals, valid = h[key]
+            _require(np.array_equal(ok, valid[rows]) and np.array_equal(
+                got[ok], vals[rows][ok]), f"{name} {key} differs from numpy")
+        _require(np.array_equal(str_lengths(t.columns[2]).cpu().numpy(),
+                                lens[rows]) and np.array_equal(
+            t.columns[2].valid_bool().cpu().numpy(), svalid[rows]),
+            f"{name}: STRING lengths or validity differ from numpy")
+    whole = out["concat"]
+    _require(torch.equal(whole.columns[2].child.data, strs.child.data[
+        int(strs.offsets.data[0]):int(strs.offsets.data[-1])]),
+        "the halves' STRING bytes differ from the column's")
+    cv = [(conds[i].data.cpu().numpy() != 0)
+          & conds[i].valid_bool().cpu().numpy() for i in range(4)]
+    (p, pv), (m_, mv), (s, sv) = h["profit"], h["neg"], h["price"]
+    want = {"if_else": (np.where(cv[1], p, m_), np.where(cv[1], pv, mv)),
+            "coalesce": (np.where(sv, s, np.where(pv, p, m_)), sv | pv | mv)}
+    data, valid = np.zeros(n), np.zeros(n, bool)
+    for i in reversed(range(4)):
+        v, ok = (h["profit"], h["neg"], h["price"], h["v3"])[i]
+        data, valid = np.where(cv[i], v, data), np.where(cv[i], ok, valid)
+    want["case_when"] = (data, valid)
+    for name, (vals, valid) in want.items():
+        got, ok = _host_pair(out[name])
+        _require(np.array_equal(ok, valid) and np.array_equal(
+            got[ok], vals[ok]), f"{name} differs from numpy")
+    oracle_s = time.perf_counter() - t0
+
+    # the card's first rows against the same calls on the CPU
+    m = min(R2_CPU_ROWS, n // 2)
+
+    def rows(t, a, b):
+        return Table([_rows_cpu(x, a, b) for x in t.columns])
+    hc = [_rows_cpu(x, 0, m) for x in conds]
+    hv = [_rows_cpu(x, 0, m) for x in values]
+    cpu_out = {"mask": apply_boolean_mask(rows(table, 0, m), hc[1]),
+               "slice": slice_rows(rows(table, cut[0], cut[0] + m), 0, m),
+               "concat": concatenate([rows(table, 0, m // 2),
+                                      rows(table, m // 2, m)]),
+               "if_else": if_else(hc[1], hv[0], hv[1]),
+               "case_when": case_when(list(zip(hc, hv))),
+               "coalesce": coalesce([hv[2], hv[0], hv[1]])}
+    bad = _same_outputs(out, cpu_out)
+    _require(not bad, f"copying {bad}: the card's first rows differ from "
+             "the same calls on the CPU")
+    log(f"roster II copying: mask kept {out['mask'].num_rows} of {n} rows, "
+        f"slice {cut}, the halves equal the table; if_else, case_when "
+        f"and coalesce equal numpy on every row (oracle_s={oracle_s:.3f}) "
+        f"and the CPU on the first {m}")
+    return r | {"kept": out["mask"].num_rows, "oracle_s": oracle_s}
+
+
+def interleave_oracle(vals) -> bytes:
+    """Delta InterleaveBits, bit by bit: bit t of the output (MSB first)
+    is bit t // k (from the MSB) of column t % k."""
+    k = len(vals)
+    out = bytearray(4 * k)
+    for t in range(32 * k):
+        b = (vals[t % k] >> (31 - t // k)) & 1
+        out[t >> 3] |= b << (7 - (t & 7))
+    return bytes(out)
+
+
+def hilbert_oracle(coords, num_bits: int) -> int:
+    """Skilling's transpose, one coordinate at a time."""
+    x = list(coords)
+    k = len(x)
+    q = 1 << (num_bits - 1)
+    while q > 1:
+        p = q - 1
+        for i in range(k):
+            if x[i] & q:
+                x[0] ^= p
+            else:
+                t = (x[0] ^ x[i]) & p
+                x[0] ^= t
+                x[i] ^= t
+        q >>= 1
+    for i in range(1, k):
+        x[i] ^= x[i - 1]
+    t, q = 0, 1 << (num_bits - 1)
+    while q > 1:
+        if x[k - 1] & q:
+            t ^= q - 1
+        q >>= 1
+    idx = 0
+    for b in range(num_bits - 1, -1, -1):
+        for i in range(k):
+            idx = (idx << 1) | (((x[i] ^ t) >> b) & 1)
+    return idx
+
+
+def roster2_zorder(dev, gen, calls, launches, log, profile):
+    """Phase (b): interleave_bits over four 10M-row INT32 columns with 10%
+    nulls (16 bytes a row out), hilbert_index at k = 3 x 21 bits and
+    k = 2 x 31 bits; against the oracles on sampled rows."""
+    n = ZORDER_ROWS
+    cols = [Column(T.INT32, n, _randint(dev, gen, n, -2**31, 2**31,
+                                        torch.int32),
+                   _valid_words(dev, gen, n, 0.1)) for _ in range(4)]
+    shapes = (("hilbert 3 x 21", 3, 21), ("hilbert 2 x 31", 2, 31))
+
+    def calls_on(cs_):
+        out = {"interleave": zorder.interleave_bits(Table(cs_))}
+        out |= {name: zorder.hilbert_index(Table(cs_[:k]), bits)
+                for name, k, bits in shapes}
+        return out
+    out, r = roster2_phase("z-order", lambda: calls_on(cols), n, calls,
+                           launches, log, profile)
+    rows = _sample(dev, gen, n, SAMPLE_ROWS)
+    idx = torch.tensor(rows, device=dev)
+    u32 = [torch.where(c.valid_bool(), c.data.to(torch.int64) & 0xFFFFFFFF,
+                       0)[idx].tolist() for c in cols]
+    raw = out["interleave"].child.data.view(torch.uint8).reshape(n, 16)[
+        idx].cpu().numpy()
+    for j, row in enumerate(rows):
+        vals = [u[j] for u in u32]
+        _require(raw[j].tobytes() == interleave_oracle(vals),
+                 f"interleave_bits differs from the oracle at row {row}")
+        for name, k, bits in shapes:
+            got = int(out[name].data[row])
+            _require(got == hilbert_oracle([v & ((1 << bits) - 1)
+                                            for v in vals[:k]], bits),
+                     f"{name} differs from the oracle at row {row}")
+    m = R2_CPU_ROWS
+    want = calls_on([_rows_cpu(c, 0, m) for c in cols])
+    bad = _same_outputs(out, want)
+    _require(not bad, f"z-order {bad}: the card's first {m} rows differ "
+             "from the CPU's")
+    log(f"roster II z-order: {out['interleave'].child.size} interleaved "
+        f"bytes; every call equals the bit-by-bit oracles on {SAMPLE_ROWS} "
+        f"sampled rows and the CPU on the first {m}")
+    return r
+
+
+def k1_rank_bound(p: float, n: int, delta: int) -> float:
+    """Twice the widest k1 cluster near quantile ``p`` (in quantile
+    units: a cluster spans one unit of k(q) = delta / (2 pi) asin(2q - 1)
+    + delta / 4), plus a row either side: a merged digest's estimate
+    lies within it of the exact rank."""
+    def q_of(k):
+        k = min(max(k, 0.0), delta / 2)
+        return (math.sin(2 * math.pi * k / delta - math.pi / 2) + 1) / 2
+    k = delta / (2 * math.pi) * math.asin(2 * p - 1) + delta / 4
+    widest = max(q_of(j + 1) - q_of(j)
+                 for j in range(math.floor(k) - 1, math.floor(k) + 2))
+    return 2 * widest + 2 / n
+
+
+def roster2_percentiles(dev, gen, ss, calls, launches, log, profile):
+    """Phase (c): store_sales by ss_item_sk: exact percentiles of
+    ss_net_profit (10% NULL) against pandas, the histogram of ss_quantity
+    against pandas' counts, its merge from halves, percentiles off it,
+    and a t-digest merged from halves within the k1 rank bound."""
+    item = ss.col("ss_item_sk")
+    n = item.size
+    profit = _nullable(ss.col("ss_net_profit"), dev, gen, 0.1)
+    qty = ss.col("ss_quantity")
+    keys = Table([item])
+    cut = n // 2
+    parts = [(slice_rows(keys, a, b), slice_rows(Table([profit, qty]), a, b))
+             for a, b in ((0, cut), (cut, n))]
+
+    def calls_on(keys, profit, qty, parts):
+        out = {"percentile": hg.group_percentile(keys, profit, R2_PCTS),
+               "histogram": hg.group_histogram(keys, qty),
+               "merged": hg.merge_histograms([hg.group_histogram(
+                   k, v.columns[1]) for k, v in parts]),
+               "qty percentile": hg.group_percentile(keys, qty, R2_PCTS)}
+        out["from histogram"] = hg.percentile_from_histogram(
+            out["histogram"][1], R2_PCTS)
+        out["digest"] = td.merge_tdigests([td.group_tdigest(
+            k, v.columns[0], TDIGEST_DELTA) for k, v in parts],
+            TDIGEST_DELTA)
+        out["approx"] = td.percentile_approx(out["digest"][1], R2_PCTS)
+        return out
+    out, r = roster2_phase("percentiles",
+                           lambda: calls_on(keys, profit, qty, parts), n,
+                           calls, launches, log, profile)
+    _require(r["launches"]["bitmask_pack"] > 0,
+             "K3 packed no percentile validity")
+
+    t0 = time.perf_counter()
+    p, pv = _host_pair(profit)
+    df = pd.DataFrame({"item": _host(item), "profit": np.where(pv, p, np.nan),
+                       "qty": _host(qty)})
+    want = df.groupby("item", sort=True).profit.quantile(
+        list(R2_PCTS)).unstack()
+    pct = out["percentile"]
+    _require(np.array_equal(_host(pct.columns[0]), want.index.to_numpy()),
+             "percentile groups differ from pandas'")
+    for i, q in enumerate(R2_PCTS):
+        got, ok = _host_pair(pct.columns[1 + i])
+        exp = want[q].to_numpy()
+        _require(np.array_equal(ok, ~np.isnan(exp)), f"p={q}: NULL groups "
+                 "differ from pandas' all-NULL groups")
+        np.testing.assert_allclose(got[ok], exp[ok], rtol=1e-12, atol=0,
+                                   err_msg=f"group_percentile p={q}")
+    counts = df.groupby(["item", "qty"], sort=True).size()
+    hk, hist = out["histogram"]
+    _require(np.array_equal(hist.child.children[0].data.cpu().numpy(),
+                            counts.index.get_level_values(1).to_numpy())
+             and np.array_equal(hist.child.children[1].data.cpu().numpy(),
+                                counts.to_numpy()),
+             "the histogram differs from pandas' counts")
+    mk, mh = out["merged"]
+    _require(_same_column(_to_cpu(mk.columns[0]), _to_cpu(hk.columns[0]))
+             and torch.equal(mh.offsets.data, hist.offsets.data) and all(
+                 torch.equal(a.data, b.data) for a, b in
+                 zip(mh.child.children, hist.child.children)),
+             "the histogram merged from halves differs from the whole's")
+    for a, b in zip(out["from histogram"].columns,
+                    out["qty percentile"].columns[1:]):
+        _require(torch.equal(a.valid_bool(), b.valid_bool()) and torch.equal(
+            a.data[b.valid_bool()], b.data[b.valid_bool()]),
+            "percentile_from_histogram differs from group_percentile")
+    # the digest's estimates against the exact ranks of each group
+    dk = out["digest"][0]
+    gkeys = _host(dk.columns[0])
+    order = np.lexsort((np.where(pv, p, np.inf), df["item"].to_numpy()))
+    sk, sv, sok = df["item"].to_numpy()[order], p[order], pv[order]
+    bounds = np.searchsorted(sk, gkeys), np.searchsorted(sk, gkeys, "right")
+    worst = 0.0
+    for i, q in enumerate(R2_PCTS):
+        est, ok = _host_pair(out["approx"].columns[i])
+        for g in range(len(gkeys)):
+            vals = sv[bounds[0][g]:bounds[1][g]][sok[bounds[0][g]:
+                                                      bounds[1][g]]]
+            _require(ok[g] == (vals.size > 0), "a digest's NULL differs "
+                     "from its group's values")
+            if not vals.size:
+                continue
+            lo = np.searchsorted(vals, est[g], "left") / vals.size
+            hi = np.searchsorted(vals, est[g], "right") / vals.size
+            err = max(lo - q, q - hi, 0.0)
+            worst = max(worst, err / k1_rank_bound(q, vals.size,
+                                                   TDIGEST_DELTA))
+    _require(worst <= 1.0, f"percentile_approx misses the k1 rank bound "
+             f"(worst {worst:.3f} of it)")
+    oracle_s = time.perf_counter() - t0
+
+    m = R2_CPU_ROWS
+    sub = [(Table([_rows_cpu(item, a, b)]),
+            Table([_rows_cpu(profit, a, b), _rows_cpu(qty, a, b)]))
+           for a, b in ((0, m // 2), (m // 2, m))]
+    head = (Table([_rows_cpu(item, 0, m)]), _rows_cpu(profit, 0, m),
+            _rows_cpu(qty, 0, m))
+    card = calls_on(Table([_rows(item, 0, m)]), _rows(profit, 0, m),
+                    _rows(qty, 0, m),
+                    [(Table([_rows(item, a, b)]),
+                      Table([_rows(profit, a, b), _rows(qty, a, b)]))
+                     for a, b in ((0, m // 2), (m // 2, m))])
+    cpu = calls_on(*head, sub)
+    for name in ("percentile", "qty percentile", "from histogram"):
+        for a, b in zip(card[name].columns, cpu[name].columns):
+            _require(_same_column(_to_cpu(a), b), f"{name}: the card's "
+                     f"result on the first {m} rows differs from the CPU's")
+    for name in ("histogram", "merged"):
+        (ka, la), (kb, lb) = card[name], cpu[name]
+        _require(_same_column(_to_cpu(ka.columns[0]), kb.columns[0])
+                 and _same_column(_to_cpu(la), lb), f"{name}: the card's "
+                 f"result on the first {m} rows differs from the CPU's")
+    (ka, da), (kb, db) = card["digest"], cpu["digest"]
+    w = db.child.children[1].data
+    bound = 1e-9 * float(np.abs(p[:m][pv[:m]]).sum()) / w
+    _require(_same_column(_to_cpu(ka.columns[0]), kb.columns[0])
+             and torch.equal(da.offsets.data.cpu(), db.offsets.data)
+             and torch.equal(da.child.children[1].data.cpu(), w)
+             and bool(((da.child.children[0].data.cpu()
+                        - db.child.children[0].data).abs() <= bound).all()),
+             f"digest: the card's on the first {m} rows differs from the "
+             "CPU's beyond its bound")
+    log(f"roster II percentiles: {pct.num_rows} groups equal pandas "
+        f"(rtol 1e-12), the histogram its counts ({hist.child.size} runs), "
+        f"the halves' merge the whole, percentiles off the histogram the "
+        f"direct ones; the merged digest's estimates within "
+        f"{worst:.3f} of the k1 rank bound (oracle_s={oracle_s:.3f}); "
+        f"the first {m} rows' calls equal the CPU's")
+    return r | {"groups": pct.num_rows, "k1_bound_share": worst,
+                "oracle_s": oracle_s}
+
+
+def json_documents(dev, gen, n: int) -> Column:
+    """``n`` seeded JSON documents of 16-128 bytes built on the card:
+    nested objects and arrays, four whitespace styles, 1% with escapes
+    (a quote, \\n and \\u00e9, a surrogate pair), 1% cut short before
+    their closing brace (malformed), 10% NULL."""
+    pieces = [table_piece(dev, JSON_OPEN, _picks(dev, gen, n, [1] * 4)),
+              table_piece(dev, JSON_PAD, _picks(dev, gen, n,
+                                                [1] * len(JSON_PAD))),
+              table_piece(dev, JSON_A, _picks(dev, gen, n,
+                                              [1] * len(JSON_A))),
+              table_piece(dev, JSON_MID, _picks(dev, gen, n, [1] * 4)),
+              table_piece(dev, JSON_K, _picks(dev, gen, n, JSON_K_WEIGHTS)),
+              table_piece(dev, JSON_TAIL, _picks(dev, gen, n, [1] * 4))]
+    whole = torch.rand(n, generator=gen, device=dev) >= 0.01
+    mat, lens = concat(pieces, [None] * 5 + [whole])
+    valid = torch.rand(n, generator=gen, device=dev) >= 0.1
+    return strings_from_matrix(mat, torch.where(valid, lens, 0), valid)
+
+
+def roster2_json(dev, gen, col: Column, calls, launches, log, profile):
+    """Phase (d): get_json_object with nine paths over the documents;
+    against the port's Python walker on sampled rows."""
+    n = col.size
+    lens = str_lengths(col)[col.valid_bool()]
+    short, long_ = int(lens.min()), int(lens.max())
+    _require(16 <= short and long_ <= 128, f"documents of {short}-{long_} "
+             "bytes, not 16-128")
+
+    def calls_on(c):
+        return {p: get_json_object(c, p) for p in JSON_PATHS}
+    out, r = roster2_phase("get_json_object", lambda: calls_on(col), n,
+                           calls, launches, log, profile)
+    _require(r["launches"]["bitmask_pack"] == len(JSON_PATHS),
+             f"K3 launched {r['launches']} times for {len(JSON_PATHS)} "
+             "nullable results")
+    host = r["counters"]
+    _require(host.get("get_json_object.host_unescape_rows", 0) > 0
+             and "get_json_object.python_walker_rows" not in host,
+             f"host routes {host}: the escape rows must take the unescape "
+             "route and no path the Python walker")
+    rows = _sample(dev, gen, n, SAMPLE_ROWS)
+    docs = _host_strings(col, rows)
+    for p, res in out.items():
+        steps = _parse_path(p)
+        want = [None if d is None else _eval_py(d, steps) for d in docs]
+        _require(_host_strings(res, rows) == want, f"{p} differs from the "
+                 "Python walker on the sampled rows")
+    m = R2_CPU_ROWS
+    bad = _same_outputs(out, calls_on(_rows_cpu(col, 0, m)))
+    _require(not bad, f"get_json_object {bad}: the card's first {m} rows "
+             "differ from the CPU's")
+    hits = {p: res.size - res.null_count() for p, res in out.items()}
+    log(f"roster II get_json_object: {n} documents of {short}-{long_} "
+        f"bytes; non-null results {json.dumps(hits)}; every path equals "
+        f"the Python walker on {SAMPLE_ROWS} sampled rows and the CPU on "
+        f"the first {m}")
+    return r | {"hits": hits}
+
+
+def _expected_map(doc):
+    """Python's json on one document -> the map row (None if it is not
+    one JSON object)."""
+    try:
+        obj = json.loads(doc)
+    except json.JSONDecodeError:
+        return None
+    return obj if isinstance(obj, dict) else None
+
+
+def roster2_maps(dev, col: Column, calls, launches, log, profile):
+    """Phase (e): from_json_to_map and get_map_value on a 100,000-row
+    head of the documents (host code, as in the reference), against
+    Python's json on every row."""
+    m = MAP_ROWS
+    head = rc.slice_rows(col, 0, m)
+
+    def fn():
+        mp = mu.from_json_to_map(head)
+        return {"map": mp, "k": mu.get_map_value(mp, "k")}
+    out, r = roster2_phase("maps", fn, m, calls, launches, log, profile)
+    _require(r["launches"]["bitmask_pack"] == 1,
+             "K3 did not pack the map's row validity")
+    _require(r["counters"].get("map_utils.host_tokenizer_rows") == m,
+             "the tokenizer did not count its rows")
+    docs = head.to_pylist()
+    rows = mu.map_to_pylist(out["map"])
+    looked = out["k"].to_pylist()
+    for i, (d, got) in enumerate(zip(docs, rows)):
+        want = None if d is None else _expected_map(d)
+        ok = (got is None) == (want is None) and (
+            want is None or (got.keys() == want.keys() and all(
+                got[k] == v if v is None or isinstance(v, str)
+                else json.loads(got[k]) == v for k, v in want.items())))
+        _require(ok, f"map row {i} differs from Python's json: {d!r}")
+        _require(looked[i] == (None if got is None else got.get("k")),
+                 f"get_map_value differs on row {i}")
+    mp = mu.from_json_to_map(_rows_cpu(head, 0, m))
+    _require(_same_outputs(out, {"map": mp, "k": mu.get_map_value(mp, "k")})
+             == [], "maps: the card's rows differ from the CPU's")
+    log(f"roster II maps: {m} rows, {out['map'].null_count()} not one JSON "
+        "object; every row equals Python's json and the CPU")
+    return r
+
+
+def run_roster2(dev, gen, ss, text: Column, log, profile: bool = False):
+    """Step 9: copying, conditionals, z-order, percentiles, JSON, maps."""
+    calls, launches, phases = [], {}, []
+    phases.append(roster2_copying(dev, gen, ss, text, calls, launches, log,
+                                  profile))
+    phases.append(roster2_zorder(dev, gen, calls, launches, log, profile))
+    phases.append(roster2_percentiles(dev, gen, ss, calls, launches, log,
+                                      profile))
+    docs = json_documents(dev, gen, JSON_ROWS)
+    phases.append(roster2_json(dev, gen, docs, calls, launches, log,
+                               profile))
+    phases.append(roster2_maps(dev, docs, calls, launches, log, profile))
+    for name in ROSTER2_NAMES:
+        _require(launches.get(name, 0) > 0,
+                 f"kernel {name} was not launched on the roster II path")
+    return {"phases": phases, "launches": launches}, calls
+
+
 def k3_beside_wall(step: str, phases: list, totals: dict, names: tuple,
                    card: str, log) -> None:
     """Each phase's warm wall time beside the device time of its K3
@@ -2601,7 +3206,8 @@ def main(argv=None) -> int:
                     help="directory for the build log and a JSON report")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one warm run of each query, table "
-                    "hash, roster and strings phase and row conversion")
+                    "hash, roster, strings and roster II phase and row "
+                    "conversion")
     ap.add_argument("--queries-only", action="store_true",
                     help="only time q1-q20 as step 3 does (a cold pass, "
                     "then each query's warm median of 3), without the "
@@ -2685,7 +3291,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     strings, calls = run_strings(dev, gen, rels["store_sales"], stamps, text,
                                  log, args.profile)
-    del rels, stamps, text
+    del stamps
     log("strings kernel calls, each equal to its plain version:")
     totals["strings"] = path_kernels(calls, strings["launches"],
                                      STRING_NAMES, log)
@@ -2694,6 +3300,19 @@ def main(argv=None) -> int:
                    STRING_NAMES, card, log)
     strings["step_s"] = time.perf_counter() - t0
     log(f"strings step: {strings['step_s']:.3f} s")
+
+    t0 = time.perf_counter()
+    roster2, calls = run_roster2(dev, gen, rels["store_sales"], text, log,
+                                 args.profile)
+    del rels, text
+    log("roster II kernel calls, each equal to its plain version:")
+    totals["roster II"] = path_kernels(calls, roster2["launches"],
+                                       ROSTER2_NAMES, log)
+    del calls
+    k3_beside_wall("roster II", roster2["phases"], totals["roster II"],
+                   ROSTER2_NAMES, card, log)
+    roster2["step_s"] = time.perf_counter() - t0
+    log(f"roster II step: {roster2['step_s']:.3f} s")
 
     t0 = time.perf_counter()
     rows, calls = run_row_conversion(dev, gen, log, args.profile)
@@ -2711,6 +3330,7 @@ def main(argv=None) -> int:
                  "hashing": hashed["launches"],
                  "roster": roster["launches"],
                  "strings": strings["launches"],
+                 "roster II": roster2["launches"],
                  "row conversion": rows["launches"]}, card, stress, log)
     if args.out:
         with open(os.path.join(args.out, "chip_smoke_report.json"),
@@ -2720,7 +3340,8 @@ def main(argv=None) -> int:
                        "path_kernels": totals, "main_path": main_path,
                        "q11_q20": oplib,
                        "hashing": hashed, "roster": roster,
-                       "strings": strings, "row_conversion": rows,
+                       "strings": strings, "roster_ii": roster2,
+                       "row_conversion": rows,
                        "sf": SF, "seed": SEED}, f, indent=1, sort_keys=True,
                       default=str)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -63,3 +63,17 @@ def _gather_ragged(col: Column, indices: torch.Tensor,
 def gather(table: Table, indices: torch.Tensor) -> Table:
     """Row gather, the ``cudf::gather`` analog."""
     return Table([gather_column(c, indices) for c in table.columns])
+
+
+@traced("sort.sort_by_key")
+def sort_by_key(values: Table, keys: Table,
+                descending: Optional[Sequence[bool]] = None,
+                nulls_first: Optional[Sequence[bool]] = None) -> Table:
+    """Reorder ``values`` by the sort order of ``keys``."""
+    return gather(values, sorted_order(keys, descending, nulls_first))
+
+
+@traced("sort.sort")
+def sort(table: Table, **kwargs) -> Table:
+    """Sort a table by all of its columns."""
+    return sort_by_key(table, table, **kwargs)

@@ -9,7 +9,8 @@ feeds both packages identical ingested state.
 ``table_from_arrays`` builds the port's ``Table`` from the host arrays a
 caller hands the reference's column constructors: values, bool validity,
 STRING offsets with chars, DECIMAL128 [lo, hi] words, LIST offsets with
-elements, and STRUCT fields, recursively.
+elements (fixed-width, or a STRUCT's fields), and STRUCT fields,
+recursively.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import torch
 
 from ..columnar import Column, Table
 from ..columnar.column import np_to_dtype, pack_validity
-from ..types import DType, TypeId
+from ..types import INT32, DType, TypeId
 from ..utils.device import resolve_device
 from ..utils.errors import expects
 from .rel import Rel
@@ -69,7 +70,8 @@ def table_from_arrays(dtypes: Sequence[Tuple[int, int]], datas: Sequence,
     a single-lane fixed-width type (timestamps and durations included),
     the (N, 2) [lo, hi] 64-bit words for DECIMAL128, (int32 offsets,
     uint8 chars) for STRING, (int32 offsets, elements, the elements'
-    (type id, scale)) for LIST, and for STRUCT the fields' (dtypes,
+    (type id, scale)) for LIST (for a LIST of STRUCT the elements are
+    the STRUCT's data as below), and for STRUCT the fields' (dtypes,
     datas, valids), the same three lists again, optionally followed by
     the field names."""
     expects(len(dtypes) == len(datas) == len(valids),
@@ -87,6 +89,18 @@ def _column_from_arrays(dtype: Tuple[int, int], data, valid,
         return Column.strings_from_arrays(offsets, chars, valid, device=dev)
     if dt.id == TypeId.LIST:
         offsets, elements, elem = data
+        if DType.from_ids(int(elem[0]), int(elem[1])).is_nested:
+            # a LIST of STRUCT (a MAP, a histogram, a digest): the
+            # elements are the STRUCT's (dtypes, datas, valids[, names])
+            offsets = np.asarray(offsets)
+            child = _column_from_arrays(elem, elements, None, dev)
+            expects(offsets.ndim == 1 and int(offsets[-1]) <= child.size,
+                    "LIST offsets run past the elements")
+            return Column(dt, int(offsets.shape[0]) - 1, None,
+                          pack_validity(valid, dev), children=(
+                              Column(INT32, int(offsets.shape[0]),
+                                     torch.from_numpy(offsets.astype(
+                                         np.int32)).to(dev)), child))
         return Column.list_from_arrays(
             offsets, elements, valid,
             DType.from_ids(int(elem[0]), int(elem[1])), device=dev)

@@ -831,3 +831,185 @@ def test_cuda_string_outputs_equal_cpu(cuda_device):
         got = fn(dev_col(cuda_device))
         assert got.device.type == cuda_device.type
         assert got.to_pylist() == fn(dev_col("cpu")).to_pylist()
+
+
+# --------------------------------------------------------------------------
+# roster II: copying, conditionals, z-order, percentiles, JSON and maps
+# --------------------------------------------------------------------------
+
+def _copy_table(dev, n, seed):
+    """INT64, FLOAT32, STRING, DECIMAL128 and STRUCT<INT32, FLOAT64>,
+    15% nulls at every node, from seeded host arrays."""
+    import numpy as np
+    from spark_rapids_jni_tpu_torch.columnar import Column, Table
+    r = np.random.default_rng(seed)
+
+    def valid():
+        return r.random(n) > 0.15
+    strs = [None if r.random() < 0.15 else "s" * int(r.integers(0, 9))
+            for _ in range(n)]
+    dec = [None if r.random() < 0.15 else int(r.integers(-2**62, 2**62))
+           * 1000 for _ in range(n)]
+    return Table([
+        Column.from_numpy(r.integers(-2**62, 2**62, n), valid(), device=dev),
+        Column.from_numpy(r.standard_normal(n).astype(np.float32), valid(),
+                          device=dev),
+        Column.strings_from_list(strs, device=dev),
+        Column.decimal128_from_ints(dec, -3, device=dev),
+        Column.struct_from_children(
+            [Column.from_numpy(r.integers(0, 9, n).astype(np.int32),
+                               valid(), device=dev),
+             Column.from_numpy(r.standard_normal(n), valid(), device=dev)],
+            valid(), ("a", "b"))])
+
+
+@pytest.mark.cuda
+def test_cuda_copying_and_conditionals_equal_cpu(cuda_device):
+    # every nullable result's validity goes through K3 on the card, and
+    # K3 equals its plain version on those bools
+    import numpy as np
+    from spark_rapids_jni_tpu_torch import types as T
+    from spark_rapids_jni_tpu_torch.columnar import Column
+    from spark_rapids_jni_tpu_torch.ops import (
+        apply_boolean_mask, case_when, coalesce, concatenate, if_else,
+        slice_rows)
+    n = 100_003
+    r = np.random.default_rng(31)
+    bits = r.integers(0, 2, (4, n)).astype(np.int8)
+    cvalid = r.random((4, n)) > 0.1
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        t = _copy_table(dev, n, 30)
+        conds = [Column.from_numpy(bits[i], cvalid[i], T.BOOL8, device=dev)
+                 for i in range(4)]
+        ints = t.columns[0]
+        K.reset_launch_counts()
+        res = {"mask": apply_boolean_mask(t, conds[0]),
+               "slice": slice_rows(t, 33, 70_001),
+               "concat": concatenate([slice_rows(t, 0, 5000),
+                                      slice_rows(t, 60_000, n)]),
+               "if_else": if_else(conds[1], ints, t.columns[0]),
+               "case_when": case_when(list(zip(conds, [ints] * 4))),
+               "coalesce": coalesce([ints, ints])}
+        if dev.type == "cuda":
+            assert K.LAUNCHES["bitmask_pack"] > 0
+            valid = res["case_when"].valid_bool()
+            assert torch.equal(K.bitmask_pack(valid),
+                               K.bitmask_pack_plain(valid))
+        out[dev.type] = {k: ([c.to_pylist() for c in v.columns]
+                             if hasattr(v, "columns") else v.to_pylist())
+                         for k, v in res.items()}
+    assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.cuda
+def test_cuda_zorder_equal_cpu(cuda_device):
+    import numpy as np
+    from spark_rapids_jni_tpu_torch.columnar import Column, Table
+    from spark_rapids_jni_tpu_torch.ops import zorder
+    r = np.random.default_rng(32)
+    n = 200_001
+    vals = [r.integers(-2**31, 2**31, n).astype(np.int32) for _ in range(4)]
+    valid = [r.random(n) > 0.1 for _ in range(4)]
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        t = Table([Column.from_numpy(v, ok, device=dev)
+                   for v, ok in zip(vals, valid)])
+        out[dev.type] = [zorder.interleave_bits(t).child.data,
+                         zorder.hilbert_index(Table(t.columns[:3]), 21).data,
+                         zorder.hilbert_index(Table(t.columns[:2]), 31).data]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_cuda_percentiles_equal_cpu(cuda_device):
+    # histograms and exact percentiles bit-equal; digests: the same
+    # centroids and weights, means within 1e-9 of the running |x| sum
+    # over the weight (the card's cumsum adds in another order)
+    import numpy as np
+    from spark_rapids_jni_tpu_torch.columnar import Column, Table
+    from spark_rapids_jni_tpu_torch.ops import histogram as h
+    from spark_rapids_jni_tpu_torch.ops import tdigest as td
+    r = np.random.default_rng(33)
+    n = 300_007
+    keys = r.integers(0, 500, n)
+    kvalid = r.random(n) > 0.02
+    vals = r.integers(-50, 50, n).astype(np.float64)
+    vals[::101] = np.nan
+    vals[::103] = -0.0
+    valid = r.random(n) > 0.1
+    cont = r.standard_normal(n) * 100
+    pcts = [0.0, 0.25, 0.5, 0.99, 1.0]
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        kt = Table([Column.from_numpy(keys, kvalid, device=dev)])
+        vc = Column.from_numpy(vals, valid, device=dev)
+        cc = Column.from_numpy(cont, valid, device=dev)
+        K.reset_launch_counts()
+        pct = h.group_percentile(kt, vc, pcts)
+        hk, hist = h.group_histogram(kt, vc)
+        merged = h.merge_histograms([h.group_histogram(
+            Table([Column.from_numpy(keys[a:b], kvalid[a:b], device=dev)]),
+            Column.from_numpy(vals[a:b], valid[a:b], device=dev))
+            for a, b in ((0, n // 2), (n // 2, n))])
+        dk, dig = td.group_tdigest(kt, cc, 100)
+        est = td.percentile_approx(dig, pcts)
+        if dev.type == "cuda":
+            assert K.LAUNCHES["bitmask_pack"] > 0
+        out[dev.type] = (pct, hist, merged, dig, est)
+    (pct, hist, merged, dig, est), (pct_c, hist_c, merged_c, dig_c,
+                                    est_c) = out["cuda"], out["cpu"]
+    def bits(x):  # a NaN's payload is the device's; -0.0 stays apart
+        return x.cpu().nan_to_num(7.0).view(torch.int64)
+    assert pct.columns[0].to_pylist() == pct_c.columns[0].to_pylist()
+    for a, b in zip(pct.columns[1:], pct_c.columns[1:]):
+        ok = b.valid_bool()
+        assert torch.equal(a.valid_bool().cpu(), ok)
+        assert torch.equal(bits(a.data)[ok], bits(b.data)[ok])
+    for x, y in ((hist, hist_c), (merged[1], merged_c[1])):
+        assert torch.equal(x.offsets.data.cpu(), y.offsets.data)
+        assert torch.equal(bits(x.child.children[0].data),
+                           bits(y.child.children[0].data))
+        assert torch.equal(x.child.children[1].data.cpu(),
+                           y.child.children[1].data)
+    assert torch.equal(merged[1].offsets.data.cpu(), hist_c.offsets.data)
+    assert torch.equal(dig.offsets.data.cpu(), dig_c.offsets.data)
+    w = dig_c.child.children[1].data
+    assert torch.equal(dig.child.children[1].data.cpu(), w)
+    bound = 1e-9 * float(np.abs(cont[valid]).sum()) / w
+    assert (dig.child.children[0].data.cpu()
+            - dig_c.child.children[0].data).abs().le(bound).all()
+    for a, b in zip(est.columns, est_c.columns):
+        assert torch.equal(a.valid_bool().cpu(), b.valid_bool())
+
+
+@pytest.mark.cuda
+def test_cuda_get_json_object_and_maps_equal_cpu(cuda_device):
+    # the output assembled on the card, its validity through K3 (one
+    # launch a result with a null row)
+    import json
+    import random
+    from spark_rapids_jni_tpu_torch.columnar import Column
+    from spark_rapids_jni_tpu_torch.ops import get_json_object, map_utils
+    rnd = random.Random(34)
+    docs = []
+    for i in range(20_000):
+        v = {"a": {"b": [rnd.randint(0, 99), {"c": "x" * (i % 7)}]},
+             "k": "e\\n" if i % 13 == 0 else "w", "n": None}
+        s = json.dumps(v, indent=None if i % 3 else 1)
+        docs.append(None if i % 10 == 0 else s[:-2] if i % 29 == 0 else s)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        col = Column.strings_from_list(docs, device=dev)
+        K.reset_launch_counts()
+        res = [get_json_object(col, p) for p in
+               ("$.a", "$.a.b", "$.a.b[1].c", "$['k']", "$.n")]
+        m = map_utils.from_json_to_map(col)
+        if dev.type == "cuda":
+            assert K.LAUNCHES["bitmask_pack"] == 6
+            assert all(r.device.type == "cuda" for r in res)
+        out[dev.type] = [r.to_pylist() for r in res] + [
+            map_utils.map_to_pylist(m),
+            map_utils.get_map_value(m, "k").to_pylist()]
+    assert out["cuda"] == out["cpu"]

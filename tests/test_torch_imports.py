@@ -47,7 +47,10 @@ def test_sources_exist():
                 "utils/int128.py", "ops/decimal_utils.py",
                 "ops/string_ops.py", "tpcds/oplib/strings.py",
                 "tpcds/oplib/decimals.py", "tpcds/oplib/windows.py",
-                "tpcds/oplib/registry.py", "tpcds/queries.py"):
+                "tpcds/oplib/registry.py", "tpcds/queries.py",
+                "ops/copying.py", "ops/conditional.py", "ops/zorder.py",
+                "ops/histogram.py", "ops/tdigest.py",
+                "ops/get_json_object.py", "ops/map_utils.py"):
         assert rel in names
     for src in ("hash_join_probe.cu", "ragged_groupby.cu",
                 "bitmask_pack.cu", "murmur3.cu", "pack_rows.cu"):
