@@ -149,7 +149,34 @@ In order, it:
    host unescape route and none on the Python walker; (e)
    ``from_json_to_map`` and ``get_map_value`` on a 100,000-row head of
    those documents, equal to Python's ``json`` on every row;
-10. row conversion (BASELINE config 2, the 32-column ``TestTables.java``
+10. the mesh: one NCCL process group of one rank (``init_method=file://``
+   under ``target/``, ``NCCL_SOCKET_IFNAME=lo`` and ``NCCL_IB_DISABLE=1``
+   unless set) and a ``part`` mesh of size 1 on the card; one NCCL rank
+   a card, so every route and every collective runs, through NCCL, at
+   world size 1. With the launch counts set to 0 just before and read
+   just after, it runs q1-q20 through ``run_fused(plan, rels,
+   mesh=mesh)`` on step 3's tables at the default threshold, then the
+   queries whose routes a knob changes again with it forced
+   (``MESH_PASSES``: ``SRT_BROADCAST_THRESHOLD=8192``, the reference
+   test's, with the auto, ``exchange`` and ``reduce_scatter`` join
+   routes, and the ``exchange`` route with q1's groupby merged whole
+   (its all_gather); ``SRT_GROUPBY_PSUM_WIDTH=1``;
+   ``SRT_SHUFFLE_SCRATCH_BYTES`` 64 MiB), then ``shuffle_table`` of the hashing step's 10M-row table
+   (the STRING column through the torch route) and of a 1M-row
+   TestTables table (K6 and K3's table form), keyed by an INT32 and an
+   INT64 column (K4 and K5). It requires every query result to equal the
+   pandas oracle and the single-device result (integers exact, floats
+   within rtol=atol=1e-9), ``rel.dist_fallbacks == 0``, at most one
+   counted host sync a query, each of the routes in ``MESH_ROUTES``
+   counted, each shuffled table equal to its input row for row with
+   overflow 0, and each of K1-K6 launched; every kernel call is recorded
+   and held against its plain version (exact). Per query it prints the
+   warm time (median of 3) beside the single-device warm time, the peak
+   memory allocated over its warm runs (resident tables included), the
+   route and ``shuffle.*`` counters and the synchronising CUDA calls
+   (under ``--profile`` also the device time of the NCCL kernels), and
+   the step's peak memory allocated;
+11. row conversion (BASELINE config 2, the 32-column ``TestTables.java``
    schema, 200-byte rows): 1,000,000 rows all valid; 1,000,000 rows with
    1% nulls per column; 12,000,000 rows with nulls (two batches below
    2 GB: 10,737,408 and 1,262,592 rows); 1,000,000 rows plus two
@@ -165,11 +192,11 @@ In order, it:
    of row bytes both ways, and each conversion's wall time beside the
    device time of its K6 (to rows) or K3 (from rows) calls (the rest is
    host work, other kernels and idle card);
-11. prints the ``kernels`` JSON line (K1-K6, each with its launches on
+12. prints the ``kernels`` JSON line (K1-K6, each with its launches on
     its paths: K1-K3 on q1-q10 and q11-q20, K3 also on the roster, the
     strings step, roster II and, in its table form, on the row
-    conversions and nested rows), the card again, and as the last line
-    ``{"ok": true, "device": {...}}``.
+    conversions and nested rows, and K1-K6 on the mesh), the card again,
+    and as the last line ``{"ok": true, "device": {...}}``.
 
 Every kernel time is device time from CUDA events, the median of 10 runs
 after two warm-ups, with the queue held by a device-side sleep so that
@@ -181,18 +208,21 @@ the updates of its busiest slot at one shared-memory atomic per SM
 clock. The ``kernels`` line sums each kernel over its calls on its
 paths: K1-K3 over q1-q10 and q11-q20, K4 and K5 over the hashing step,
 K3 over the roster, the strings step and roster II, K6 and K3's table
-form over the row-conversion step.
+form over the row-conversion step, and all of them over the mesh step
+(timed on 3 runs a call there, to keep the step short).
 
 ``--profile`` adds one warm run of each query, table hash, roster,
-strings and roster II phase and row conversion under ``torch.profiler``:
-the device time of its kernels, the device's idle share of the warm wall
-time, and the kernels that took most of it. Busy time and idle share read "not measured" when the
+strings and roster II phase, mesh query and row conversion under
+``torch.profiler``: the device time of its kernels (and of the NCCL
+kernels among them), the device's idle share of the warm wall time, and
+the kernels that took most of it. Busy time and idle share read "not measured" when the
 profiler saw fewer launches of K1-K6 than the wrappers counted.
 
 It uses the first visible card only. It imports nothing of JAX nor of
 the JAX package. Without a CUDA device, or outside a checkout of the
 repository, it exits non-zero and prints no result. ``--out DIR`` also
-writes the build log and a JSON report there. ``--queries-only`` builds
+writes the build log, this output (``chip_smoke.log``) and a JSON
+report there. ``--queries-only`` builds
 the kernels, then only times q1-q20 (``query_times``) and prints their
 warm medians as its last line: run it in two trees in turns to compare
 their query times without the rest of the smoke around them.
@@ -243,6 +273,8 @@ from spark_rapids_jni_tpu_torch.ops import (
 from spark_rapids_jni_tpu_torch.ops.get_json_object import (_eval_py,
                                                              _parse_path)
 from spark_rapids_jni_tpu_torch.ops.sort import gather_column
+from spark_rapids_jni_tpu_torch.parallel import (distributed, make_mesh,
+                                                 shuffle_table)
 from spark_rapids_jni_tpu_torch.tpcds import PLANS, QUERIES, generate
 from spark_rapids_jni_tpu_torch.tpcds.rel import rel_from_df, run_fused
 
@@ -259,10 +291,12 @@ ROW_NAMES = ("pack_rows", "bitmask_pack", "bitmask_pack_fields")
 NAMES = tuple(dict.fromkeys(Q_NAMES + HASH_NAMES + ROW_NAMES))
 # the kernels line: each kernel and the (path, wrapper) pairs it sums
 KERNELS = (("hash_join_probe", (("q1-q10", "hash_join_probe"),
-                                 ("q11-q20", "hash_join_probe"))),
+                                 ("q11-q20", "hash_join_probe"),
+                                 ("mesh", "hash_join_probe"))),
            ("ragged_groupby_sum_count",
             (("q1-q10", "ragged_groupby_sum_count"),
-             ("q11-q20", "ragged_groupby_sum_count"))),
+             ("q11-q20", "ragged_groupby_sum_count"),
+             ("mesh", "ragged_groupby_sum_count"))),
            ("bitmask_pack", (("q1-q10", "bitmask_pack"),
                              ("q11-q20", "bitmask_pack"),
                              ("row conversion", "bitmask_pack"),
@@ -270,10 +304,15 @@ KERNELS = (("hash_join_probe", (("q1-q10", "hash_join_probe"),
                              ("roster", "bitmask_pack"),
                              ("roster", "bitmask_pack_fields"),
                              ("strings", "bitmask_pack"),
-                             ("roster II", "bitmask_pack"))),
-           ("murmur3_int32", (("hashing", "murmur3_int32"),)),
-           ("murmur3_int64", (("hashing", "murmur3_int64"),)),
-           ("pack_rows", (("row conversion", "pack_rows"),)))
+                             ("roster II", "bitmask_pack"),
+                             ("mesh", "bitmask_pack"),
+                             ("mesh", "bitmask_pack_fields"))),
+           ("murmur3_int32", (("hashing", "murmur3_int32"),
+                              ("mesh", "murmur3_int32"))),
+           ("murmur3_int64", (("hashing", "murmur3_int64"),
+                              ("mesh", "murmur3_int64"))),
+           ("pack_rows", (("row conversion", "pack_rows"),
+                          ("mesh", "pack_rows"))))
 HASH_ROWS, HASH_CPU_ROWS = 10_000_000, 1_000_000
 # the wrappers as the port defines them (the recording pass swaps the
 # module's names for recorders that call these)
@@ -505,7 +544,8 @@ def measure(name: str, args: tuple, reps: int = REPS) -> dict:
     library = spec["library"] and spec["library"](*args)
     return {"shape": shape, "max_abs_err": err,
             "ms": time_ms(lambda: wrapper(*args), reps),
-            "plain_ms": time_ms(lambda: plain(*args), spec["plain_reps"]),
+            "plain_ms": time_ms(lambda: plain(*args),
+                                min(reps, spec["plain_reps"])),
             "library_ms": time_ms(library, reps) if library else None,
             "bound_ms": b_ms, "bound_by": b_by}
 
@@ -591,12 +631,14 @@ def recording(calls: list, query: list):
             setattr(K, name, WRAPPERS[name])
 
 
-def path_kernels(calls: list, launches: dict, names: tuple, log) -> dict:
+def path_kernels(calls: list, launches: dict, names: tuple, log,
+                 reps: int = REPS) -> dict:
     """Hold every recorded call of a path against its plain version; sum
-    each kernel's times and bounds over its calls."""
+    each kernel's times (medians of ``reps`` runs) and bounds over its
+    calls."""
     per_call: dict = {name: [] for name in names}
     for q, name, args in calls:
-        r = measure(name, args) | {"query": q}
+        r = measure(name, args, reps) | {"query": q}
         per_call[name].append(r)
         lib = ("" if r["library_ms"] is None
                else f" library_ms={r['library_ms']:.4f}")
@@ -698,8 +740,11 @@ def profile_run(fn, wall: float, label: str, log) -> dict:
         if measured:
             break
     busy_ms = sum(t for _, t in by_name.values()) / 1e3
+    nccl_ms = sum(t for k, (_, t) in by_name.items()
+                  if "nccl" in k.lower()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
     r = {"device_busy_ms": busy_ms if measured else None,
+         "nccl_ms": nccl_ms if measured else None,
          "profile_runs": tries,
          "device_kernels": sum(n for n, _ in by_name.values()),
          "hand_kernel_launches": launched,
@@ -709,7 +754,7 @@ def profile_run(fn, wall: float, label: str, log) -> dict:
          "device_idle_share": (max(0.0, 1.0 - busy_ms / wall) if measured
                                else None)}
     if measured:
-        shares = (f"device_busy_ms={busy_ms:.3f} "
+        shares = (f"device_busy_ms={busy_ms:.3f} nccl_ms={nccl_ms:.3f} "
                   f"idle_share={r['device_idle_share']:.3f}")
     else:
         shares = ("device_busy_ms=not measured idle_share=not measured "
@@ -827,9 +872,9 @@ def run_main_path(dev, sf: float, seed: int, log, profile: bool = False):
     log(f"data: sf={sf} seed={seed} generate_s={gen_s:.3f} "
         f"ingest_s={ingest_s:.3f} rows={json.dumps(rows)}")
     out, calls = run_queries("q1-q10", Q1_10, rels, data, dev, log, profile)
-    out.pop("oracles")
+    oracles = out.pop("oracles")
     return out | {"rows": rows, "generate_s": gen_s,
-                  "ingest_s": ingest_s}, calls, rels, data
+                  "ingest_s": ingest_s}, calls, rels, data, oracles
 
 
 def query_times(dev) -> dict:
@@ -855,10 +900,11 @@ def overflow_rows(data: dict) -> int:
 
 
 def run_oplib_path(dev, rels: dict, data: dict, log,
-                   profile: bool = False) -> "tuple[dict, list]":
+                   profile: bool = False) -> "tuple[dict, list, dict]":
     """The q11-q20 path (string, decimal and window operators) on the
     rels q1-q10 ran on; then q15's overflow count against the oracle's,
-    and q11, q12, q20 again on the ``bytes`` string route."""
+    and q11, q12, q20 again on the ``bytes`` string route. Returns the
+    path's report, its kernel calls and the oracles' frames."""
     out, calls = run_queries("q11-q20", Q11_20, rels, data, dev, log,
                              profile)
     oracles = out.pop("oracles")
@@ -886,7 +932,7 @@ def run_oplib_path(dev, rels: dict, data: dict, log,
                 f"{json.dumps(routes, sort_keys=True)}")
     finally:
         del os.environ["SRT_STRING_ROUTE"]
-    return out, calls
+    return out, calls, oracles
 
 
 # --------------------------------------------------------------------------
@@ -1067,7 +1113,7 @@ def run_hashing(dev, gen, rels: dict, log, profile: bool = False):
                      "the canonical NaN")
         log(f"hashing: {int(nan.sum())} valid NaN rows of {col.dtype!r} "
             "hash like the canonical NaN (murmur3, xxhash64, hive)")
-    return {"rates": rates, "launches": launches}, calls, table.columns[8]
+    return {"rates": rates, "launches": launches}, calls, table
 
 
 # (label, rows, null share per column, STRING columns, repeats of the
@@ -3134,6 +3180,222 @@ def run_roster2(dev, gen, ss, text: Column, log, profile: bool = False):
                  f"kernel {name} was not launched on the roster II path")
     return {"phases": phases, "launches": launches}, calls
 
+# --------------------------------------------------------------------------
+# The mesh: run_fused over a NCCL process group, and shuffle_table
+# --------------------------------------------------------------------------
+
+MESH_NAMES = NAMES  # K1-K6, K3 in both forms
+MESH_THRESHOLD = "8192"  # the reference test's: the dimensions shard too
+MESH_BUDGET = 64 << 20   # stages the 10M-row exchanges into rounds
+# (pass, env, queries): the forced passes run only the queries whose
+# routes their knob changes (at the default threshold only the fact
+# tables shard, so the sharded-build join routes need MESH_THRESHOLD)
+MESH_PASSES = (
+    ("default", {}, Q1_10 + Q11_20),
+    ("threshold", {"SRT_BROADCAST_THRESHOLD": MESH_THRESHOLD},
+     ("q1", "q2", "q3", "q8")),
+    ("exchange", {"SRT_BROADCAST_THRESHOLD": MESH_THRESHOLD,
+                  "SRT_SHUFFLE_JOIN_ROUTE": "exchange"},
+     ("q1", "q3", "q8")),
+    # q1's (customer, store) groupby merged whole: its replicated result
+    # probes the sharded customer table, which the exchange route cannot
+    # take, so customer is all_gathered
+    ("all_gather", {"SRT_BROADCAST_THRESHOLD": MESH_THRESHOLD,
+                    "SRT_SHUFFLE_JOIN_ROUTE": "exchange",
+                    "SRT_GROUPBY_PSUM_WIDTH": str(1 << 24)}, ("q1",)),
+    ("reduce_scatter", {"SRT_BROADCAST_THRESHOLD": MESH_THRESHOLD,
+                        "SRT_SHUFFLE_JOIN_ROUTE": "reduce_scatter"},
+     ("q3", "q7")),
+    ("scattered", {"SRT_GROUPBY_PSUM_WIDTH": "1"},
+     ("q1", "q5", "q16", "q19")),
+    ("staged", {"SRT_SHUFFLE_SCRATCH_BYTES": str(MESH_BUDGET)},
+     ("q18", "q19")))
+# every route of the reference's corpus, counted at least once a step
+MESH_ROUTES = ("rel.route.join.presence_psum", "rel.route.join.shuffle_hash",
+               "rel.route.join.reduce_scatter", "rel.route.dist.all_gather",
+               "rel.route.groupby.two_phase.replicated",
+               "rel.route.groupby.two_phase.scattered",
+               "rel.route.window.exchange", "rel.route.shuffle.staged")
+MESH_ROWS = 1_000_000  # the TestTables-schema table shuffle_table takes
+
+
+@contextlib.contextmanager
+def env_set(env: dict):
+    """Set ``env`` in os.environ for the block, then restore it."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def mesh_group(dev):
+    """A process group of one rank (NCCL on the card, gloo on the CPU)
+    and a 1-D ``part`` mesh over it."""
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("NCCL_IB_DISABLE", "1")
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "target", "mesh")
+    os.makedirs(root, exist_ok=True)
+    init = os.path.join(root, f"init-{os.getpid()}")
+    if os.path.exists(init):
+        os.remove(init)
+    distributed.initialize(f"file://{init}", 1, 0,
+                           backend="nccl" if dev.type == "cuda" else "gloo",
+                           timeout_s=300)
+    return make_mesh({"part": 1}, device_type=dev.type), init
+
+
+def mesh_queries(mesh, rels, query: list) -> dict:
+    """Every pass of ``MESH_PASSES`` once: {(pass, q): (frame, counters,
+    synchronising CUDA calls)}; ``query[0]`` names the running query."""
+    out = {}
+    for pname, env, queries in MESH_PASSES:
+        with env_set(env):
+            for q in queries:
+                query[0] = f"{pname} {q}"
+                before = kernel_stats()
+                res, syncs = _count_syncs(
+                    lambda q=q: run_fused(PLANS[q], rels, mesh=mesh))
+                out[(pname, q)] = (res.to_df(), stats_since(before), syncs)
+    return out
+
+
+def mesh_shuffles(mesh, tables: dict, query: list) -> dict:
+    """``shuffle_table`` of each (table, keys) once: {label: (table,
+    round-1 overflow, counters)}."""
+    out = {}
+    for label, (tab, keys) in tables.items():
+        query[0] = f"shuffle_table {label}"
+        before = kernel_stats()
+        got, over = shuffle_table(mesh, tab, keys)
+        out[label] = (got, over, stats_since(before))
+    return out
+
+
+def run_mesh(dev, gen, rels: dict, oracles: dict, hash_tab: Table, log,
+             profile: bool = False):
+    """Step 10: q1-q20 over a one-rank NCCL mesh, every route and
+    collective, and shuffle_table; the kernels launched on the way."""
+    torch.cuda.reset_peak_memory_stats()
+    mesh, init = mesh_group(dev)
+    log(f"mesh: {mesh!r} backend={distributed.process_info()['backend']}")
+    queries = Q1_10 + Q11_20
+    single, single_ms = {}, {}
+    for q in queries:  # the single-device results, outside the count
+        single[q] = run_fused(PLANS[q], rels, device=dev).to_df()
+        single_ms[q] = wall_ms(lambda q=q: run_fused(PLANS[q], rels,
+                                                     device=dev))
+    test_tables = rows_table(dev, gen, MESH_ROWS, 0.01, 0, 4)
+    # keys: an INT32 and an INT64 column of each table (K4, then K5)
+    tables = {f"hashing table ({HASH_ROWS} rows)": (hash_tab, [0, 1]),
+              f"TestTables ({MESH_ROWS} rows)": (test_tables, [2, 0])}
+    torch.cuda.synchronize()
+
+    query = [None]
+    K.reset_launch_counts()
+    runs = mesh_queries(mesh, rels, query)
+    shuffled = mesh_shuffles(mesh, tables, query)
+    torch.cuda.synchronize()
+    launches = {n: K.LAUNCHES[n] for n in MESH_NAMES}
+    log(f"mesh launches: {json.dumps(launches, sort_keys=True)}")
+
+    per_query, total = {}, {}
+    peak = torch.cuda.max_memory_allocated()
+    for (pname, q), (frame, st, syncs) in runs.items():
+        for k, v in st.items():
+            total[k] = total.get(k, 0) + v
+        counters = {k: v for k, v in st.items()
+                    if k.startswith(("rel.route.join.", "rel.route.dist.",
+                                     "rel.route.groupby.two_phase",
+                                     "rel.route.window.exchange",
+                                     "rel.route.shuffle.",
+                                     "rel.route.sort.topk", "shuffle."))}
+        r = {"pass": pname, "rows": len(frame), "counters": counters,
+             "host_syncs": st.get("rel.host_syncs", 0),
+             "dist_fallbacks": st.get("rel.dist_fallbacks", 0),
+             "cuda_sync_calls": syncs}
+        per_query[f"{pname} {q}"] = r
+        if pname == "default":
+            peak = max(peak, torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            r["warm_ms"] = wall_ms(lambda q=q: run_fused(PLANS[q], rels,
+                                                         mesh=mesh))
+            r["peak_bytes"] = torch.cuda.max_memory_allocated()
+            r["single_ms"] = single_ms[q]
+            if profile:
+                r |= profile_run(
+                    lambda q=q: run_fused(PLANS[q], rels, mesh=mesh),
+                    r["warm_ms"], f"mesh {q}", log)
+        warm = ("" if "warm_ms" not in r else
+                f"warm_ms={r['warm_ms']:.3f} single_device_ms="
+                f"{r['single_ms']:.3f} peak_gib="
+                f"{r['peak_bytes'] / 2**30:.2f} ")
+        log(f"mesh {pname} {q}: {warm}rows={r['rows']} "
+            f"host_syncs={r['host_syncs']} "
+            f"cuda_sync_calls={syncs} "
+            f"counters={json.dumps(counters, sort_keys=True)}")
+
+    shuffles = {}
+    for label, (got, over, st) in shuffled.items():
+        tab, keys = tables[label]
+        ms = wall_ms(lambda tab=tab, keys=keys: shuffle_table(mesh, tab,
+                                                              keys))
+        shuffles[label] = {"ms": ms, "rows_per_s": tab.num_rows / ms * 1e3,
+                           "overflow": over.tolist(),
+                           "counters": {k: v for k, v in st.items()
+                                        if k.startswith(("shuffle.",
+                                                         "row_conversion."))}}
+        log(f"mesh shuffle_table {label}: {tab.num_rows} rows in "
+            f"{ms:.3f} ms = {tab.num_rows / ms * 1e3:.4g} rows/s, "
+            f"overflow={over.tolist()} "
+            f"counters={json.dumps(shuffles[label]['counters'])}")
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    log(f"mesh step peak memory allocated: {peak / 2**30:.2f} GiB")
+
+    # one more pass, recording the inputs of every kernel call
+    calls = []
+    with recording(calls, query):
+        mesh_queries(mesh, rels, query)
+        mesh_shuffles(mesh, tables, query)
+    torch.cuda.synchronize()
+
+    for (pname, q), (frame, st, _) in runs.items():
+        frames_match(frame, oracles[q], f"{q} (mesh, {pname})")
+        frames_match(frame, single[q], f"{q} (mesh {pname} vs one device)")
+        _require(st.get("rel.dist_fallbacks", 0) == 0
+                 and st.get("rel.fused_fallbacks", 0) == 0,
+                 f"{q} (mesh, {pname}) fell back: {st}")
+        _require(st.get("rel.host_syncs", 0) <= 1,
+                 f"{q} (mesh, {pname}) counted "
+                 f"{st.get('rel.host_syncs', 0)} host syncs")
+    log("mesh: every pass's results equal the oracle and the one-device "
+        "run, no fallback, at most one host sync a query")
+    for route in MESH_ROUTES:
+        _require(any(k == route or k.startswith(route + ".")
+                     for k in total),
+                 f"route {route} was not taken on the mesh")
+    for label, (got, over, _) in shuffled.items():
+        _require(not bool(over.any()), f"shuffle_table {label} overflowed")
+        _require(_same_columns(got, tables[label][0]),
+                 f"shuffle_table {label} differs from its input")
+    log("mesh: both shuffled tables equal their inputs row for row, "
+        "overflow 0")
+    for name in MESH_NAMES:
+        _require(launches.get(name, 0) > 0,
+                 f"kernel {name} was not launched on the mesh path")
+    distributed.shutdown()
+    os.remove(init)
+    return {"per_query": per_query, "shuffles": shuffles,
+            "launches": launches, "peak_bytes": peak,
+            "routes": {k: v for k, v in total.items()
+                       if k.startswith(MESH_ROUTES)}}, calls
+
 
 def k3_beside_wall(step: str, phases: list, totals: dict, names: tuple,
                    card: str, log) -> None:
@@ -3226,7 +3488,16 @@ def main(argv=None) -> int:
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
-    log = lambda line: print(line, flush=True)  # noqa: E731
+    logfile = None
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+        logfile = open(os.path.join(args.out, "chip_smoke.log"), "w")
+
+    def log(line: str) -> None:
+        print(line, flush=True)
+        if logfile:
+            logfile.write(line + "\n")
+            logfile.flush()
 
     t0 = time.perf_counter()
     K.kernels()
@@ -3254,22 +3525,24 @@ def main(argv=None) -> int:
             f"kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f}{lib} "
             f"bound_ms={r['bound_ms']:.4g} ({r['bound_by']}) [{card}]")
 
-    main_path, calls, rels, data = run_main_path(dev, SF, SEED, log,
-                                                 profile=args.profile)
+    main_path, calls, rels, data, oracles = run_main_path(
+        dev, SF, SEED, log, profile=args.profile)
     log("main-path kernel calls, each equal to its plain version on the "
         "inputs q1-q10 gave it:")
     totals = {"q1-q10": path_kernels(calls, main_path["launches"], Q_NAMES,
                                      log)}
     del calls
-    oplib, calls = run_oplib_path(dev, rels, data, log, args.profile)
-    del data
+    oplib, calls, more = run_oplib_path(dev, rels, data, log, args.profile)
+    oracles |= more
+    del data, more
     log("q11-q20 kernel calls, each equal to its plain version on the "
         "inputs q11-q20 gave it:")
     totals["q11-q20"] = path_kernels(calls, oplib["launches"], Q_NAMES, log)
     del calls
 
     t0 = time.perf_counter()
-    hashed, calls, text = run_hashing(dev, gen, rels, log, args.profile)
+    hashed, calls, hash_tab = run_hashing(dev, gen, rels, log, args.profile)
+    text = hash_tab.columns[8]
     log("hashing kernel calls, each equal to its plain version:")
     totals["hashing"] = path_kernels(calls, hashed["launches"], HASH_NAMES,
                                      log)
@@ -3304,7 +3577,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     roster2, calls = run_roster2(dev, gen, rels["store_sales"], text, log,
                                  args.profile)
-    del rels, text
+    del text
     log("roster II kernel calls, each equal to its plain version:")
     totals["roster II"] = path_kernels(calls, roster2["launches"],
                                        ROSTER2_NAMES, log)
@@ -3313,6 +3586,17 @@ def main(argv=None) -> int:
                    ROSTER2_NAMES, card, log)
     roster2["step_s"] = time.perf_counter() - t0
     log(f"roster II step: {roster2['step_s']:.3f} s")
+
+    t0 = time.perf_counter()
+    mesh, calls = run_mesh(dev, gen, rels, oracles, hash_tab, log,
+                           args.profile)
+    del rels, oracles, hash_tab
+    log("mesh kernel calls, each equal to its plain version:")
+    totals["mesh"] = path_kernels(calls, mesh["launches"], MESH_NAMES, log,
+                                  reps=3)
+    del calls
+    mesh["step_s"] = time.perf_counter() - t0
+    log(f"mesh step: {mesh['step_s']:.3f} s [{card}]")
 
     t0 = time.perf_counter()
     rows, calls = run_row_conversion(dev, gen, log, args.profile)
@@ -3331,6 +3615,7 @@ def main(argv=None) -> int:
                  "roster": roster["launches"],
                  "strings": strings["launches"],
                  "roster II": roster2["launches"],
+                 "mesh": mesh["launches"],
                  "row conversion": rows["launches"]}, card, stress, log)
     if args.out:
         with open(os.path.join(args.out, "chip_smoke_report.json"),
@@ -3341,6 +3626,7 @@ def main(argv=None) -> int:
                        "q11_q20": oplib,
                        "hashing": hashed, "roster": roster,
                        "strings": strings, "roster_ii": roster2,
+                       "mesh": mesh,
                        "row_conversion": rows,
                        "sf": SF, "seed": SEED}, f, indent=1, sort_keys=True,
                       default=str)

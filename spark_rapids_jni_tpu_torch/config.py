@@ -9,6 +9,16 @@ reference's names: ``SRT_JOIN_METHOD`` (``auto``/``xla``/``cuda``) and
 ``SRT_STRING_ROUTE`` (``auto``/``dict``/``bytes``) picks the string
 operators' route. ``SRT_METRICS`` turns span recording on. ``TZDIR``
 names the TZif database the timezone operators read.
+
+The mesh knobs keep the reference's names, defaults and normalisation:
+``SRT_BROADCAST_THRESHOLD`` (bytes; tables at or below it replicate),
+``SRT_GROUPBY_PSUM_WIDTH`` (slots; wider dense groupbys merge by
+reduce-scatter), ``SRT_SHUFFLE_JOIN_ROUTE``
+(``auto``/``exchange``/``reduce_scatter``), ``SRT_SHUFFLE_SCRATCH_BYTES``
+(the per-device exchange scratch budget; unset or 0 = unlimited),
+``SRT_SHUFFLE_INTRA`` (``auto``/``flat``) and ``SRT_SHUFFLE_NEIGHBORHOOD``
+(the neighbourhood size ``g``; below 2 = the flat exchange). Every rank
+of a mesh must read the same values: they decide which collectives run.
 """
 
 from __future__ import annotations
@@ -20,6 +30,17 @@ def env_str(name: str, default: str) -> str:
     """String env knob: unset -> ``default``, otherwise the raw value."""
     v = os.environ.get(name)
     return default if v is None else v
+
+
+def env_int(name: str, default):
+    """Tolerant int env knob: unset/blank/malformed -> ``default``."""
+    v = os.environ.get(name, "").strip()
+    if not v:
+        return default
+    try:
+        return int(v)
+    except ValueError:
+        return default
 
 
 def env_bool(name: str, default: bool) -> bool:

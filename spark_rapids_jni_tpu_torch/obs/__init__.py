@@ -3,8 +3,17 @@
 The route counters (``rel.route.*``), the fallback counter
 (``rel.fused_fallbacks``) and the dispatch/host-sync budget counters
 (``rel.dispatches*``, ``rel.host_syncs*``) keep the reference's names,
-so a run of either package reads the same way. Reports, memory, SLO,
-flight-recorder and fleet layers are not ported yet.
+so a run of either package reads the same way. A partitioned run
+(``tpcds/dist.py``) adds the reference's mesh counters:
+``rel.route.dist.{shard_table,broadcast_table,all_gather}``,
+``rel.dist_fallbacks[.q]``, ``rel.route.shuffle.{single_shot,staged,
+intra,neighborhood,budget_unmet}`` and the wire accounting
+``shuffle.bytes_exchanged``, ``shuffle.bytes.<route>``,
+``shuffle.rounds[.<route>]``, ``shuffle.peak_scratch_bytes``,
+``shuffle.flat_peak_scratch_bytes``; ``shuffle_table`` counts
+``shuffle.overflow_rows``, ``shuffle.retry_rounds`` and
+``shuffle.retry_rows``. Every counter is this rank's. Reports, memory,
+SLO, flight-recorder and fleet layers are not ported yet.
 """
 
 from .metrics import (  # noqa: F401

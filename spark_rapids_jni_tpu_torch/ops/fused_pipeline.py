@@ -13,7 +13,9 @@ Port of the single-device parts of
 torch scatters raise on an out-of-range index where JAX's
 ``mode="drop"`` discards it, so every scatter here parks dead rows in a
 sentinel slot ``width`` of a ``width + 1`` buffer and slices it off.
-The mesh merges and the micro-batch routes are not ported yet.
+The two-phase merges of a partitioned run (``dense_merge_replicated``,
+``dense_merge_scattered``) take the mesh's collectives
+(``parallel/collectives.py``). The micro-batch routes are not ported yet.
 """
 
 from __future__ import annotations
@@ -186,6 +188,51 @@ def dense_groupby_extreme(group_slots: torch.Tensor, mask: torch.Tensor,
                      device=values.device)
     out.scatter_reduce_(0, slot, values, "amin" if take_min else "amax")
     return out[:width]
+
+
+# ---------------------------------------------------------------------------
+# Two-phase (partitioned) merges: the collective half of a partitioned
+# dense groupby. Phase 1 is the per-shard dense_groupby_sum_count/extreme
+# over local rows; these merge the (width,) partials across the mesh.
+# ---------------------------------------------------------------------------
+
+@traced("fused_pipeline.dense_merge_replicated")
+def dense_merge_replicated(partial: torch.Tensor, axis, op: str = "sum", *,
+                           mesh) -> torch.Tensor:
+    """Merge per-shard ``(width,)`` dense partials into the full merged
+    vector on every shard (an all-reduce: sum, min or max). Right for
+    small slot spaces: the result is replicated."""
+    from ..parallel.collectives import all_reduce
+    expects(op in ("sum", "min", "max"), f"unknown merge op {op!r}")
+    return all_reduce(partial, axis, mesh, op)
+
+
+@traced("fused_pipeline.dense_merge_scattered")
+def dense_merge_scattered(partial: torch.Tensor, axis, op: str = "sum", *,
+                          mesh) -> torch.Tensor:
+    """Merge per-shard ``(width,)`` dense partials into a slot-sharded
+    result: shard ``i`` receives the merged slots ``[i * w_local, (i + 1)
+    * w_local)``, ``w_local`` the width over the shard count rounded up.
+    Each shard ships every peer only the slice that peer owns, and no
+    shard holds the whole merged vector. Padding slots carry the merge
+    identity; callers mask them off through the merged counts."""
+    from ..parallel.collectives import (axis_size, reduce_scatter_extreme,
+                                        reduce_scatter_sum)
+    p = axis_size(mesh, axis)
+    width = int(partial.shape[0])
+    w_local = -(-width // p)
+    pad = w_local * p - width
+    if pad:
+        if op == "sum":
+            ident = 0
+        else:
+            info = torch.iinfo(partial.dtype)
+            ident = info.max if op == "min" else info.min
+        partial = torch.cat([partial, torch.full(
+            (pad,), ident, dtype=partial.dtype, device=partial.device)])
+    if op == "sum":
+        return reduce_scatter_sum(partial, axis, mesh)
+    return reduce_scatter_extreme(partial, axis, op, mesh)
 
 
 @traced("fused_pipeline.dense_groupby_table")

@@ -135,8 +135,9 @@ def as_decimal(rel, col: str, scale: int, out: Optional[str] = None):
     plain = rel._flush_sort()
     cols = [nc if n == col else plain.table.columns[i]
             for i, n in enumerate(plain.names)]
-    return _rel.Rel(Table(cols), plain.names, mask=plain.mask,
-                    dicts=plain.dicts)
+    return _rel._inherit_part(_rel.Rel(Table(cols), plain.names,
+                                       mask=plain.mask, dicts=plain.dicts),
+                              plain)
 
 
 @operator("decimal.arith", mask_class="rowwise", partition="local",
@@ -157,7 +158,7 @@ def arith(rel, op: str, a: str, b: str, out_dtype, out: str):
     if rel.mask is not None:
         nulled = nulled & rel.mask
     _rel.note_runtime_count("rel.route.decimal.overflow",
-                            nulled.sum(dtype=torch.int64))
+                            nulled.sum(dtype=torch.int64), rel=rel)
     return rel.with_column(out, res)
 
 

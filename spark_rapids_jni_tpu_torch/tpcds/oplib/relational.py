@@ -1,14 +1,20 @@
 """Relational operators: the join and groupby lowerings of the fused
 planner, on one device.
 
-Port of the single-device parts of
-``spark_rapids_jni_tpu/tpcds/oplib/relational.py``. Routes are decided on
-the host from VERIFIED ingest stats: the dense broadcast join (probed by
-the direct-address gather or by K1), presence-bitmap membership for
-semi/anti joins, and dense fixed-width groupbys (accumulated by
-``index_add_`` or by K2). When no dense route applies, a fused plan
-raises ``FusedFallback`` and the runner re-runs it on the general
-sort-merge kernels. The distributed and morsel routes are not ported.
+Port of ``spark_rapids_jni_tpu/tpcds/oplib/relational.py``. Routes are
+decided on the host from VERIFIED ingest stats: the dense broadcast join
+(probed by the direct-address gather or by K1), presence-bitmap
+membership for semi/anti joins, and dense fixed-width groupbys
+(accumulated by ``index_add_`` or by K2). When no dense route applies, a
+fused plan raises ``FusedFallback`` and the runner re-runs it on the
+general sort-merge kernels.
+
+In a partitioned run (``tpcds/dist.py``) a sharded build side takes the
+collective routes: presence-psum membership, the reduce-scatter join and
+the shuffle-hash join, else an all_gather; dense groupbys over sharded
+rows merge their per-shard partials in two phases (all-reduce or
+reduce-scatter). Every route is chosen from facts every rank shares, so
+all ranks run the same collectives. The morsel routes are not ported.
 """
 
 from __future__ import annotations
@@ -20,7 +26,8 @@ from ...obs import count, count_dispatch, count_host_sync, set_attrs
 from ...ops import gather, groupby_aggregate, inner_join
 from ...ops.fused_pipeline import (
     MAX_DENSE_WIDTH, build_dense_map, dense_groupby_extreme,
-    dense_groupby_method, dense_groupby_sum_count, dense_lookup)
+    dense_groupby_method, dense_groupby_sum_count, dense_lookup,
+    dense_merge_replicated, dense_merge_scattered)
 from ...ops.groupby import result_dtype
 from ...ops.join import (join_probe_method, left_anti_join, left_join,
                          left_semi_join)
@@ -68,11 +75,14 @@ def null_unmatched(rt: Table, matched: torch.Tensor) -> "list[Column]":
     return cols
 
 
-def presence_membership(left, right, lk: Column, rk: Column, how: str):
+def presence_membership(left, right, lk: Column, rk: Column, how: str,
+                        merge=None):
     """Semi/anti MEMBERSHIP via a dense presence bitmap over the LEFT
     key's trusted range: scatter the right keys into a (width,) vector,
-    probe the left keys. The right side may hold duplicates. Returns
-    None when inapplicable."""
+    probe the left keys. The right side may hold duplicates. ``merge``
+    combines the shards' presence vectors before the probe (the
+    presence-psum route); None keeps it shard-local. Returns None when
+    inapplicable."""
     if rk.validity is not None or rk.data is None \
             or not rk.dtype.is_integral:
         return None
@@ -94,6 +104,8 @@ def presence_membership(left, right, lk: Column, rk: Column, how: str):
     present = torch.zeros(width + 1, dtype=torch.bool, device=dev)
     present.index_fill_(0, slot, True)
     present = present[:width]
+    if merge is not None:
+        present = merge(present)
     kl = lk.data.to(torch.int64) - lo
     linb = (kl >= 0) & (kl < width)
     found = linb & present[torch.clamp(kl, 0, width - 1)]
@@ -203,21 +215,250 @@ def dense_join(left, right, left_on, right_on, how: str):
         # unmatched rows carry idx 0 (gather-safe); null_unmatched marks
         # them null from the found mask
         rcols = null_unmatched(Table(gather_build_side(right, idx)), found)
-        return Rel(Table(list(left.table.columns) + rcols),
-                   left.names + right.names, mask=left.mask, dicts=dicts)
+        return _rel._inherit_part(
+            Rel(Table(list(left.table.columns) + rcols),
+                left.names + right.names, mask=left.mask, dicts=dicts),
+            left, right)
     live = found if left.mask is None else (found & left.mask)
-    return Rel(Table(list(left.table.columns) + gather_build_side(right, idx)),
-               left.names + right.names, mask=live, dicts=dicts)
+    return _rel._inherit_part(
+        Rel(Table(list(left.table.columns) + gather_build_side(right, idx)),
+            left.names + right.names, mask=live, dicts=dicts), left, right)
+
+
+# --------------------------------------------------------------------------
+# Distributed join routes (the collective half; the transport lives in
+# tpcds/dist.py and parallel/)
+# --------------------------------------------------------------------------
+
+def _presence_psum(left, right, lname: str, rname: str, how: str):
+    """Semi/anti membership against a SHARDED build side: each shard
+    scatters its local build keys into the presence vector, one
+    all-reduce (int32: NCCL has no bool) ORs them, and the probe filters
+    locally. Width bytes on the wire instead of a row shuffle."""
+    from .. import dist
+    ctx = _rel._DIST_CTX
+
+    def psum_or(present):
+        nbytes = ctx.nshards * int(present.shape[0]) * 4
+        dist.count_route_bytes("psum", nbytes)
+        ctx.note_scratch(2 * int(present.shape[0]) * 4)
+        return ctx.all_reduce(present.to(torch.int32)) > 0
+
+    out = presence_membership(left, right, left.col(lname),
+                              right.col(rname), how, merge=psum_or)
+    if out is not None:
+        count(f"rel.route.join.presence_psum.{how}")
+    return out
+
+
+def _dense_key_geometry(left, right, left_on, right_on):
+    """Applicability gate of the key-routed sharded-build joins
+    (shuffle-hash, reduce-scatter): both keys plain integral columns, the
+    build key's range verified dense and proven unique. Returns ``(lk,
+    rk, lo, width)`` or None."""
+    lk = left.col(left_on[0])
+    rk = right.col(right_on[0])
+    for c in (lk, rk):
+        if (c.validity is not None or c.data is None
+                or not c.dtype.is_integral or c.children):
+            return None
+    rng = _rel._trusted_range(rk)
+    if rng is None or (int(rng[1]) - int(rng[0]) + 1) > MAX_DENSE_WIDTH:
+        return None
+    if not _rel._trusted_unique(rk):
+        return None  # the shard-local join needs a unique build map
+    return lk, rk, int(rng[0]), int(rng[1]) - int(rng[0]) + 1
+
+
+def _shuffle_hash_join(left, right, left_on, right_on, how: str, geom):
+    """Both sides sharded: co-partition them by key hash (K4/K5) with one
+    (possibly staged) all_to_all exchange each, then join shard-locally
+    on the dense path (K1 on the card)."""
+    from .. import dist
+    lk, rk, _lo, _width = geom
+    lrel = dist.exchange_rel(left, dist.hash_pids(left, lk))
+    rrel = dist.exchange_rel(right, dist.hash_pids(right, rk))
+    out = dense_join(lrel, rrel, left_on, right_on, how)
+    if out is None:  # pre-checked applicability: should be unreachable
+        raise _rel.FusedFallback(
+            f"shuffle-hash {how} join on {left_on} lost its dense route")
+    count(f"rel.route.join.shuffle_hash.{how}")
+    out.part = "sharded"
+    return out
+
+
+def _scatter_dense(values: torch.Tensor, slot: torch.Tensor,
+                   padded: int) -> torch.Tensor:
+    """A (padded,) vector holding ``values`` at ``slot``; slot ``padded``
+    is the sentinel of rows that do not count."""
+    out = torch.zeros(padded + 1, dtype=values.dtype, device=values.device)
+    out[slot] = values
+    return out[:padded]
+
+
+def _reduce_scatter_join(left, right, left_on, right_on, how: str, geom):
+    """Sharded build side with a trusted dense unique key: scatter each
+    shard's build rows into (width,) dense partials and reduce-scatter
+    each column onto the slot owners, then join locally against the owned
+    slice. The key is globally unique, so every slot has at most one
+    contributor and the sum reproduces the row values exactly (floats
+    too, but for ``-0.0 + 0.0 == +0.0``). A sharded probe is exchanged to
+    the owners; a replicated probe is masked down to the keys this shard
+    owns, moving nothing. Inner/left only; build columns must be plain
+    numeric data. Returns None when inapplicable."""
+    from ...parallel import reduce_scatter_sum
+    from .. import dist
+    Rel = _rel.Rel
+    if how not in ("inner", "left"):
+        return None
+    if left.part not in ("sharded", "replicated"):
+        return None  # ambiguous probe partitioning: keep the other routes
+    lk, rk, lo, width = geom
+    if any(c.validity is not None or c.children or c.data is None
+           or c.data.dim() != 1 or c.data.dtype == torch.bool
+           or c.data.dtype.is_complex for c in right.table.columns):
+        return None  # the sum-merge needs plain numeric payloads
+    ctx = _rel._DIST_CTX
+    p = ctx.nshards
+    w_local = -(-width // p)
+    padded = w_local * p
+    dev = rk.data.device
+
+    # 1. scatter the local build rows into (padded,) dense partials and
+    # reduce-scatter each column onto its slot owners
+    blive = dist.live_mask(right)
+    kb = rk.data.to(torch.int64) - lo
+    slot = torch.where(blive & (kb >= 0) & (kb < padded), kb, padded)
+    ones = _scatter_dense(torch.ones(slot.shape, dtype=torch.int32,
+                                     device=dev), slot, padded)
+    presence = reduce_scatter_sum(ones, ctx.axis, ctx.mesh) > 0
+    nbytes = 0
+    owned_cols = []
+    base = lo + ctx.index * w_local
+    for name, c in zip(right.names, right.table.columns):
+        if name == right_on[0]:
+            # slot i of the owned slice holds key base + i by construction
+            data = (base + torch.arange(w_local, dtype=torch.int64,
+                                        device=dev)).to(c.data.dtype)
+        else:
+            data = reduce_scatter_sum(_scatter_dense(c.data, slot, padded),
+                                      ctx.axis, ctx.mesh)
+            nbytes += padded * c.data.element_size()
+        owned_cols.append(dist.col_like(c, data, w_local))
+    dist.count_route_bytes("reduce_scatter", p * (nbytes + padded * 4))
+    # scratch model: one (padded,) partial and its scatter working copy
+    max_item = max([c.data.element_size() for c in right.table.columns]
+                   + [4])
+    ctx.note_scratch(2 * padded * max_item)
+
+    # 2. route the probe to the owners (or mask a replicated probe)
+    own = torch.clamp(torch.div(lk.data.to(torch.int64) - lo, w_local,
+                                rounding_mode="floor"), 0, p - 1)
+    if left.part == "sharded":
+        probe = dist.exchange_rel(left, own.to(torch.int32))
+    else:
+        probe = left.filter(own == ctx.index)
+        probe.part = "sharded"
+    pk = probe.col(left_on[0])
+
+    # 3. shard-local dense probe against the owned slice
+    localk = pk.data.to(torch.int64) - base
+    inb = (localk >= 0) & (localk < w_local)
+    bidx = torch.clamp(localk, 0, w_local - 1)
+    found = inb & presence[bidx]
+    build = Rel(Table(owned_cols), list(right.names), mask=presence,
+                dicts=right.dicts)
+    gathered = gather_build_side(build, bidx)
+    dicts = {**probe.dicts, **right.dicts}
+    if how == "left":
+        rcols = null_unmatched(Table(gathered), found)
+        out = Rel(Table(list(probe.table.columns) + rcols),
+                  probe.names + list(right.names), mask=probe.mask,
+                  dicts=dicts)
+    else:
+        out = Rel(Table(list(probe.table.columns) + gathered),
+                  probe.names + list(right.names),
+                  mask=dist.live_mask(probe) & found, dicts=dicts)
+    count(f"rel.route.join.reduce_scatter.{how}")
+    out.part = "sharded"
+    return out
+
+
+def _build_payload_bytes(right) -> int:
+    """Per-row byte width of the build side's columns (+1 validity)."""
+    return sum(c.data.element_size() for c in right.table.columns) + 1
+
+
+def route_sharded_build_join(left, right, left_on, right_on, how: str):
+    """Collective join routes for a SHARDED build side: ``(result,
+    route_name)`` or None (the caller then all_gathers the build side).
+
+    Route order: presence-psum for semi/anti; then, for a dense unique
+    build key, ``SRT_SHUFFLE_JOIN_ROUTE`` picks between the reduce-scatter
+    join and the shuffle-hash exchange: ``auto`` compares their modeled
+    per-device build memory, the explicit settings force one side (and
+    fall through when it does not apply)."""
+    from ...parallel import shuffle_join_route
+    from .. import dist
+    if len(left_on) != 1 or len(right_on) != 1:
+        return None
+    if how in ("semi", "anti"):
+        out = _presence_psum(left, right, left_on[0], right_on[0], how)
+        if out is not None:
+            return out, "presence_psum"
+    geom = _dense_key_geometry(left, right, left_on, right_on)
+    if geom is None:
+        return None
+    pref = shuffle_join_route()
+    p = _rel._DIST_CTX.nshards
+    width = geom[3]
+    if pref != "exchange":
+        # the reduce-scatter route holds one (width,) partial at a time;
+        # the exchange a (p * n_local)-lane receive buffer for every
+        # column, the all_gather the whole replicated table
+        max_item = max(c.data.element_size() for c in right.table.columns)
+        rs_mem = (-(-width // p) * p) * max_item
+        if left.part != "sharded":
+            alt_mem = p * (dist.table_nbytes(right) + right.num_rows)
+        else:
+            alt_mem = p * right.num_rows * _build_payload_bytes(right)
+        if pref == "reduce_scatter" or rs_mem <= alt_mem:
+            out = _reduce_scatter_join(left, right, left_on, right_on,
+                                       how, geom)
+            if out is not None:
+                return out, "reduce_scatter"
+    if left.part == "sharded" and pref != "reduce_scatter":
+        out = _shuffle_hash_join(left, right, left_on, right_on, how, geom)
+        if out is not None:
+            return out, "shuffle_hash"
+    return None
 
 
 @operator("join", mask_class="rowwise", partition="collective",
-          oracle=join_oracle, params=("SRT_JOIN_METHOD",))
+          oracle=join_oracle,
+          params=("SRT_SHUFFLE_JOIN_ROUTE", "SRT_JOIN_METHOD",
+                  "SRT_BROADCAST_THRESHOLD"))
 def join(left, right, left_on, right_on, how: str = "inner"):
-    """Equi-join route ladder: the dense broadcast fast path, then
+    """Equi-join route ladder: the collective routes for a sharded build
+    side of a partitioned run, then the dense broadcast fast path, then
     (eagerly only) the general sort-merge kernels."""
     Rel = _rel.Rel
-    dense = dense_join(left, right, left_on, right_on, how)
+    build = right
+    if _rel._DIST_CTX is not None and right.part == "sharded":
+        from .. import dist
+        routed = route_sharded_build_join(left, right, left_on, right_on,
+                                          how)
+        if routed is not None:
+            out, route = routed
+            set_attrs(route=route, out_rows=out.num_rows)
+            return out
+        build = dist.all_gather_rel(right)
+    dense = dense_join(left, build, left_on, right_on, how)
     if dense is not None:
+        if _rel._DIST_CTX is not None and left.part == "sharded":
+            # data-parallel probe of a replicated build table: Spark's
+            # BroadcastHashJoin, no shuffle
+            count(f"rel.route.join.broadcast.{how}")
         set_attrs(route="dense", out_rows=dense.num_rows)
         return dense
     if _rel._FUSED_TRACING:
@@ -297,7 +538,14 @@ def dense_groupby(rel, keys, aggs):
     """Dense fast path: integer keys with trusted small ranges aggregate
     into fixed (width,) slots; the present mask IS the result's row mask,
     and compaction yields the ascending-key order of the general path.
-    Float and nullable min/max stay general."""
+    Float and nullable min/max stay general.
+
+    Over sharded rows of a partitioned run the aggregation has two
+    phases: each shard aggregates its local rows into the same slot
+    space (K2 on the card), then one collective a partial merges them:
+    an all-reduce for slot spaces up to ``SRT_GROUPBY_PSUM_WIDTH``
+    (replicated result), a reduce-scatter past it (each shard owns a
+    contiguous slice of the slots)."""
     Rel = _rel.Rel
     if rel.num_rows == 0:
         return None
@@ -323,6 +571,23 @@ def dense_groupby(rel, keys, aggs):
     count(f"rel.route.groupby.dense.{method}")
     set_attrs(route="dense", method=method, width=width)
 
+    merge = None
+    ctx = _rel._DIST_CTX
+    if ctx is not None and rel.part == "sharded":
+        from .. import dist
+        merge = ("replicated" if width <= dist.psum_width_cap()
+                 else "scattered")
+        count(f"rel.route.groupby.two_phase.{merge}")
+
+    def merged(partial, op="sum"):
+        if merge is None:
+            return partial
+        from .. import dist
+        dist.count_merge_bytes(partial, merge)
+        fn = (dense_merge_replicated if merge == "replicated"
+              else dense_merge_scattered)
+        return fn(partial, ctx.axis, op, mesh=ctx.mesh)
+
     # one accumulation pass per (column, accumulator): raw dtype for
     # sums, float64 for means; a nullable column's validity folds into
     # the pass's live mask
@@ -336,9 +601,17 @@ def dense_groupby(rel, keys, aggs):
             live = mask if vc.validity is None else (mask & vc.valid_bool())
             if as_f64:
                 vals = vals.to(torch.float64)
-            cache[key] = dense_groupby_sum_count(slots, live, vals, width,
-                                                 method)
+            s, n = dense_groupby_sum_count(slots, live, vals, width, method)
+            cache[key] = (merged(s), merged(n))
         return cache[key]
+
+    # the merged slot space: the full width, or this shard's contiguous
+    # slice on the scattered route (global slot = offset + local index)
+    if merge == "scattered":
+        out_width = -(-width // ctx.nshards)
+        offset = ctx.index * out_width
+    else:
+        out_width, offset = width, 0
 
     # group presence is a row-mask fact: reuse a non-null value pass when
     # one exists, else pay one row-count pass
@@ -351,14 +624,15 @@ def dense_groupby(rel, keys, aggs):
         _, counts = dense_groupby_sum_count(
             slots, mask, torch.zeros(rel.num_rows, dtype=torch.int64,
                                      device=dev), width, method)
+        counts = merged(counts)
     present = counts > 0
-    iota = torch.arange(width, dtype=torch.int64, device=dev)
+    iota = offset + torch.arange(out_width, dtype=torch.int64, device=dev)
     out_cols = []
     for kc, (lo, hi), st in zip(key_cols, ranges, strides):
         w = hi - lo + 1
         decoded = ((iota // st) % w + lo).to(kc.dtype.to_torch())
         out_cols.append(_rel._trust(
-            Column(kc.dtype, width, decoded, value_range=(lo, hi)),
+            Column(kc.dtype, out_width, decoded, value_range=(lo, hi)),
             unique=(len(key_cols) == 1)))
     for c, a, _ in aggs:
         vc = rel.col(c)
@@ -370,15 +644,21 @@ def dense_groupby(rel, keys, aggs):
         elif a == "mean":
             data = pass_for(c, True)[0] / counts.to(torch.float64)
         else:  # integral min/max
-            data = dense_groupby_extreme(slots, mask, vc.data, width,
-                                         a == "min")
-        out_cols.append(Column(rdt, width, data.to(rdt.to_torch())))
-    return Rel(Table(out_cols), list(keys) + [o for _, _, o in aggs],
-               mask=present, dicts=rel._sub_dicts(keys))
+            data = merged(dense_groupby_extreme(slots, mask, vc.data, width,
+                                                a == "min"), op=a)
+        out_cols.append(Column(rdt, out_width, data.to(rdt.to_torch())))
+    out = Rel(Table(out_cols), list(keys) + [o for _, _, o in aggs],
+              mask=present, dicts=rel._sub_dicts(keys))
+    if merge is not None:
+        out.part = "replicated" if merge == "replicated" else "sharded"
+    else:
+        out.part = rel.part
+    return out
 
 
 @operator("groupby", mask_class="segmented", partition="collective",
-          oracle=groupby_oracle, params=("SRT_DENSE_GROUPBY",))
+          oracle=groupby_oracle,
+          params=("SRT_DENSE_GROUPBY", "SRT_GROUPBY_PSUM_WIDTH"))
 def groupby(rel, keys, aggs):
     """Grouped aggregation ladder: the dense fixed-slot fast path, else
     (eagerly only) the general sorted-scan kernels."""

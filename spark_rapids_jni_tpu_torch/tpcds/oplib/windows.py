@@ -22,8 +22,14 @@ never shift live numbering.
 A partition key without a trusted dense range takes the eager route:
 the rel is compacted and its key tuples factorized on the host
 (``rel.route.window.general``), or ``FusedFallback`` while ``run_fused``
-runs a plan. The reference's mesh exchange
-(``rel.route.window.exchange``) waits for the port's distributed layer.
+runs a plan.
+
+In a partitioned run over sharded rows, each window partition first goes
+to one shard (slot ``% P``) through the staged exchange of
+``tpcds/dist.py`` (``rel.route.window.exchange``), then everything above
+runs shard-locally. Dead rows' slots are set to 0 first: an exchange's
+empty receive slots hold zeros, whose slots may lie outside ``[0,
+width)``.
 """
 
 from __future__ import annotations
@@ -124,7 +130,8 @@ def _changed(oc: Column, order: torch.Tensor) -> torch.Tensor:
 
 
 @operator("window", mask_class="segmented", partition="exchange_by_keys",
-          oracle=window_oracle, params=("SRT_DENSE_GROUPBY",))
+          oracle=window_oracle,
+          params=("SRT_DENSE_GROUPBY", "SRT_SHUFFLE_SCRATCH_BYTES"))
 def window(rel, partition_by: Sequence[str], order_by: Sequence[str],
            funcs: Sequence[tuple],
            descending: Optional[Sequence[bool]] = None):
@@ -146,6 +153,20 @@ def window(rel, partition_by: Sequence[str], order_by: Sequence[str],
         rel, slots, width = _host_slots(rel, partition_by)
     else:
         slots, width = enc[0], enc[1]
+        if _rel._DIST_CTX is not None and rel.part == "sharded":
+            # co-partition each window partition onto one shard, then
+            # compute shard-locally (the exchange_by_keys contract)
+            from .. import dist
+            count("rel.route.window.exchange")
+            rel = dist.exchange_rel(
+                rel, torch.remainder(slots, _rel._DIST_CTX.nshards)
+                .to(torch.int32))
+            enc = dense_slots(rel, partition_by)
+            if enc is None:  # verified stats survive the exchange
+                raise _rel.FusedFallback(
+                    "window lost its dense partition keys across the "
+                    "exchange")
+            slots, width = enc[0], enc[1]
         count("rel.route.window.dense")
         set_attrs(route="dense", width=width)
 
@@ -153,6 +174,7 @@ def window(rel, partition_by: Sequence[str], order_by: Sequence[str],
     dev = slots.device
     live = (torch.ones(n, dtype=torch.bool, device=dev) if rel.mask is None
             else rel.mask)
+    slots = torch.where(live, slots, 0)
     method = dense_groupby_method(width, backend=dev.type)
 
     if any(kind in ("row_number", "rank") for kind, _, _ in funcs):

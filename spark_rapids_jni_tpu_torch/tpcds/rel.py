@@ -35,8 +35,18 @@ nulls stays a STRING column (offsets and bytes): correct, eager only.
 the same device-to-host copy as the live-row count, so the query keeps
 its one host sync; outside ``run_fused`` they are read at once.
 
-The partitioned (mesh), morsel, batched, result-cache and report layers
-are not ported yet.
+**Partitioned execution.** ``run_fused(plan, rels, mesh=...)`` runs the
+same plan data-parallel over a mesh's data axis (``tpcds/dist.py``): one
+process a device, every rank with the same global ``rels``, each
+keeping its own row shard. Each ``Rel`` carries a host-side ``part`` tag
+(``"sharded"`` row chunks, ``"replicated"`` full copies, None for a
+fresh rel, read as replicated), and the operators add the collective
+half themselves: masked scalar sums all-reduce, a union with a
+replicated side keeps that side on shard 0 only, an unsorted ``head`` of
+sharded rows leaves the fused route, and the joins, groupbys and windows
+of ``tpcds/oplib`` pick their collective routes.
+
+The morsel, batched, result-cache and report layers are not ported yet.
 """
 
 from __future__ import annotations
@@ -65,20 +75,41 @@ class FusedFallback(Exception):
 
 _FUSED_TRACING = False  # True only while run_fused runs a plan fused
 
+# Active partitioned run (tpcds/dist.py sets it while a plan runs over a
+# mesh): the mesh, its data axis and the shard count the collective ops
+# need. None = single-device semantics.
+_DIST_CTX = None
+
 # Runtime-counter channel: (name, 0-d int64 device tensor) pairs that
 # operators record while run_fused runs a plan; None outside it.
 _TRACE_AUX: "Optional[list]" = None
 
 
-def note_runtime_count(name: str, value) -> None:
+def note_runtime_count(name: str, value, rel: "Optional[Rel]" = None
+                       ) -> None:
     """Count a data-dependent fact from inside a plan: deferred to the
     fused runner's one host read under ``run_fused``, read now (a host
-    sync) otherwise."""
+    sync) otherwise. ``rel`` scopes a partitioned run's accounting: a
+    count over replicated rows is the same on every shard, so only shard
+    0 contributes; sharded rows add their local counts."""
     v = torch.as_tensor(value).to(torch.int64)
+    if _DIST_CTX is not None and (rel is None or rel.part != "sharded") \
+            and _DIST_CTX.index != 0:
+        v = torch.zeros_like(v)
     if _TRACE_AUX is not None:
         _TRACE_AUX.append((name, v))
     else:
         count(name, int(v))
+
+
+def _inherit_part(out: "Rel", *src: "Rel") -> "Rel":
+    """Propagate the partitioning tag through a shard-local op: any
+    sharded input makes the output sharded, else replicated inputs stay
+    replicated (collective ops set ``part`` themselves)."""
+    parts = {r.part for r in src}
+    out.part = ("sharded" if "sharded" in parts
+                else "replicated" if "replicated" in parts else None)
+    return out
 
 
 def _dispatch(name: str, *args, **kwargs):
@@ -158,7 +189,12 @@ class Rel:
     ``table``; None means every row is live. ``dicts`` maps
     dictionary-encoded column names to their sorted category arrays.
     ``pending_sort``/``limit`` record a terminal sort and row limit,
-    applied at materialization over just the live rows."""
+    applied at materialization over just the live rows.
+
+    ``part`` is the partitioning tag of a partitioned run
+    (``tpcds/dist.py``): ``"sharded"`` (this rank's row chunk),
+    ``"replicated"`` (every rank holds the same full copy) or None (one
+    device, or a freshly built rel, read as replicated)."""
 
     def __init__(self, table: Table, names: Sequence[str],
                  mask: Optional[torch.Tensor] = None,
@@ -175,6 +211,7 @@ class Rel:
         self.dicts = dict(dicts) if dicts else {}
         self.pending_sort = pending_sort
         self.limit = limit
+        self.part = None
 
     @property
     def num_rows(self) -> int:
@@ -219,17 +256,19 @@ class Rel:
             out = Rel(gather(out.table, head), out.names,
                       mask=None if out.mask is None else out.mask[:k],
                       dicts=out.dicts)
-        return out
+        return _inherit_part(out, self)
 
     def select(self, *names: str) -> "Rel":
         plain = self._flush_sort()
-        return Rel(Table([plain.col(n) for n in names]), names,
-                   mask=plain.mask, dicts=plain._sub_dicts(names))
+        return _inherit_part(Rel(Table([plain.col(n) for n in names]),
+                                 names, mask=plain.mask,
+                                 dicts=plain._sub_dicts(names)), plain)
 
     def with_column(self, name: str, col: Column) -> "Rel":
         plain = self._flush_sort()
-        return Rel(Table(list(plain.table.columns) + [col]),
-                   plain.names + [name], mask=plain.mask, dicts=plain.dicts)
+        return _inherit_part(Rel(Table(list(plain.table.columns) + [col]),
+                                 plain.names + [name], mask=plain.mask,
+                                 dicts=plain.dicts), plain)
 
     def rename(self, **renames: str) -> "Rel":
         names = [renames.get(n, n) for n in self.names]
@@ -237,34 +276,49 @@ class Rel:
         ps = self.pending_sort
         if ps is not None:
             ps = ([renames.get(n, n) for n in ps[0]], ps[1])
-        return Rel(self.table, names, mask=self.mask, dicts=dicts,
-                   pending_sort=ps, limit=self.limit)
+        return _inherit_part(Rel(self.table, names, mask=self.mask,
+                                 dicts=dicts, pending_sort=ps,
+                                 limit=self.limit), self)
 
     def filter(self, mask) -> "Rel":
         """Deferred filter: ANDs into the row mask, no compaction."""
         plain = self._flush_sort()
         keep = mask.to(torch.bool)
         keep = keep if plain.mask is None else (plain.mask & keep)
-        return Rel(plain.table, plain.names, mask=keep, dicts=plain.dicts)
+        return _inherit_part(Rel(plain.table, plain.names, mask=keep,
+                                 dicts=plain.dicts), plain)
+
+    def _sharded(self) -> bool:
+        return _DIST_CTX is not None and self.part == "sharded"
 
     def sum_where(self, values, where=None) -> torch.Tensor:
-        """Masked sum of a per-physical-row expression (0-d tensor)."""
+        """Masked sum of a per-physical-row expression (0-d tensor); over
+        sharded rows of a partitioned run the shards' partials all-reduce
+        (the q9 CASE WHEN shape)."""
         sel = None if where is None else where.to(torch.bool)
         if self.mask is not None:
             sel = self.mask if sel is None else (sel & self.mask)
-        if sel is None:
-            return values.sum()
-        return torch.where(sel, values, 0).sum()
+        s = values.sum() if sel is None else torch.where(sel, values,
+                                                         0).sum()
+        if self._sharded():
+            s = _DIST_CTX.all_reduce(s)
+        return s
 
     def count_where(self, where=None) -> torch.Tensor:
-        """Count of live rows matching ``where`` (0-d int64 tensor)."""
+        """Count of live rows matching ``where`` (0-d int64 tensor),
+        partition-aware like ``sum_where``."""
         sel = None if where is None else where.to(torch.bool)
         if self.mask is not None:
             sel = self.mask if sel is None else (sel & self.mask)
         if sel is None:
-            return torch.full((), self.num_rows, dtype=torch.int64,
-                              device=self.device)
-        return sel.sum(dtype=torch.int64)
+            # an unmasked sharded rel holds no dead rows: a static count
+            n = self.num_rows * (_DIST_CTX.nshards if self._sharded()
+                                 else 1)
+            return torch.full((), n, dtype=torch.int64, device=self.device)
+        c = sel.sum(dtype=torch.int64)
+        if self._sharded():
+            c = _DIST_CTX.all_reduce(c)
+        return c
 
     # -- materialization ---------------------------------------------------
 
@@ -394,14 +448,24 @@ class Rel:
         rows; a following relational op flushes it into the plan."""
         plain = self._flush_sort()
         desc = list(descending or [False] * len(by))
-        return Rel(plain.table, plain.names, mask=plain.mask,
-                   dicts=plain.dicts, pending_sort=(list(by), desc))
+        return _inherit_part(Rel(plain.table, plain.names, mask=plain.mask,
+                                 dicts=plain.dicts,
+                                 pending_sort=(list(by), desc)), plain)
 
     def concat(self, other: "Rel") -> "Rel":
         """Row-wise union of fixed-width non-null columns with equal
         schemas; masks concatenate, so it stays fused."""
         a = self._flush_sort()
         b = other._flush_sort()
+        if (_DIST_CTX is not None and a.part != b.part
+                and "sharded" in (a.part, b.part)):
+            # sharded + replicated: a full copy on every shard would count
+            # its rows once a shard; keep the replicated side on shard 0
+            from . import dist
+            if a.part != "sharded":
+                a = dist.localize_replicated(a)
+            if b.part != "sharded":
+                b = dist.localize_replicated(b)
         expects(a.names == b.names, "concat needs equal schemas")
         for n in a.names:
             dl, dr = a.dicts.get(n), b.dicts.get(n)
@@ -424,7 +488,8 @@ class Rel:
             mr = (torch.ones(b.num_rows, dtype=torch.bool, device=b.device)
                   if b.mask is None else b.mask)
             mask = torch.cat([ml, mr])
-        return Rel(Table(cols), a.names, mask=mask, dicts=a.dicts)
+        return _inherit_part(Rel(Table(cols), a.names, mask=mask,
+                                 dicts=a.dicts), a, b)
 
     def head(self, n: int) -> "Rel":
         """First ``n`` live rows: a deferred limit after sort(), a static
@@ -433,16 +498,24 @@ class Rel:
         route)."""
         if self.pending_sort is not None:
             k = n if self.limit is None else min(n, self.limit)
-            return Rel(self.table, self.names, mask=self.mask,
-                       dicts=self.dicts, pending_sort=self.pending_sort,
-                       limit=min(k, self.num_rows))
+            if not self._sharded():
+                # a shard's physical rows do not bound the global count
+                k = min(k, self.num_rows)
+            return _inherit_part(Rel(
+                self.table, self.names, mask=self.mask, dicts=self.dicts,
+                pending_sort=self.pending_sort, limit=k), self)
         if self.mask is not None:
             if _FUSED_TRACING:
                 raise FusedFallback("head() on an unsorted masked rel")
             return self.compact().head(n)
+        if self._sharded():
+            # the "first n" rows of unsorted sharded rows mean nothing:
+            # each shard would slice its own chunk
+            raise FusedFallback("head() on an unsorted sharded rel")
         k = min(n, self.num_rows)
         idx = torch.arange(k, dtype=torch.int64, device=self.device)
-        return Rel(gather(self.table, idx), self.names, dicts=self.dicts)
+        return _inherit_part(Rel(gather(self.table, idx), self.names,
+                                 dicts=self.dicts), self)
 
 
 # --------------------------------------------------------------------------
@@ -499,7 +572,8 @@ def _check_device(rels: "dict[str, Rel]", dev: torch.device) -> None:
                     f"rel {name!r} lies on {c.device}, not {dev}")
 
 
-def run_fused(plan, rels: "dict[str, Rel]", device=None) -> Rel:
+def run_fused(plan, rels: "dict[str, Rel]", device=None, mesh=None,
+              axis=None) -> Rel:
     """Execute ``plan(rels) -> Rel`` with the planner flag set, then
     materialize once: at most one data-dependent host sync per query
     (counter-asserted through ``rel.host_syncs``), which also reads every
@@ -509,9 +583,24 @@ def run_fused(plan, rels: "dict[str, Rel]", device=None) -> Rel:
     passes another (the tests pass ``"cpu"``); without a GPU and without
     a device this raises. When a plan needs a general kernel the run
     counts ``rel.fused_fallbacks`` and re-runs the plan eagerly on the
-    general sort-merge kernels: slower, never wrong."""
+    general sort-merge kernels: slower, never wrong.
+
+    With ``mesh`` (a ``parallel.Mesh``) every rank of the mesh calls
+    this with the same global ``rels``; the plan runs data-parallel over
+    the mesh's data axis (``axis``, default ``parallel.data_axes``) with
+    its collectives on the mesh's process groups, still one counted host
+    sync per rank, and every rank gets the same result
+    (``tpcds/dist.py``). ``device`` then defaults to the mesh's."""
+    if mesh is not None:
+        from . import dist
+        return dist.run_partitioned(plan, rels, mesh, axis=axis,
+                                    device=device)
+    return _run_fused_impl(plan, rels, resolve_device(device))
+
+
+def _run_fused_impl(plan, rels: "dict[str, Rel]", dev: torch.device) -> Rel:
+    """The single-device fused run (``run_fused`` without a mesh)."""
     global _FUSED_TRACING, _TRACE_AUX
-    dev = resolve_device(device)
     _check_device(rels, dev)
     pname = getattr(plan, "__name__", "plan").lstrip("_")
     for name in sorted(rels):

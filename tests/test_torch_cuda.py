@@ -1013,3 +1013,136 @@ def test_cuda_get_json_object_and_maps_equal_cpu(cuda_device):
             map_utils.map_to_pylist(m),
             map_utils.get_map_value(m, "k").to_pylist()]
     assert out["cuda"] == out["cpu"]
+
+
+# --------------------------------------------------------------------------
+# The mesh over NCCL: one rank on the card (NCCL takes one rank a card)
+# --------------------------------------------------------------------------
+
+MESH_QS = [f"q{i}" for i in range(1, 21)]
+# (pass, env): the default threshold, then the reference test's (the
+# dimensions shard too) with each join route, the scattered merge and
+# staged exchanges
+MESH_PASSES = [
+    ("default", {}),
+    ("threshold", {"SRT_BROADCAST_THRESHOLD": "8192"}),
+    ("exchange", {"SRT_BROADCAST_THRESHOLD": "8192",
+                  "SRT_SHUFFLE_JOIN_ROUTE": "exchange"}),
+    ("reduce_scatter", {"SRT_BROADCAST_THRESHOLD": "8192",
+                        "SRT_SHUFFLE_JOIN_ROUTE": "reduce_scatter"}),
+    ("scattered", {"SRT_GROUPBY_PSUM_WIDTH": "1"}),
+    ("staged", {"SRT_BROADCAST_THRESHOLD": "8192",
+                "SRT_SHUFFLE_SCRATCH_BYTES": "65536"})]
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: NCCL runs only on the card")
+    import os
+    from spark_rapids_jni_tpu_torch.parallel import distributed, make_mesh
+    from spark_rapids_jni_tpu_torch.tpcds import generate
+    from spark_rapids_jni_tpu_torch.tpcds.rel import rel_from_df
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("NCCL_IB_DISABLE", "1")
+    init = tmp_path_factory.mktemp("nccl") / "init"
+    distributed.initialize(f"file://{init}", 1, 0, backend="nccl",
+                           timeout_s=120)
+    mesh = make_mesh({"part": 1}, device_type="cuda")
+    data = generate(sf=2, seed=7)
+    rels = {n: rel_from_df(df, device="cuda") for n, df in data.items()}
+    yield mesh, rels
+    distributed.shutdown()
+
+
+def _frames_equal(got, want, what):
+    import numpy as np
+    assert list(got.columns) == list(want.columns), what
+    assert len(got) == len(want), what
+    for c in want.columns:
+        g, w = got[c].to_numpy(), want[c].to_numpy()
+        if g.dtype.kind == "f" or w.dtype.kind == "f":
+            np.testing.assert_allclose(
+                g.astype(np.float64), w.astype(np.float64), rtol=1e-9,
+                atol=1e-9, equal_nan=True, err_msg=f"{what}.{c}")
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=f"{what}.{c}")
+
+
+_MESH_SEEN: dict = {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qname", MESH_QS)
+@pytest.mark.parametrize("pname,env", MESH_PASSES,
+                         ids=[p for p, _ in MESH_PASSES])
+def test_cuda_nccl_mesh_equals_one_device(nccl_mesh, pname, env, qname,
+                                          monkeypatch):
+    from spark_rapids_jni_tpu_torch.obs import kernel_stats, stats_since
+    from spark_rapids_jni_tpu_torch.tpcds import PLANS
+    from spark_rapids_jni_tpu_torch.tpcds.rel import run_fused
+    mesh, rels = nccl_mesh
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    want = run_fused(PLANS[qname], rels, device="cuda").to_df()
+    before = kernel_stats()
+    got = run_fused(PLANS[qname], rels, mesh=mesh).to_df()
+    st = stats_since(before)
+    _frames_equal(got, want, f"{qname} {pname}")
+    assert st.get("rel.dist_fallbacks", 0) == 0, st
+    assert st.get("rel.host_syncs", 0) <= 1, st
+    for k, v in st.items():
+        _MESH_SEEN[k] = _MESH_SEEN.get(k, 0) + v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", [
+    "rel.route.join.presence_psum", "rel.route.join.shuffle_hash",
+    "rel.route.join.reduce_scatter", "rel.route.dist.all_gather",
+    "rel.route.groupby.two_phase.replicated",
+    "rel.route.groupby.two_phase.scattered", "rel.route.window.exchange",
+    "rel.route.shuffle.staged", "rel.route.join.probe.cuda"])
+def test_cuda_nccl_mesh_takes_every_route(nccl_mesh, route):
+    # runs after the parametrized queries above (file order)
+    if not _MESH_SEEN:
+        pytest.skip("the mesh query cases did not run")
+    assert any(k == route or k.startswith(route + ".") for k in _MESH_SEEN)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strings", [False, True])
+def test_cuda_nccl_shuffle_table_keeps_every_row(nccl_mesh, strings):
+    # one rank: every row comes back in its order, through retry rounds
+    # when the capacity is too small (K4 and K5 hash the keys; K6 packs a
+    # fixed-width table, K3's table form unpacks both)
+    import numpy as np
+    from spark_rapids_jni_tpu_torch.columnar import Column, Table
+    from spark_rapids_jni_tpu_torch.obs import kernel_stats, stats_since
+    from spark_rapids_jni_tpu_torch.parallel import shuffle_table
+    mesh, _ = nccl_mesh
+    rng = np.random.default_rng(4)
+    n = 50_000
+    cols = [Column.from_numpy(rng.integers(-9, 9, n).astype(np.int32),
+                              device="cuda"),
+            Column.from_numpy(rng.integers(-2**60, 2**60, n),
+                              rng.random(n) > 0.1, device="cuda"),
+            Column.from_numpy(rng.standard_normal(n), device="cuda")]
+    if strings:
+        cols.append(Column.strings_from_list(
+            [None if i % 9 == 0 else "s" * (i % 23) for i in range(n)],
+            device="cuda"))
+    table = Table(cols)
+    for capacity in (None, 1000):
+        K.reset_launch_counts()
+        before = kernel_stats()
+        got, over = shuffle_table(mesh, table, [0, 1], capacity=capacity)
+        st = stats_since(before)
+        assert K.LAUNCHES["murmur3_int32"] and K.LAUNCHES["murmur3_int64"]
+        assert K.LAUNCHES["bitmask_pack_fields"] >= 1
+        assert bool(K.LAUNCHES["pack_rows"]) == (not strings)
+        if capacity is None:
+            assert int(over.sum()) == 0
+        else:
+            assert st.get("shuffle.retry_rounds", 0) >= 1
+        for a, b in zip(got.columns, table.columns):
+            assert a.to_pylist() == b.to_pylist()

@@ -50,7 +50,11 @@ def test_sources_exist():
                 "tpcds/oplib/registry.py", "tpcds/queries.py",
                 "ops/copying.py", "ops/conditional.py", "ops/zorder.py",
                 "ops/histogram.py", "ops/tdigest.py",
-                "ops/get_json_object.py", "ops/map_utils.py"):
+                "ops/get_json_object.py", "ops/map_utils.py",
+                "parallel/__init__.py", "parallel/mesh.py",
+                "parallel/distributed.py", "parallel/collectives.py",
+                "parallel/partition.py", "parallel/comm_plan.py",
+                "parallel/shuffle.py", "tpcds/dist.py"):
         assert rel in names
     for src in ("hash_join_probe.cu", "ragged_groupby.cu",
                 "bitmask_pack.cu", "murmur3.cu", "pack_rows.cu"):
@@ -87,6 +91,9 @@ def test_import_loads_no_jax_module():
         "import spark_rapids_jni_tpu_torch.utils.int128\n"
         "import spark_rapids_jni_tpu_torch.ops.decimal_utils\n"
         "import spark_rapids_jni_tpu_torch.ops.string_ops\n"
+        "import spark_rapids_jni_tpu_torch.parallel\n"
+        "import spark_rapids_jni_tpu_torch.parallel.distributed\n"
+        "import spark_rapids_jni_tpu_torch.tpcds.dist\n"
         "from spark_rapids_jni_tpu_torch.tpcds.oplib import registry\n"
         "registry.ensure_loaded()\n"
         "import chip_smoke\n"
