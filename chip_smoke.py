@@ -176,7 +176,40 @@ In order, it:
    route and ``shuffle.*`` counters and the synchronising CUDA calls
    (under ``--profile`` also the device time of the NCCL kernels), and
    the step's peak memory allocated;
-11. row conversion (BASELINE config 2, the 32-column ``TestTables.java``
+11. the morsel step (out-of-core execution, ``exec/``): the four fact
+   tables of step 3's frames (1,346,648,000 bytes) become host tables
+   and the dimensions stay on the card. It prints one plain copy of
+   1 GiB from pinned memory to the card (the host link's rate) and runs
+   q1-q10 through ``run_morsels`` (``run_fused``'s out-of-core route) in
+   three passes: 8 morsels with ``SRT_PAGE_POOL_BYTES`` 1 GiB (the paged
+   route: 13 morsels, capacities 1,048,576 / 262,144 / 262,144 / 131,072
+   rows), 8 morsels with the pool off (whole-buffer staging), and sized
+   to ``SRT_MORSEL_BYTES`` 256 MiB; then the default probe's verdict on
+   q1; the delta pass (a host table of store_sales' first 9,000,000
+   rows runs q3 at 256 MiB, ``rel_append`` adds the rest, q3 again must
+   fold one morsel, provenance delta); the four facts written to
+   Parquet under ``target/`` in 1,048,576-row groups and q1, q3, q9
+   streamed from them, and q3 over store_sales sorted by
+   ss_sold_date_sk with a ``between`` filter on a fifth of the dates
+   (the zone maps must skip); q3, q9 and q10 at 4 morsels over a
+   one-rank NCCL mesh; q11-q20 with the facts streamed (the queries that
+   fall back in-core are printed with their reasons). With the launch
+   counts set to 0 just before and read just after, it runs the paged
+   pass once more (its entries warm), then records that pass's kernel
+   calls and holds each against its plain version (exact). It requires
+   every result to equal the pandas oracle (q1-q10 also the in-core
+   single-device result; floats within rtol=atol=1e-9), no
+   ``rel.morsel_fallbacks`` on q1-q10, ``exec.morsel.folded`` of at
+   least the morsel count, at most one counted host sync a query, no
+   more synchronising CUDA calls in a warm streamed query than in its
+   in-core run, and K1-K3 each launched. Per query and pass it prints
+   the streamed warm time (median of 3) beside the in-core one, the
+   morsel count, capacities, window and accumulator bytes, the bytes
+   staged for the card and their rate over the query,
+   ``exec.morsel.overlap_ns``, the peak memory allocated above the
+   step's base beside ``exec.morsel.peak_model_bytes``, and under
+   ``--profile`` the device's idle share over the warm query;
+12. row conversion (BASELINE config 2, the 32-column ``TestTables.java``
    schema, 200-byte rows): 1,000,000 rows all valid; 1,000,000 rows with
    1% nulls per column; 12,000,000 rows with nulls (two batches below
    2 GB: 10,737,408 and 1,262,592 rows); 1,000,000 rows plus two
@@ -192,11 +225,11 @@ In order, it:
    of row bytes both ways, and each conversion's wall time beside the
    device time of its K6 (to rows) or K3 (from rows) calls (the rest is
    host work, other kernels and idle card);
-12. prints the ``kernels`` JSON line (K1-K6, each with its launches on
-    its paths: K1-K3 on q1-q10 and q11-q20, K3 also on the roster, the
-    strings step, roster II and, in its table form, on the row
-    conversions and nested rows, and K1-K6 on the mesh), the card again,
-    and as the last line ``{"ok": true, "device": {...}}``.
+13. prints the ``kernels`` JSON line (K1-K6, each with its launches on
+    its paths: K1-K3 on q1-q10, q11-q20 and the morsel step, K3 also on
+    the roster, the strings step, roster II and, in its table form, on
+    the row conversions and nested rows, and K1-K6 on the mesh), the card
+    again, and as the last line ``{"ok": true, "device": {...}}``.
 
 Every kernel time is device time from CUDA events, the median of 10 runs
 after two warm-ups, with the queue held by a device-side sleep so that
@@ -206,10 +239,11 @@ function, and the bound: the larger of the bytes the function must move
 over the card's 3.35 TB/s and its operations over 67 T/s, or, for K2,
 the updates of its busiest slot at one shared-memory atomic per SM
 clock. The ``kernels`` line sums each kernel over its calls on its
-paths: K1-K3 over q1-q10 and q11-q20, K4 and K5 over the hashing step,
-K3 over the roster, the strings step and roster II, K6 and K3's table
-form over the row-conversion step, and all of them over the mesh step
-(timed on 3 runs a call there, to keep the step short).
+paths: K1-K3 over q1-q10, q11-q20 and the morsel step's counted pass,
+K4 and K5 over the hashing step, K3 over the roster, the strings step
+and roster II, K6 and K3's table form over the row-conversion step, and
+all of them over the mesh step (the mesh and morsel steps time 3 runs a
+call, to keep them short).
 
 ``--profile`` adds one warm run of each query, table hash, roster,
 strings and roster II phase, mesh query and row conversion under
@@ -254,7 +288,13 @@ from spark_rapids_jni_tpu_torch import types as T
 from spark_rapids_jni_tpu_torch.columnar import Column, Table, bitmask
 from spark_rapids_jni_tpu_torch.columnar.strings import (
     byte_matrix, lengths as str_lengths, strings_from_matrix)
-from spark_rapids_jni_tpu_torch.obs import kernel_stats, stats_since
+from spark_rapids_jni_tpu_torch.exec import (HostTable, ParquetHostTable,
+                                             morsel_bytes_budget,
+                                             rel_append,
+                                             reset_standing_state)
+from spark_rapids_jni_tpu_torch.exec.runner import reset_staging, run_morsels
+from spark_rapids_jni_tpu_torch.obs import REGISTRY, kernel_stats, stats_since
+from spark_rapids_jni_tpu_torch.obs.memory import hbm_headroom_bytes
 from spark_rapids_jni_tpu_torch.ops import cuda_kernels as K
 from spark_rapids_jni_tpu_torch.ops import (bloom_filter, groupby, hashing,
                                             hive_hash, hllpp, nested_rows)
@@ -292,13 +332,16 @@ NAMES = tuple(dict.fromkeys(Q_NAMES + HASH_NAMES + ROW_NAMES))
 # the kernels line: each kernel and the (path, wrapper) pairs it sums
 KERNELS = (("hash_join_probe", (("q1-q10", "hash_join_probe"),
                                  ("q11-q20", "hash_join_probe"),
-                                 ("mesh", "hash_join_probe"))),
+                                 ("mesh", "hash_join_probe"),
+                                 ("morsel", "hash_join_probe"))),
            ("ragged_groupby_sum_count",
             (("q1-q10", "ragged_groupby_sum_count"),
              ("q11-q20", "ragged_groupby_sum_count"),
-             ("mesh", "ragged_groupby_sum_count"))),
+             ("mesh", "ragged_groupby_sum_count"),
+             ("morsel", "ragged_groupby_sum_count"))),
            ("bitmask_pack", (("q1-q10", "bitmask_pack"),
                              ("q11-q20", "bitmask_pack"),
+                             ("morsel", "bitmask_pack"),
                              ("row conversion", "bitmask_pack"),
                              ("row conversion", "bitmask_pack_fields"),
                              ("roster", "bitmask_pack"),
@@ -3397,6 +3440,418 @@ def run_mesh(dev, gen, rels: dict, oracles: dict, hash_tab: Table, log,
                        if k.startswith(MESH_ROUTES)}}, calls
 
 
+# --------------------------------------------------------------------------
+# The morsel step: q1-q20 with the fact tables streamed from host memory
+# and from Parquet through pinned, double-buffered staging
+# --------------------------------------------------------------------------
+
+MORSEL_NAMES = Q_NAMES  # K1 and K2 on each morsel, K3 in the merge run
+MORSEL_FACTS = ("store_sales", "web_sales", "catalog_sales", "store_returns")
+MORSELS = 8
+MORSEL_POOL = 1 << 30      # the paged pass's pool: the window fits it
+MORSEL_BUDGET = 1 << 28    # the budget-sized and delta passes' window
+DELTA_ROWS = 9_000_000     # store_sales' first ingest batch in the delta pass
+GROUP_ROWS = 1 << 20       # Parquet row-group rows
+DISK_QUERIES = ("q1", "q3", "q9")
+MESH_MORSEL_QUERIES = ("q3", "q9", "q10")
+MESH_MORSELS = 4
+LINK_BYTES = 1 << 30       # the plain pinned-to-device copy
+ZONE_SHARE = 5             # the zone-map filter keeps 1 / ZONE_SHARE of dates
+# (pass, env, morsels, queries): the q1-q10 passes over the host tables
+MORSEL_PASSES = (
+    ("paged", {"SRT_PAGE_POOL_BYTES": str(MORSEL_POOL)}, MORSELS, Q1_10),
+    ("whole-buffer", {"SRT_PAGE_POOL_BYTES": "0"}, MORSELS, Q1_10),
+    ("budget", {"SRT_MORSEL_BYTES": str(MORSEL_BUDGET)}, None, Q1_10))
+
+
+def host_link_rate(dev) -> dict:
+    """One plain copy of LINK_BYTES from pinned host memory to the card,
+    timed with CUDA events (median of 3 after a warm-up): the host link's
+    rate as this machine gives it."""
+    src = torch.empty(LINK_BYTES, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(LINK_BYTES, dtype=torch.uint8, device=dev)
+    dst.copy_(src, non_blocking=True)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        dst.copy_(src, non_blocking=True)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    ms = statistics.median(times)
+    del src, dst
+    return {"bytes": LINK_BYTES, "ms": ms, "gb_per_s": LINK_BYTES / ms / 1e6}
+
+
+def streamed(q: str, tables: dict, morsels, dev, mesh=None):
+    """One streamed run from scratch (no standing state kept from an
+    earlier run): (frame, counters, info, synchronising CUDA calls)."""
+    reset_standing_state()
+    info = {}
+    before = kernel_stats()
+    out, syncs = _count_syncs(lambda: run_morsels(
+        PLANS[q], tables, info, mesh=mesh, morsels=morsels,
+        device=None if mesh is not None else dev))
+    return out.to_df(), stats_since(before), info, syncs
+
+
+def _overlap_ns() -> int:
+    return REGISTRY.histogram("exec.morsel.overlap_ns").snapshot()["sum"]
+
+
+def morsel_query(q: str, tables: dict, morsels, dev, base: int,
+                 incore: dict, card: str, log, profile: bool,
+                 label: str) -> dict:
+    """A warm streamed query: its median of 3 beside the in-core one, the
+    layout, the bytes staged and their rate, the overlap, and the peak
+    memory allocated above the step's ``base`` beside the modeled
+    window and accumulator."""
+    def run(info=None):
+        reset_standing_state()  # stream every morsel, not a delta
+        return run_morsels(PLANS[q], tables, info, morsels=morsels,
+                           device=dev)
+
+    # the first warm run (staging kept from the cold run) gives the
+    # synchronising calls, the layout, the overlap and the peak; the
+    # next three the time
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ov0 = _overlap_ns()
+    info = {}
+    t0 = time.perf_counter()
+    _, syncs = _count_syncs(lambda: run(info))
+    torch.cuda.synchronize()
+    one_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() - base
+    overlap_ns = _overlap_ns() - ov0
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(times)
+    m = info["morsel"]
+    r = {"warm_ms": ms, "incore_warm_ms": incore[q],
+         "n_morsels": m["n_morsels"], "capacity_rows": m["capacity_rows"],
+         "paged": m["paged"], "window_bytes": m["window_bytes"],
+         "acc_bytes": m["acc_bytes"], "h2d_bytes": m["h2d_bytes"],
+         "h2d_gb_per_s": m["h2d_bytes"] / one_ms / 1e6,
+         "overlap_ns": overlap_ns, "peak_above_base": peak,
+         "peak_model_bytes": m["peak_model_bytes"],
+         "warm_cuda_sync_calls": syncs}
+    if profile:
+        r |= profile_run(run, ms, f"morsel {label} {q}", log)
+    log(f"morsel {label} {q}: warm_ms={ms:.3f} incore_warm_ms="
+        f"{incore[q]:.3f} morsels={m['n_morsels']} paged={m['paged']} "
+        f"capacities={json.dumps(m['capacity_rows'], sort_keys=True)} "
+        f"window_bytes={m['window_bytes']} acc_bytes={m['acc_bytes']} "
+        f"h2d_bytes={m['h2d_bytes']} h2d_gb_per_s={r['h2d_gb_per_s']:.2f} "
+        f"overlap_ms={overlap_ns / 1e6:.3f} peak_above_base_mib="
+        f"{peak / 2**20:.1f} peak_model_mib="
+        f"{m['peak_model_bytes'] / 2**20:.1f} warm_cuda_sync_calls={syncs}"
+        f" [{card}]")
+    return r
+
+
+def _require_streamed(q: str, frame, st: dict, info: dict, oracle,
+                      single, what: str, fallback_ok: bool = False) -> None:
+    frames_match(frame, oracle, f"{q} ({what})")
+    if single is not None:
+        frames_match(frame, single, f"{q} ({what} vs in-core)")
+    _require(st.get("rel.host_syncs", 0) <= 1,
+             f"{q} ({what}) counted {st.get('rel.host_syncs', 0)} host "
+             "syncs")
+    if not fallback_ok:
+        _require(st.get("rel.morsel_fallbacks", 0) == 0,
+                 f"{q} ({what}) fell back in-core: {info.get('fallback')}")
+        _require(st.get("exec.morsel.folded", 0)
+                 >= info["morsel"]["n_morsels"] >= 1,
+                 f"{q} ({what}) folded {st.get('exec.morsel.folded', 0)}")
+
+
+def write_parquet(df, path: str) -> None:
+    """``df`` in GROUP_ROWS-row groups, uncompressed (the step times the
+    reader, not a codec)."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    pq.write_table(pa.Table.from_pandas(df, preserve_index=False), path,
+                   row_group_size=GROUP_ROWS, compression="none")
+
+
+def run_morsel(dev, data: dict, rels: dict, oracles: dict, log, card: str,
+               profile: bool = False):
+    """Step 11: q1-q20 with the four fact tables streamed (module
+    docstring). Returns the step's report and the kernel calls of its
+    counted pass (q1-q10 paged at MORSELS morsels)."""
+    t0 = time.perf_counter()
+    host = dict(rels)
+    for f in MORSEL_FACTS:
+        host[f] = HostTable.from_df(data[f])
+    fact_bytes = sum(host[f].nbytes for f in MORSEL_FACTS)
+    log(f"morsel: host tables built in {time.perf_counter() - t0:.3f} s, "
+        f"{fact_bytes} bytes of facts "
+        f"({json.dumps({f: host[f].num_rows for f in MORSEL_FACTS})} rows)")
+    link = host_link_rate(dev)
+    log(f"morsel: host link, one pinned-to-device copy of {LINK_BYTES} "
+        f"bytes: {link['ms']:.3f} ms = {link['gb_per_s']:.2f} GB/s [{card}]")
+    incore, single = {}, {}
+    for q in Q1_10:
+        single[q] = run_fused(PLANS[q], rels, device=dev).to_df()
+        incore[q] = wall_ms(lambda q=q: run_fused(PLANS[q], rels, device=dev))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    out = {"link": link, "fact_bytes": fact_bytes, "passes": {},
+           "incore_warm_ms": incore}
+
+    # each pass once from a cold start, then the counted pass: q1-q10
+    # paged again (the entries warm, as the recording pass finds them),
+    # every launch count set to 0 just before and read just after
+    passes = {}
+    for pname, env, morsels, queries in MORSEL_PASSES:
+        with env_set(env):
+            passes[pname] = {q: streamed(q, host, morsels, dev)
+                             for q in queries}
+    pname, env, morsels, queries = MORSEL_PASSES[0]
+    K.reset_launch_counts()
+    with env_set(env):
+        counted = {q: streamed(q, host, morsels, dev) for q in queries}
+    torch.cuda.synchronize()
+    launches = {n: K.LAUNCHES[n] for n in MORSEL_NAMES}
+    log(f"morsel launches (q1-q10 paged, {MORSELS} morsels): "
+        f"{json.dumps(launches, sort_keys=True)}")
+    for q, (frame, st, info, _) in counted.items():
+        _require_streamed(q, frame, st, info, oracles[q], single[q],
+                          "paged, counted")
+    for (pname, env, morsels, queries) in MORSEL_PASSES:
+        per_query = {}
+        with env_set(env):
+            for q in queries:
+                frame, st, info, syncs = passes[pname][q]
+                _require_streamed(q, frame, st, info, oracles[q], single[q],
+                                  pname)
+                _require(pname == "budget"
+                         or info["morsel"]["paged"] == (pname == "paged"),
+                         f"{q} ({pname}) took the wrong staging route")
+                r = morsel_query(q, host, morsels, dev, base, incore, card,
+                                 log, profile, pname)
+                r |= {"cuda_sync_calls": syncs,
+                      "host_syncs": st.get("rel.host_syncs", 0)}
+                per_query[q] = r
+        routes = {q: passes[pname][q][2]["morsel"]["paged"] for q in queries}
+        log(f"morsel pass {pname}: route "
+            f"{'paged' if all(routes.values()) else 'whole-buffer'}; "
+            f"pool_degraded={sum(passes[pname][q][1].get('exec.morsel.pool_degraded', 0) for q in queries)}")
+        out["passes"][pname] = per_query
+    in_core_syncs = {}
+    for q in Q1_10:
+        _, in_core_syncs[q] = _count_syncs(
+            lambda q=q: run_fused(PLANS[q], rels, device=dev))
+    for pname, per_query in out["passes"].items():
+        for q, r in per_query.items():
+            _require(r["warm_cuda_sync_calls"] <= in_core_syncs[q],
+                     f"{q} ({pname}) streamed made {r['warm_cuda_sync_calls']}"
+                     f" synchronising CUDA calls, in-core {in_core_syncs[q]}")
+    log(f"morsel: q1-q10 on three passes equal the oracle, no fallback, at "
+        f"most one host sync a query, no synchronising call past the "
+        f"in-core run's ({json.dumps(in_core_syncs)})")
+
+    # the default probe's verdict
+    before = kernel_stats()
+    info = {}
+    frame = run_morsels(PLANS["q1"], host, info, device=dev).to_df()
+    st = stats_since(before)
+    frames_match(frame, oracles["q1"], "q1 (default budget)")
+    incore_verdict = st.get("rel.route.morsel.incore", 0) == 1
+    budget = morsel_bytes_budget(dev)
+    log(f"morsel: default probe budget={budget} bytes (headroom "
+        f"{hbm_headroom_bytes(dev)} bytes now: mem_get_info's free bytes "
+        "and the caching allocator's reserve; the budget is 1/8 of it at "
+        "the first probe, pow2-floored), "
+        f"verdict for {fact_bytes} bytes of facts: "
+        f"{'in-core' if incore_verdict else 'streamed'} [{card}]")
+    out["default_probe"] = {"budget_bytes": budget,
+                            "incore": incore_verdict}
+
+    out["delta"] = run_morsel_delta(dev, data, rels, oracles, log)
+    out["disk"] = run_morsel_disk(dev, data, rels, oracles, log, card)
+    out["mesh"] = run_morsel_mesh(dev, host, oracles, log)
+
+    # q11-q20 with the facts streamed
+    fell = {}
+    for q in Q11_20:
+        frame, st, info, syncs = streamed(q, host, MORSELS, dev)
+        _require_streamed(q, frame, st, info, oracles[q], None, "streamed",
+                          fallback_ok=True)
+        if st.get("rel.morsel_fallbacks", 0):
+            fell[q] = info.get("fallback")
+    log("morsel: q11-q20 streamed equal the oracle; in-core fallbacks: "
+        + json.dumps(fell, sort_keys=True))
+    out["q11_q20_fallbacks"] = fell
+
+    # one more counted pass, recording every kernel call's inputs
+    calls, query = [], [None]
+    pname, env, morsels, queries = MORSEL_PASSES[0]
+    with env_set(env), recording(calls, query):
+        for q in queries:
+            query[0] = q
+            reset_standing_state()
+            run_morsels(PLANS[q], host, morsels=morsels, device=dev)
+    torch.cuda.synchronize()
+    for name in MORSEL_NAMES:
+        _require(launches.get(name, 0) > 0,
+                 f"kernel {name} was not launched on the morsel path")
+    out["launches"] = launches
+    del host
+    reset_staging()
+    return out, calls
+
+
+def run_morsel_delta(dev, data: dict, rels: dict, oracles: dict,
+                     log) -> dict:
+    """store_sales' first DELTA_ROWS rows as a host table (the other
+    facts resident), q3 budget-sized, then ``rel_append`` of the rest and
+    q3 again: one morsel folds, provenance delta."""
+    ss = data["store_sales"]
+    ht = HostTable.from_df(ss.iloc[:DELTA_ROWS].reset_index(drop=True))
+    tables = dict(rels, store_sales=ht)
+    reset_standing_state()
+    with env_set({"SRT_MORSEL_BYTES": str(MORSEL_BUDGET)}):
+        first = {}
+        run_morsels(PLANS["q3"], tables, first, device=dev)
+        _require(first.get("provenance") != "delta", "delta: a stale state")
+        _require(first["morsel"]["n_morsels"] == -(-DELTA_ROWS // (
+            first["morsel"]["capacity_rows"]["store_sales"])),
+            f"delta: first run layout {first['morsel']}")
+        t0 = time.perf_counter()
+        rel_append(ht, ss.iloc[DELTA_ROWS:].reset_index(drop=True))
+        append_s = time.perf_counter() - t0
+        info = {}
+        before = kernel_stats()
+        out, syncs = _count_syncs(lambda: run_morsels(
+            PLANS["q3"], tables, info, device=dev))
+        frame, st = out.to_df(), stats_since(before)
+    m = info["morsel"]
+    _require(info.get("provenance") == "delta"
+             and st.get("rel.morsel_delta_reuse", 0) == 1
+             and m["n_morsels"] == 1
+             and m["folded_rows"]["store_sales"] == DELTA_ROWS,
+             f"delta: provenance {info.get('provenance')}, counters {st}, "
+             f"morsel {m}")
+    _require_streamed("q3", frame, st, info, oracles["q3"], None, "delta")
+    log(f"morsel delta: first run {first['morsel']['n_morsels']} morsels of "
+        f"{first['morsel']['capacity_rows']['store_sales']} rows; after "
+        f"rel_append ({append_s:.3f} s) provenance={info['provenance']} "
+        f"folded 1 morsel over folded_rows={m['folded_rows']} "
+        f"cuda_sync_calls={syncs}; equal to the sf={SF} oracle")
+    reset_standing_state()
+    return {"first": first["morsel"], "delta": m, "append_s": append_s}
+
+
+def run_morsel_disk(dev, data: dict, rels: dict, oracles: dict, log,
+                    card: str) -> dict:
+    """The four facts written to Parquet (GROUP_ROWS-row groups) under
+    ``target/``; q1, q3 and q9 streamed from them; then store_sales
+    sorted by ss_sold_date_sk with a zone-mapped ``between`` filter."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "target", "morsel_parquet")
+    os.makedirs(root, exist_ok=True)
+    t0 = time.perf_counter()
+    paths = {}
+    for f in MORSEL_FACTS:
+        paths[f] = os.path.join(root, f"{f}.parquet")
+        write_parquet(data[f], paths[f])
+    ss = data["store_sales"].sort_values("ss_sold_date_sk", kind="stable")
+    sorted_path = os.path.join(root, "store_sales_by_date.parquet")
+    write_parquet(ss, sorted_path)
+    write_s = time.perf_counter() - t0
+    out = {"write_s": write_s, "queries": {}}
+    tables = dict(rels)
+    for f in MORSEL_FACTS:
+        tables[f] = ParquetHostTable(paths[f])
+    try:
+        for q in DISK_QUERIES:
+            read0 = REGISTRY.histogram("io.disk.read_ns").snapshot()["sum"]
+            dec0 = REGISTRY.histogram("io.disk.decode_ns").snapshot()["sum"]
+            t0 = time.perf_counter()
+            frame, st, info, syncs = streamed(q, tables, MORSELS, dev)
+            ms = (time.perf_counter() - t0) * 1e3
+            _require_streamed(q, frame, st, info, oracles[q], None, "disk")
+            io = info["io"]
+            r = {"ms": ms, "io": io, "cuda_sync_calls": syncs,
+                 "read_ms": (REGISTRY.histogram("io.disk.read_ns")
+                             .snapshot()["sum"] - read0) / 1e6,
+                 "decode_ms": (REGISTRY.histogram("io.disk.decode_ns")
+                               .snapshot()["sum"] - dec0) / 1e6}
+            out["queries"][q] = r
+            log(f"morsel disk {q}: {ms:.3f} ms cold, groups_read="
+                f"{io['groups_read']} bytes_read={io['bytes_read']} "
+                f"prefetch_hits={io['prefetch_hits']} misses="
+                f"{io['prefetch_misses']} read_ms={r['read_ms']:.3f} "
+                f"decode_ms={r['decode_ms']:.3f}; equal to the oracle "
+                f"[{card}]")
+    finally:
+        for f in MORSEL_FACTS:
+            tables[f].close()
+    dates = np.sort(ss["ss_sold_date_sk"].unique())
+    lo = int(dates[len(dates) * 2 // ZONE_SHARE])
+    hi = int(dates[len(dates) * 3 // ZONE_SHARE - 1])
+    view = ParquetHostTable(sorted_path, filters=[
+        ("ss_sold_date_sk", "between", (lo, hi))])
+    try:
+        frame, st, info, syncs = streamed(
+            "q3", dict(rels, store_sales=view), MORSELS, dev)
+    finally:
+        view.close()
+    keep = ss[(ss["ss_sold_date_sk"] >= lo) & (ss["ss_sold_date_sk"] <= hi)]
+    oracle = QUERIES["q3"][1](dict(data, store_sales=keep))
+    _require_streamed("q3", frame, st, info, oracle, None, "zone maps")
+    skipped = st.get("exec.morsel.zonemap_skipped", 0)
+    _require(skipped > 0, f"zone maps skipped no chunk: {st}")
+    log(f"morsel disk zone maps: q3 over store_sales sorted by date with "
+        f"ss_sold_date_sk between {lo} and {hi} ({len(keep)} of {len(ss)} "
+        f"rows): zonemap_skipped={skipped} groups_read="
+        f"{info['io']['groups_read']}; equal to the oracle on the filtered "
+        f"frame (write_s={write_s:.3f})")
+    out["zonemap"] = {"skipped": skipped, "rows": len(keep),
+                      "groups_read": info["io"]["groups_read"]}
+    for p in list(paths.values()) + [sorted_path]:
+        os.remove(p)
+    return out
+
+
+def run_morsel_mesh(dev, host: dict, oracles: dict, log) -> dict:
+    """q3, q9 and q10 at MESH_MORSELS morsels over a one-rank NCCL mesh,
+    against the oracle and the single-device streamed run."""
+    mesh, init = mesh_group(dev)
+    out = {}
+    try:
+        for q in MESH_MORSEL_QUERIES:
+            reset_standing_state()
+            single = run_morsels(PLANS[q], host, morsels=MESH_MORSELS,
+                                 device=dev).to_df()
+            frame, st, info, syncs = streamed(q, host, MESH_MORSELS, dev,
+                                              mesh)
+            _require_streamed(q, frame, st, info, oracles[q], single,
+                              "mesh morsel")
+            out[q] = {"n_morsels": info["morsel"]["n_morsels"],
+                      "cuda_sync_calls": syncs,
+                      "routes": {k: v for k, v in st.items()
+                                 if k.startswith("rel.route.")}}
+            log(f"morsel mesh {q}: morsels={info['morsel']['n_morsels']} "
+                f"cuda_sync_calls={syncs} routes="
+                f"{json.dumps(out[q]['routes'], sort_keys=True)}; equal to "
+                f"the oracle and the one-device streamed run")
+    finally:
+        distributed.shutdown()
+        os.remove(init)
+    return out
+
+
 def k3_beside_wall(step: str, phases: list, totals: dict, names: tuple,
                    card: str, log) -> None:
     """Each phase's warm wall time beside the device time of its K3
@@ -3534,7 +3989,7 @@ def main(argv=None) -> int:
     del calls
     oplib, calls, more = run_oplib_path(dev, rels, data, log, args.profile)
     oracles |= more
-    del data, more
+    del more
     log("q11-q20 kernel calls, each equal to its plain version on the "
         "inputs q11-q20 gave it:")
     totals["q11-q20"] = path_kernels(calls, oplib["launches"], Q_NAMES, log)
@@ -3590,13 +4045,25 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     mesh, calls = run_mesh(dev, gen, rels, oracles, hash_tab, log,
                            args.profile)
-    del rels, oracles, hash_tab
+    del hash_tab
     log("mesh kernel calls, each equal to its plain version:")
     totals["mesh"] = path_kernels(calls, mesh["launches"], MESH_NAMES, log,
                                   reps=3)
     del calls
     mesh["step_s"] = time.perf_counter() - t0
     log(f"mesh step: {mesh['step_s']:.3f} s [{card}]")
+
+    t0 = time.perf_counter()
+    morsel, calls = run_morsel(dev, data, rels, oracles, log, card,
+                               args.profile)
+    del data, rels, oracles
+    log("morsel kernel calls, each equal to its plain version on the "
+        "inputs the streamed q1-q10 gave it:")
+    totals["morsel"] = path_kernels(calls, morsel["launches"], MORSEL_NAMES,
+                                    log, reps=3)
+    del calls
+    morsel["step_s"] = time.perf_counter() - t0
+    log(f"morsel step: {morsel['step_s']:.3f} s [{card}]")
 
     t0 = time.perf_counter()
     rows, calls = run_row_conversion(dev, gen, log, args.profile)
@@ -3616,6 +4083,7 @@ def main(argv=None) -> int:
                  "strings": strings["launches"],
                  "roster II": roster2["launches"],
                  "mesh": mesh["launches"],
+                 "morsel": morsel["launches"],
                  "row conversion": rows["launches"]}, card, stress, log)
     if args.out:
         with open(os.path.join(args.out, "chip_smoke_report.json"),
@@ -3626,7 +4094,7 @@ def main(argv=None) -> int:
                        "q11_q20": oplib,
                        "hashing": hashed, "roster": roster,
                        "strings": strings, "roster_ii": roster2,
-                       "mesh": mesh,
+                       "mesh": mesh, "morsel": morsel,
                        "row_conversion": rows,
                        "sf": SF, "seed": SEED}, f, indent=1, sort_keys=True,
                       default=str)

@@ -19,6 +19,17 @@ reduce-scatter), ``SRT_SHUFFLE_JOIN_ROUTE``
 ``SRT_SHUFFLE_INTRA`` (``auto``/``flat``) and ``SRT_SHUFFLE_NEIGHBORHOOD``
 (the neighbourhood size ``g``; below 2 = the flat exchange). Every rank
 of a mesh must read the same values: they decide which collectives run.
+
+The out-of-core knobs (``exec/``) keep the reference's names and
+defaults: ``SRT_MORSEL_BYTES`` (the streamed window's byte budget; unset
+or 0 = the probed headroom), ``SRT_MORSEL_HEADROOM_FRACTION`` (the share
+of the probed free device memory granted to the window, default 1/8),
+``SRT_PAGE_BYTES`` (the page ledger's page size, default 64 KiB),
+``SRT_PAGE_POOL_BYTES`` (the pool's budget, default 256 MiB; 0 or less
+turns the paged staging route off), ``SRT_DISK_PREFETCH_DEPTH`` (row
+groups a Parquet table decodes ahead, default 2), ``SRT_DISK_ZONEMAP``
+(footer zone-map skipping, default on) and ``SRT_STANDING_CACHE_SIZE``
+(standing-query accumulators kept, default 32).
 """
 
 from __future__ import annotations
@@ -39,6 +50,17 @@ def env_int(name: str, default):
         return default
     try:
         return int(v)
+    except ValueError:
+        return default
+
+
+def env_float(name: str, default: float) -> float:
+    """Tolerant float env knob: unset/blank/malformed -> ``default``."""
+    v = os.environ.get(name, "").strip()
+    if not v:
+        return default
+    try:
+        return float(v)
     except ValueError:
         return default
 

@@ -12,19 +12,24 @@ intra,neighborhood,budget_unmet}`` and the wire accounting
 ``shuffle.rounds[.<route>]``, ``shuffle.peak_scratch_bytes``,
 ``shuffle.flat_peak_scratch_bytes``; ``shuffle_table`` counts
 ``shuffle.overflow_rows``, ``shuffle.retry_rounds`` and
-``shuffle.retry_rows``. Every counter is this rank's. Reports, memory,
-SLO, flight-recorder and fleet layers are not ported yet.
+``shuffle.retry_rows``. Every counter is this rank's. The out-of-core
+runner (``exec/``) adds ``exec.morsel.*``, ``rel.morsel_*``, ``io.disk.*``
+and ``mem.pool.*`` counters and gauges, the histograms
+``exec.morsel.overlap_ns`` and ``io.disk.{read,decode,fold}_ns``, and
+``memory.hbm_headroom_bytes``. Reports, SLO, flight-recorder and fleet
+layers are not ported yet.
 """
 
 from .metrics import (  # noqa: F401
     DISPATCH_COUNTER, HOST_SYNC_COUNTER, REGISTRY, count, count_dispatch,
-    count_host_sync, dispatch_counts, kernel_stats, stats_since)
+    count_host_sync, dispatch_counts, gauge, kernel_stats, stats_since)
 from .spans import (  # noqa: F401
     SpanRecord, set_attrs, span, span_records, traced)
 
 __all__ = [
     "DISPATCH_COUNTER", "HOST_SYNC_COUNTER", "REGISTRY", "count",
-    "count_dispatch", "count_host_sync", "dispatch_counts", "kernel_stats",
+    "count_dispatch", "count_host_sync", "dispatch_counts", "gauge",
+    "kernel_stats",
     "stats_since", "SpanRecord", "set_attrs", "span", "span_records",
     "traced",
 ]

@@ -42,8 +42,14 @@ once on the host (the counted ``rel.mask_count`` sync); the live rows
 are then padded to the largest shard's count, gathered, and put through
 the terminal sort or top-k (``rel.route.sort.topk``) and the limit.
 
-The reference's plan caches, AOT tokens and morsel and disk routes
-under a mesh have no counterpart here.
+**Morsels over a mesh.** The morsel runner (``exec/runner.py``) drives
+the same plan with the streamed tables staged a rank's slice of each
+morsel at a time; the operators merge over ranks first, then over
+morsels. The collective outputs keep the morsel flag (a redistributed
+chunk is still a chunk), and the runner reuses this module's result tail
+(``terminal_mask``, ``finish_partitioned``).
+
+The reference's plan caches and AOT tokens have no counterpart here.
 """
 
 from __future__ import annotations
@@ -174,6 +180,7 @@ def all_gather_rel(r: Rel) -> Rel:
     cols = [col_like(c, d, size) for c, d in zip(r.table.columns, datas)]
     out = Rel(Table(cols), r.names, mask=gmask, dicts=r.dicts)
     out.part = "replicated"
+    out.morsel = r.morsel
     count("rel.route.dist.all_gather")
     gathered = ctx.nshards * (table_nbytes(r) + r.num_rows)
     count_route_bytes("all_gather", gathered)
@@ -257,6 +264,8 @@ def exchange_rel(r: Rel, pids: torch.Tensor) -> Rel:
     cols = [col_like(c, d, size) for c, d in zip(r.table.columns, recv)]
     out = Rel(Table(cols), r.names, mask=recv_live, dicts=r.dicts)
     out.part = "sharded"
+    # a redistributed chunk is still a chunk: merges downstream must fire
+    out.morsel = r.morsel
     return out
 
 
@@ -394,20 +403,7 @@ def run_partitioned(plan, rels: "dict[str, Rel]", mesh, axis=None,
             out = plan(rebuilt)
             sort_keys, descending = _sort_meta(out)
             limit = out.limit
-            if out.part == "sharded":
-                if out.pending_sort is not None and out.limit is not None:
-                    # terminal sort + LIMIT k: each shard sorts its live
-                    # rows and keeps its top k; the global top k is among
-                    # the k * P survivors
-                    count("rel.route.sort.topk")
-                    out = out._flush_sort()
-                mask = live_mask(out)
-            else:
-                # replicated (or fresh) result: every shard holds the same
-                # copy; only shard 0's rows stay live
-                mask = live_mask(out)
-                if idx != 0:
-                    mask = torch.zeros_like(mask)
+            out, mask = terminal_mask(out, idx)
     except FusedFallback:
         out = None
     finally:
@@ -418,13 +414,43 @@ def run_partitioned(plan, rels: "dict[str, Rel]", mesh, axis=None,
         return _fallback(plan, rels, dev, pname)
     count("shuffle.peak_scratch_bytes", ctx.scratch_peak)
     count_dispatch("rel.dist_program")
+    return finish_partitioned(out, mask, aux, (sort_keys, descending, limit),
+                              ctx, dev)
 
+
+def terminal_mask(out: Rel, idx: int) -> "tuple[Rel, torch.Tensor]":
+    """A plan's terminal rel and this rank's live mask over it: sharded
+    rows keep their own mask (a terminal sort + LIMIT k first cuts each
+    shard to its top k: the global top k is among the k * P survivors);
+    a replicated (or fresh) result keeps only shard 0's rows live."""
+    if out.part == "sharded":
+        if out.pending_sort is not None and out.limit is not None:
+            count("rel.route.sort.topk")
+            out = out._flush_sort()
+        return out, live_mask(out)
+    mask = live_mask(out)
+    if idx != 0:
+        mask = torch.zeros_like(mask)
+    return out, mask
+
+
+def finish_partitioned(out: Rel, mask: torch.Tensor, aux: list,
+                       order: tuple, ctx: DistTrace, dev,
+                       sync_site: str = "rel.mask_count") -> Rel:
+    """The partitioned run's tail, shared with the morsel runner's merge
+    run over a mesh: every shard's live count and runtime counters in
+    one all_gather, read once on the host (counted under ``sync_site``);
+    then every shard's live rows padded to the largest count, gathered,
+    and put through the terminal sort (``order`` = sort keys, descending
+    flags, limit) and the limit."""
+    sort_keys, descending, limit = order
+    axis, mesh, idx, p = ctx.axis, ctx.mesh, ctx.index, ctx.nshards
     # THE per-rank host sync: every shard's live count and runtime
     # counters, gathered into a (p, 1 + n_aux) block and read once
     local = torch.stack([mask.sum(dtype=torch.int64)]
                         + [v.to(dev).reshape(()) for _, v in aux])
     block = all_gather_rows(local.reshape(1, -1), axis, mesh)
-    count_host_sync("rel.mask_count")
+    count_host_sync(sync_site)
     nv = block.tolist()
     n_each = [int(row[0]) for row in nv]
     for j, (aname, _) in enumerate(aux):

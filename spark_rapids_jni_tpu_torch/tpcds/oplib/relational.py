@@ -14,7 +14,15 @@ collective routes: presence-psum membership, the reduce-scatter join and
 the shuffle-hash join, else an all_gather; dense groupbys over sharded
 rows merge their per-shard partials in two phases (all-reduce or
 reduce-scatter). Every route is chosen from facts every rank shares, so
-all ranks run the same collectives. The morsel routes are not ported.
+all ranks run the same collectives.
+
+In a morsel run (``exec/runner.py``) a streamed chunk plays the same
+two-phase game over time: a dense groupby's per-chunk partial folds into
+the cross-morsel accumulator (``rel.route.groupby.two_phase.morsel``;
+under a mesh the ranks' partials all-reduce first), and a semi/anti join
+whose build side streams ORs per-chunk presence bitmaps
+(``rel.route.join.presence_morsel.{semi,anti}``). Any other join with a
+streamed build side raises ``FusedFallback``.
 """
 
 from __future__ import annotations
@@ -381,6 +389,7 @@ def _reduce_scatter_join(left, right, left_on, right_on, how: str, geom):
                   mask=dist.live_mask(probe) & found, dicts=dicts)
     count(f"rel.route.join.reduce_scatter.{how}")
     out.part = "sharded"
+    out.morsel = probe.morsel
     return out
 
 
@@ -444,6 +453,34 @@ def join(left, right, left_on, right_on, how: str = "inner"):
     (eagerly only) the general sort-merge kernels."""
     Rel = _rel.Rel
     build = right
+    if _rel._MORSEL_CTX is not None and right.morsel:
+        # a streamed build side exists one chunk at a time, so its only
+        # cross-morsel route is membership: per-chunk presence bitmaps
+        # OR-merged through the accumulator (under a mesh the ranks'
+        # bitmaps all-reduce first). Anything else runs in-core.
+        mctx, dctx = _rel._MORSEL_CTX, _rel._DIST_CTX
+        if (how in ("semi", "anti") and len(left_on) == 1
+                and len(right_on) == 1 and not left.morsel):
+
+            def morsel_or(present):
+                if dctx is not None and right.part == "sharded":
+                    from .. import dist
+                    nbytes = dctx.nshards * int(present.shape[0]) * 4
+                    dist.count_route_bytes("psum", nbytes)
+                    dctx.note_scratch(2 * int(present.shape[0]) * 4)
+                    present = dctx.all_reduce(present.to(torch.int32)) > 0
+                return mctx.merge(present, "or")
+
+            out = presence_membership(left, right, left.col(left_on[0]),
+                                      right.col(right_on[0]), how,
+                                      merge=morsel_or)
+            if out is not None:
+                count(f"rel.route.join.presence_morsel.{how}")
+                set_attrs(route="presence_morsel")
+                return out
+        raise _rel.FusedFallback(
+            f"{how} join with a streamed build side on {right_on} has no "
+            "cross-morsel form")
     if _rel._DIST_CTX is not None and right.part == "sharded":
         from .. import dist
         routed = route_sharded_build_join(left, right, left_on, right_on,
@@ -545,7 +582,12 @@ def dense_groupby(rel, keys, aggs):
     space (K2 on the card), then one collective a partial merges them:
     an all-reduce for slot spaces up to ``SRT_GROUPBY_PSUM_WIDTH``
     (replicated result), a reduce-scatter past it (each shard owns a
-    contiguous slice of the slots)."""
+    contiguous slice of the slots).
+
+    Over a streamed chunk of a morsel run the partials also fold into
+    the cross-morsel accumulator, after the ranks' all-reduce under a
+    mesh (the accumulator is replicated, so the scattered merge is not
+    taken there); the result is a whole-stream value."""
     Rel = _rel.Rel
     if rel.num_rows == 0:
         return None
@@ -573,20 +615,27 @@ def dense_groupby(rel, keys, aggs):
 
     merge = None
     ctx = _rel._DIST_CTX
+    morsel = _rel._MORSEL_CTX is not None and rel.morsel
     if ctx is not None and rel.part == "sharded":
         from .. import dist
-        merge = ("replicated" if width <= dist.psum_width_cap()
+        merge = ("replicated"
+                 if morsel or width <= dist.psum_width_cap()
                  else "scattered")
         count(f"rel.route.groupby.two_phase.{merge}")
+    if morsel:
+        count("rel.route.groupby.two_phase.morsel")
 
     def merged(partial, op="sum"):
-        if merge is None:
-            return partial
-        from .. import dist
-        dist.count_merge_bytes(partial, merge)
-        fn = (dense_merge_replicated if merge == "replicated"
-              else dense_merge_scattered)
-        return fn(partial, ctx.axis, op, mesh=ctx.mesh)
+        out = partial
+        if merge is not None:
+            from .. import dist
+            dist.count_merge_bytes(partial, merge)
+            fn = (dense_merge_replicated if merge == "replicated"
+                  else dense_merge_scattered)
+            out = fn(partial, ctx.axis, op, mesh=ctx.mesh)
+        if morsel:
+            out = _rel._MORSEL_CTX.merge(out, op)
+        return out
 
     # one accumulation pass per (column, accumulator): raw dtype for
     # sums, float64 for means; a nullable column's validity folds into
@@ -649,7 +698,11 @@ def dense_groupby(rel, keys, aggs):
         out_cols.append(Column(rdt, out_width, data.to(rdt.to_torch())))
     out = Rel(Table(out_cols), list(keys) + [o for _, _, o in aggs],
               mask=present, dicts=rel._sub_dicts(keys))
-    if merge is not None:
+    if morsel:
+        # the merged result is a whole-stream value (out.morsel stays
+        # False), replicated when the ranks merged, plain otherwise
+        out.part = "replicated" if merge is not None else None
+    elif merge is not None:
         out.part = "replicated" if merge == "replicated" else "sharded"
     else:
         out.part = rel.part

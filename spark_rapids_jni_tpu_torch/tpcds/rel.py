@@ -46,7 +46,19 @@ replicated side keeps that side on shard 0 only, an unsorted ``head`` of
 sharded rows leaves the fused route, and the joins, groupbys and windows
 of ``tpcds/oplib`` pick their collective routes.
 
-The morsel, batched, result-cache and report layers are not ported yet.
+**Out-of-core execution.** ``run_fused(plan, rels, morsels=...)``, or
+any ``rels`` value that is a host table (``exec.HostTable``,
+``exec.ParquetHostTable``), routes to the morsel runner
+(``exec/runner.py``): the streamed tables reach the plan one
+capacity-sized chunk at a time as rels flagged ``morsel``, and every
+operator that needs the whole stream (dense groupby partials, presence
+bitmaps, masked scalar sums, runtime counters) folds its chunk's partial
+through ``_MORSEL_CTX.merge`` into an accumulator on the device. The flag
+rides ``_inherit_part`` like the partitioning tag; a mid-plan sort, a
+window or a union over streamed rows has no chunked form and raises
+``FusedFallback`` (the runner then runs the plan in-core).
+
+The batched, result-cache and report layers are not ported yet.
 """
 
 from __future__ import annotations
@@ -80,6 +92,13 @@ _FUSED_TRACING = False  # True only while run_fused runs a plan fused
 # need. None = single-device semantics.
 _DIST_CTX = None
 
+# Active morsel run (exec/runner.py sets it while a plan runs over one
+# chunk of the streamed tables): rels flagged ``morsel`` hold one chunk,
+# and every cross-morsel merge point calls ``_MORSEL_CTX.merge``. May be
+# active together with _DIST_CTX (a mesh morsel run merges over ranks,
+# then over morsels). None = in-core semantics.
+_MORSEL_CTX = None
+
 # Runtime-counter channel: (name, 0-d int64 device tensor) pairs that
 # operators record while run_fused runs a plan; None outside it.
 _TRACE_AUX: "Optional[list]" = None
@@ -96,6 +115,11 @@ def note_runtime_count(name: str, value, rel: "Optional[Rel]" = None
     if _DIST_CTX is not None and (rel is None or rel.part != "sharded") \
             and _DIST_CTX.index != 0:
         v = torch.zeros_like(v)
+    if _MORSEL_CTX is not None and rel is not None and rel.morsel:
+        # a count over streamed rows sums its morsels through the
+        # accumulator; one over resident rows is recounted exactly by the
+        # merge run
+        v = _MORSEL_CTX.merge(v, "sum")
     if _TRACE_AUX is not None:
         _TRACE_AUX.append((name, v))
     else:
@@ -105,10 +129,13 @@ def note_runtime_count(name: str, value, rel: "Optional[Rel]" = None
 def _inherit_part(out: "Rel", *src: "Rel") -> "Rel":
     """Propagate the partitioning tag through a shard-local op: any
     sharded input makes the output sharded, else replicated inputs stay
-    replicated (collective ops set ``part`` themselves)."""
+    replicated (collective ops set ``part`` themselves). The morsel flag
+    rides the same way: anything derived from a streamed chunk is a chunk
+    until a cross-morsel merge makes a whole-stream value."""
     parts = {r.part for r in src}
     out.part = ("sharded" if "sharded" in parts
                 else "replicated" if "replicated" in parts else None)
+    out.morsel = any(r.morsel for r in src)
     return out
 
 
@@ -194,7 +221,10 @@ class Rel:
     ``part`` is the partitioning tag of a partitioned run
     (``tpcds/dist.py``): ``"sharded"`` (this rank's row chunk),
     ``"replicated"`` (every rank holds the same full copy) or None (one
-    device, or a freshly built rel, read as replicated)."""
+    device, or a freshly built rel, read as replicated). ``morsel`` is
+    True while a morsel run holds one chunk of a streamed table here
+    (``exec/runner.py``): aggregations over it merge across morsels, and
+    it is never a plain join build side."""
 
     def __init__(self, table: Table, names: Sequence[str],
                  mask: Optional[torch.Tensor] = None,
@@ -212,6 +242,7 @@ class Rel:
         self.pending_sort = pending_sort
         self.limit = limit
         self.part = None
+        self.morsel = False
 
     @property
     def num_rows(self) -> int:
@@ -236,6 +267,10 @@ class Rel:
         reached when an op follows sort()."""
         if self.pending_sort is None:
             return self
+        if _MORSEL_CTX is not None and self.morsel:
+            # a sort mid-plan orders one chunk, not the stream; only the
+            # terminal sort + LIMIT has a morsel form (exec/runner.py)
+            raise FusedFallback("sort over a streamed rel mid-plan")
         by, desc = self.pending_sort
         cols = [self.table.columns[self.names.index(n)] for n in by]
         if self.mask is None:
@@ -302,6 +337,10 @@ class Rel:
                                                          0).sum()
         if self._sharded():
             s = _DIST_CTX.all_reduce(s)
+        if _MORSEL_CTX is not None and self.morsel:
+            # the chunk's partial folds into the accumulator; downstream
+            # sees the whole stream's sum
+            s = _MORSEL_CTX.merge(s, "sum")
         return s
 
     def count_where(self, where=None) -> torch.Tensor:
@@ -318,6 +357,8 @@ class Rel:
         c = sel.sum(dtype=torch.int64)
         if self._sharded():
             c = _DIST_CTX.all_reduce(c)
+        if _MORSEL_CTX is not None and self.morsel:
+            c = _MORSEL_CTX.merge(c, "sum")
         return c
 
     # -- materialization ---------------------------------------------------
@@ -434,6 +475,9 @@ class Rel:
         out_name)`` (kinds row_number / rank / sum / count) over the
         partitions of ``partition_by`` ordered by ``order_by``; the
         ``window`` operator (``tpcds/oplib/windows.py``)."""
+        if _MORSEL_CTX is not None and self.morsel:
+            # a window frame needs whole partitions; a chunk has none
+            raise FusedFallback("window over a streamed rel")
         with span("rel.window", keys=",".join(partition_by),
                   rows=self.num_rows, n_funcs=len(funcs)):
             return _dispatch("window", self._flush_sort(),
@@ -457,6 +501,10 @@ class Rel:
         schemas; masks concatenate, so it stays fused."""
         a = self._flush_sort()
         b = other._flush_sort()
+        if _MORSEL_CTX is not None and a.morsel != b.morsel:
+            # streamed with resident: the resident rows would count once a
+            # morsel; the in-core run takes this shape
+            raise FusedFallback("concat of a streamed and a resident rel")
         if (_DIST_CTX is not None and a.part != b.part
                 and "sharded" in (a.part, b.part)):
             # sharded + replicated: a full copy on every shard would count
@@ -573,7 +621,7 @@ def _check_device(rels: "dict[str, Rel]", dev: torch.device) -> None:
 
 
 def run_fused(plan, rels: "dict[str, Rel]", device=None, mesh=None,
-              axis=None) -> Rel:
+              axis=None, *, morsels=None) -> Rel:
     """Execute ``plan(rels) -> Rel`` with the planner flag set, then
     materialize once: at most one data-dependent host sync per query
     (counter-asserted through ``rel.host_syncs``), which also reads every
@@ -590,7 +638,22 @@ def run_fused(plan, rels: "dict[str, Rel]", device=None, mesh=None,
     the mesh's data axis (``axis``, default ``parallel.data_axes``) with
     its collectives on the mesh's process groups, still one counted host
     sync per rank, and every rank gets the same result
-    (``tpcds/dist.py``). ``device`` then defaults to the mesh's."""
+    (``tpcds/dist.py``). ``device`` then defaults to the mesh's.
+
+    **Out-of-core.** When any ``rels`` value is a host table
+    (``exec.HostTable``, ``exec.ParquetHostTable``), or ``morsels`` is
+    given, the run goes to the morsel runner (``exec/runner.py``): the
+    host tables stream to the device in fixed-capacity chunks through
+    pinned, double-buffered staging, the plan folds each chunk into an
+    accumulator on the device, and one merge run finishes the query.
+    ``morsels`` is None (sized to ``SRT_MORSEL_BYTES`` or the probed free
+    memory), an int (at least that many morsels) or an
+    ``exec.MorselPlan``."""
+    if morsels is not None or any(getattr(r, "is_host_table", False)
+                                  for r in rels.values()):
+        from ..exec import runner
+        return runner.run_morsels(plan, rels, None, mesh=mesh, axis=axis,
+                                  morsels=morsels, device=device)
     if mesh is not None:
         from . import dist
         return dist.run_partitioned(plan, rels, mesh, axis=axis,
@@ -624,6 +687,16 @@ def _run_fused_impl(plan, rels: "dict[str, Rel]", dev: torch.device) -> Rel:
         count(f"rel.fused_fallbacks.{pname}")
         return plan(rels).compact()
     count_dispatch("rel.fused_program")
+    return finish_fused(out, aux)
+
+
+def finish_fused(out: Rel, aux: list, sync_site: "Optional[str]" = None
+                 ) -> Rel:
+    """The single-device fused run's tail, shared with the morsel
+    runner's merge run: the live-row count and every runtime counter in
+    one host read (counted under ``sync_site``, by default
+    ``rel.mask_count`` or ``rel.aux_count``), then compaction, the
+    terminal sort, the limit and the validity pack (K3)."""
     cols = out.table.columns
     datas = [c.data for c in cols]
     valids = [None if c.validity is None else c.valid_bool() for c in cols]
@@ -638,12 +711,12 @@ def _run_fused_impl(plan, rels: "dict[str, Rel]", dev: torch.device) -> Rel:
     n = out.num_rows
     if out.mask is not None or aux:
         # the live-row count and every runtime counter in one host read
-        count_host_sync("rel.mask_count" if out.mask is not None
-                        else "rel.aux_count")
+        count_host_sync(sync_site or (
+            "rel.mask_count" if out.mask is not None else "rel.aux_count"))
         head = [out.mask.sum(dtype=torch.int64)] if out.mask is not None \
             else []
-        read = torch.stack(head + [v.to(out.device) for _, v in aux]) \
-            .tolist()
+        read = torch.stack(head + [v.to(out.device).reshape(())
+                                   for _, v in aux]).tolist()
         if out.mask is not None:
             n = read.pop(0)
         for (aname, _), v in zip(aux, read):

@@ -1146,3 +1146,123 @@ def test_cuda_nccl_shuffle_table_keeps_every_row(nccl_mesh, strings):
             assert st.get("shuffle.retry_rounds", 0) >= 1
         for a, b in zip(got.columns, table.columns):
             assert a.to_pylist() == b.to_pylist()
+
+
+# --------------------------------------------------------------------------
+# The morsel pump on the card: pinned, double-buffered staging
+# --------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def morsel_tables():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the pump stages through pinned "
+                    "memory and a copy stream on the card")
+    from spark_rapids_jni_tpu_torch.exec import HostTable
+    from spark_rapids_jni_tpu_torch.tpcds import generate
+    from spark_rapids_jni_tpu_torch.tpcds.rel import rel_from_df
+    data = generate(sf=2, seed=7)
+    rels = {n: rel_from_df(df, device="cuda") for n, df in data.items()}
+    host = dict(rels)
+    for f in ("store_sales", "web_sales", "catalog_sales", "store_returns"):
+        host[f] = HostTable.from_df(data[f])
+    return rels, host
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["268435456", "0"], ids=["paged", "whole"])
+@pytest.mark.parametrize("qname", [f"q{i}" for i in range(1, 11)])
+def test_cuda_morsel_pump_equals_incore(morsel_tables, qname, pool,
+                                        monkeypatch):
+    from spark_rapids_jni_tpu_torch.exec import reset_standing_state
+    from spark_rapids_jni_tpu_torch.exec.runner import run_morsels
+    from spark_rapids_jni_tpu_torch.obs import kernel_stats, stats_since
+    from spark_rapids_jni_tpu_torch.tpcds import PLANS
+    from spark_rapids_jni_tpu_torch.tpcds.rel import run_fused
+    rels, host = morsel_tables
+    monkeypatch.setenv("SRT_PAGE_POOL_BYTES", pool)
+    reset_standing_state()
+    want = run_fused(PLANS[qname], rels).to_df()
+    K.reset_launch_counts()
+    before = kernel_stats()
+    info = {}
+    got = run_morsels(PLANS[qname], host, info, morsels=5).to_df()
+    st = stats_since(before)
+    _frames_equal(got, want, f"{qname} streamed ({pool})")
+    assert st.get("rel.morsel_fallbacks", 0) == 0, st
+    assert st.get("rel.host_syncs", 0) <= 1, st
+    assert info["morsel"]["paged"] == (pool != "0")
+    assert st.get("exec.morsel.folded", 0) >= 5
+    if qname == "q6":  # its groupby folds through K2 every morsel
+        assert K.LAUNCHES["ragged_groupby_sum_count"] >= 5
+    # the planner sends a chunk's probe to K1 by its sizes, as in-core
+    assert (K.LAUNCHES["hash_join_probe"] > 0) == (
+        st.get("rel.route.join.probe.cuda", 0) > 0)
+
+
+@pytest.mark.cuda
+def test_cuda_staging_pinned_and_no_stale_rows(morsel_tables):
+    import numpy as np
+    from spark_rapids_jni_tpu_torch.exec.runner import _Staging
+    dev = torch.device("cuda")
+    layout = (("t", "a", np.dtype(np.int64).str, 1000),
+              ("t", "b", np.dtype(np.float32).str, 1000))
+    st = _Staging(layout, dev)
+    assert all(h.is_pinned() for h in st.host)
+    a = np.arange(1000, dtype=np.int64) + 7
+    b = np.linspace(0, 1, 1000, dtype=np.float32)
+    st.fill(0, [a, b], None)
+    st.acquire(0)
+    assert torch.equal(st.views[0][0].cpu(), torch.from_numpy(a))
+    st.release(0)
+    # a paged refill of 100 live rows (pages of 256 rows): the live
+    # pages copy, the rows past them that the slot held are zeroed
+    st.fill(0, [a[:100], b[:100]], [256, 256])
+    st.acquire(0)
+    got = st.views[0][0].cpu().numpy()
+    assert (got[:100] == a[:100]).all() and (got[100:] == 0).all()
+    assert (st.views[0][1].cpu().numpy()[100:] == 0).all()
+    st.release(0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_morsel_budget_from_free_memory(morsel_tables, monkeypatch):
+    from spark_rapids_jni_tpu_torch.exec import (morsel_bytes_budget,
+                                                 reset_morsel_budget_probe)
+    monkeypatch.delenv("SRT_MORSEL_BYTES", raising=False)
+    reset_morsel_budget_probe()
+    try:
+        free, _ = torch.cuda.mem_get_info()
+        free += torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
+        budget = morsel_bytes_budget(torch.device("cuda"))
+        assert budget & (budget - 1) == 0
+        assert budget <= free * 0.125 < 2 * budget * 1.05
+    finally:
+        reset_morsel_budget_probe()
+
+
+@pytest.mark.cuda
+def test_cuda_morsel_pump_adds_no_sync(morsel_tables):
+    import warnings
+    from spark_rapids_jni_tpu_torch.exec.runner import run_morsels
+    from spark_rapids_jni_tpu_torch.tpcds import PLANS
+    from spark_rapids_jni_tpu_torch.tpcds.rel import run_fused
+    rels, host = morsel_tables
+
+    def syncs(fn):
+        fn()  # warm
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        # (the mode's own notice, "Synchronization debug mode is a
+        # prototype feature", is not a synchronising call)
+        return sum("called a synchronizing" in str(w.message)
+                   for w in caught)
+
+    streamed = syncs(lambda: run_morsels(PLANS["q3"], host, morsels=8))
+    incore = syncs(lambda: run_fused(PLANS["q3"], rels))
+    assert streamed <= incore, (streamed, incore)
