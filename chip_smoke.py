@@ -176,6 +176,42 @@ In order, it:
    route and ``shuffle.*`` counters and the synchronising CUDA calls
    (under ``--profile`` also the device time of the NCCL kernels), and
    the step's peak memory allocated;
+10b. the serving step, with ``SRT_METRICS`` on, on step 3's tables and
+   step 10's mesh: q1-q20 through ``run_fused`` serially three times (the
+   baseline; the peak memory allocated reset before each query), then
+   served three times by ``QueryExecutor(device=cuda, max_queue=8,
+   max_in_flight=16)``, one request a query submitted from the main
+   thread while the oldest results decode, the launch counts set to 0
+   just before the first pass and read just after, and once more
+   recording every kernel call (held against its plain version, exact).
+   It requires every served result to equal the pandas oracle and the
+   serial result, one ExecutionReport a served query under its handle's
+   qid with at most one host sync, provenance ``eager`` and the device's
+   ``mem.device.0.*`` watermarks, and K1-K3 launched; it prints each
+   query's serial median beside the served execute and latency medians,
+   the report's modeled peak beside the measured per-query peak, both
+   passes' wall times, the q3 report in full, and whether the kernel
+   library's build was recorded as a compile event. Then: q1-q10's
+   tables ingested again with ``SRT_RESULT_CACHE_BYTES`` 1 GiB and q1-q10
+   served twice on each tier (whole entries, ``SRT_PAGE_POOL_BYTES=0``;
+   page-rounded entries leased from a 1 GiB page pool): the second pass
+   must hit (provenance ``result_cache``), launch no kernel and count no
+   host sync, and equal the oracle; a one-row change of store_sales must
+   miss, and so must q3 on equal sf=2 content filled on the card and run
+   on the CPU. With
+   ``SRT_FAULTS``-style injections (``dispatch:raise:1,alloc:retry_oom:1``)
+   two requests reject with ``InjectedFault`` and ``RetryOOM``
+   (``retry_action``: ``retry``, ``retry_oom``; ``serving.failed``) and
+   the next serves; ``block=False`` on a full queue raises ``queue.Full``
+   (``serving.rejected``); ``obs/server.py`` on port 0 serves
+   ``/metrics`` (parsed; ``serving.completed``, ``serving.slo.*``,
+   ``mem.device.0.*``), ``/healthz`` (200) and ``/reports?n=3`` (the three
+   newest); and q1-q20 served once over the mesh at threshold 8192 with
+   the ``exchange`` join route (launch counts from 0, every call
+   recorded) must equal the oracle and the one-device results, each
+   report's ``shuffle`` section its ``shuffle.*`` counters, with K5
+   launched on the shuffle-hash joins' keys; it prints the scratch
+   budget the ranks agreed;
 11. the morsel step (out-of-core execution, ``exec/``): the four fact
    tables of step 3's frames (1,346,648,000 bytes) become host tables
    and the dimensions stay on the card. It prints one plain copy of
@@ -226,7 +262,8 @@ In order, it:
    device time of its K6 (to rows) or K3 (from rows) calls (the rest is
    host work, other kernels and idle card);
 13. prints the ``kernels`` JSON line (K1-K6, each with its launches on
-    its paths: K1-K3 on q1-q10, q11-q20 and the morsel step, K3 also on
+    its paths: K1-K3 on q1-q10, q11-q20, the served path and the morsel
+    step, the kernels launched serving over the mesh, K3 also on
     the roster, the strings step, roster II and, in its table form, on
     the row conversions and nested rows, and K1-K6 on the mesh), the card
     again, and as the last line ``{"ok": true, "device": {...}}``.
@@ -239,11 +276,15 @@ function, and the bound: the larger of the bytes the function must move
 over the card's 3.35 TB/s and its operations over 67 T/s, or, for K2,
 the updates of its busiest slot at one shared-memory atomic per SM
 clock. The ``kernels`` line sums each kernel over its calls on its
-paths: K1-K3 over q1-q10, q11-q20 and the morsel step's counted pass,
+paths: K1-K3 over q1-q10, q11-q20, the served path's counted pass and
+the morsel step's,
 K4 and K5 over the hashing step, K3 over the roster, the strings step
 and roster II, K6 and K3's table form over the row-conversion step, and
-all of them over the mesh step (the mesh and morsel steps time 3 runs a
-call, to keep them short).
+all of them over the mesh step and the mesh-served pass (the mesh,
+serving and morsel steps time 3 runs a call, to keep them short). The
+morsel step's first warm run of each query and its Parquet runs turn
+``SRT_METRICS`` on, so the overlap and io histograms record; its timed
+medians run with it off.
 
 ``--profile`` adds one warm run of each query, table hash, roster,
 strings and roster II phase, mesh query and row conversion under
@@ -265,6 +306,7 @@ their query times without the rest of the smoke around them.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import datetime as pydt
 import decimal
@@ -272,11 +314,15 @@ import inspect
 import json
 import math
 import os
+import queue
 import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import urllib.error
+import urllib.request
 import warnings
 from zoneinfo import ZoneInfo
 
@@ -289,11 +335,13 @@ from spark_rapids_jni_tpu_torch.columnar import Column, Table, bitmask
 from spark_rapids_jni_tpu_torch.columnar.strings import (
     byte_matrix, lengths as str_lengths, strings_from_matrix)
 from spark_rapids_jni_tpu_torch.exec import (HostTable, ParquetHostTable,
-                                             morsel_bytes_budget,
+                                             morsel_bytes_budget, pages,
                                              rel_append,
                                              reset_standing_state)
 from spark_rapids_jni_tpu_torch.exec.runner import reset_staging, run_morsels
+from spark_rapids_jni_tpu_torch import obs
 from spark_rapids_jni_tpu_torch.obs import REGISTRY, kernel_stats, stats_since
+from spark_rapids_jni_tpu_torch.obs import server as obs_server
 from spark_rapids_jni_tpu_torch.obs.memory import hbm_headroom_bytes
 from spark_rapids_jni_tpu_torch.ops import cuda_kernels as K
 from spark_rapids_jni_tpu_torch.ops import (bloom_filter, groupby, hashing,
@@ -315,8 +363,11 @@ from spark_rapids_jni_tpu_torch.ops.get_json_object import (_eval_py,
 from spark_rapids_jni_tpu_torch.ops.sort import gather_column
 from spark_rapids_jni_tpu_torch.parallel import (distributed, make_mesh,
                                                  shuffle_table)
-from spark_rapids_jni_tpu_torch.tpcds import PLANS, QUERIES, generate
+from spark_rapids_jni_tpu_torch.serving import (QueryExecutor, reliability,
+                                                result_cache)
+from spark_rapids_jni_tpu_torch.tpcds import PLANS, QUERIES, dist, generate
 from spark_rapids_jni_tpu_torch.tpcds.rel import rel_from_df, run_fused
+from spark_rapids_jni_tpu_torch.utils import faults
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate
 SCALAR_OPS_PER_S = 67e12     # H100 SXM rate outside the tensor cores
@@ -333,14 +384,20 @@ NAMES = tuple(dict.fromkeys(Q_NAMES + HASH_NAMES + ROW_NAMES))
 KERNELS = (("hash_join_probe", (("q1-q10", "hash_join_probe"),
                                  ("q11-q20", "hash_join_probe"),
                                  ("mesh", "hash_join_probe"),
+                                 ("serving", "hash_join_probe"),
+                                 ("serving mesh", "hash_join_probe"),
                                  ("morsel", "hash_join_probe"))),
            ("ragged_groupby_sum_count",
             (("q1-q10", "ragged_groupby_sum_count"),
              ("q11-q20", "ragged_groupby_sum_count"),
              ("mesh", "ragged_groupby_sum_count"),
+             ("serving", "ragged_groupby_sum_count"),
+             ("serving mesh", "ragged_groupby_sum_count"),
              ("morsel", "ragged_groupby_sum_count"))),
            ("bitmask_pack", (("q1-q10", "bitmask_pack"),
                              ("q11-q20", "bitmask_pack"),
+                             ("serving", "bitmask_pack"),
+                             ("serving mesh", "bitmask_pack"),
                              ("morsel", "bitmask_pack"),
                              ("row conversion", "bitmask_pack"),
                              ("row conversion", "bitmask_pack_fields"),
@@ -349,13 +406,17 @@ KERNELS = (("hash_join_probe", (("q1-q10", "hash_join_probe"),
                              ("strings", "bitmask_pack"),
                              ("roster II", "bitmask_pack"),
                              ("mesh", "bitmask_pack"),
-                             ("mesh", "bitmask_pack_fields"))),
+                             ("mesh", "bitmask_pack_fields"),
+                             ("serving mesh", "bitmask_pack_fields"))),
            ("murmur3_int32", (("hashing", "murmur3_int32"),
-                              ("mesh", "murmur3_int32"))),
+                              ("mesh", "murmur3_int32"),
+                              ("serving mesh", "murmur3_int32"))),
            ("murmur3_int64", (("hashing", "murmur3_int64"),
-                              ("mesh", "murmur3_int64"))),
+                              ("mesh", "murmur3_int64"),
+                              ("serving mesh", "murmur3_int64"))),
            ("pack_rows", (("row conversion", "pack_rows"),
-                          ("mesh", "pack_rows"))))
+                          ("mesh", "pack_rows"),
+                          ("serving mesh", "pack_rows"))))
 HASH_ROWS, HASH_CPU_ROWS = 10_000_000, 1_000_000
 # the wrappers as the port defines them (the recording pass swaps the
 # module's names for recorders that call these)
@@ -3324,7 +3385,9 @@ def mesh_shuffles(mesh, tables: dict, query: list) -> dict:
 def run_mesh(dev, gen, rels: dict, oracles: dict, hash_tab: Table, log,
              profile: bool = False):
     """Step 10: q1-q20 over a one-rank NCCL mesh, every route and
-    collective, and shuffle_table; the kernels launched on the way."""
+    collective, and shuffle_table; the kernels launched on the way.
+    Returns the step's report, its kernel calls and (mesh, init file):
+    the group stays open for the serving step."""
     torch.cuda.reset_peak_memory_stats()
     mesh, init = mesh_group(dev)
     log(f"mesh: {mesh!r} backend={distributed.process_info()['backend']}")
@@ -3432,12 +3495,397 @@ def run_mesh(dev, gen, rels: dict, oracles: dict, hash_tab: Table, log,
     for name in MESH_NAMES:
         _require(launches.get(name, 0) > 0,
                  f"kernel {name} was not launched on the mesh path")
-    distributed.shutdown()
-    os.remove(init)
     return {"per_query": per_query, "shuffles": shuffles,
             "launches": launches, "peak_bytes": peak,
             "routes": {k: v for k, v in total.items()
-                       if k.startswith(MESH_ROUTES)}}, calls
+                       if k.startswith(MESH_ROUTES)}}, calls, (mesh, init)
+
+
+# --------------------------------------------------------------------------
+# The serving step: q1-q20 served by QueryExecutor, with their reports,
+# the result cache, injected faults, admission, the scrape endpoint and
+# the mesh
+# --------------------------------------------------------------------------
+
+SERVE_PASSES = 3
+SERVE_WINDOW = 4     # results decoded on this thread while later ones queue
+SERVE_TIMEOUT = 600  # every wait of the step, seconds
+CACHE_QUERIES = Q1_10
+FAULT_SPEC = "dispatch:raise:1,alloc:retry_oom:1"
+
+
+def serve_pass(ex, rels: dict, queries: tuple) -> dict:
+    """One request a query submitted from this thread, the oldest result
+    decoded while later requests queue: {q: (frame, handle)}."""
+    out, pending = {}, collections.deque()
+    for q in queries:
+        pending.append((q, ex.submit(PLANS[q], rels,
+                                     timeout=SERVE_TIMEOUT)))
+        while len(pending) > SERVE_WINDOW:
+            qq, p = pending.popleft()
+            out[qq] = (p.to_df(timeout=SERVE_TIMEOUT), p)
+    while pending:
+        qq, p = pending.popleft()
+        out[qq] = (p.to_df(timeout=SERVE_TIMEOUT), p)
+    return out
+
+
+def served_reports(served: dict) -> dict:
+    """{q: the ExecutionReport its handle's qid emitted}."""
+    by_qid = {r.qid: r for r in obs.recent_reports()}
+    return {q: by_qid.get(p.qid) for q, (_, p) in served.items()}
+
+
+def serve_recorded(ex, rels: dict, queries: tuple, calls: list,
+                   label: str) -> None:
+    """The queries once more through ``ex``, one at a time, recording
+    every kernel call's inputs under ``label q``."""
+    query = [None]
+    with recording(calls, query):
+        for q in queries:
+            query[0] = f"{label} {q}"
+            ex.submit(PLANS[q], rels).result(timeout=SERVE_TIMEOUT)
+    torch.cuda.synchronize()
+
+
+def serving_cache(dev, data: dict, oracles: dict, ex, log, card: str):
+    """q1-q10's tables ingested again with the result cache on, q1-q10
+    served twice on each tier (whole entries, then entries leased from
+    the page ledger): the second pass must hit, launch nothing and sync
+    nothing; a one-row change of store_sales must miss, and equal content
+    on another device must miss."""
+    out = {}
+    with env_set({"SRT_RESULT_CACHE_BYTES": str(1 << 30)}):
+        result_cache.reset()
+        t0 = time.perf_counter()
+        cached = {n: rel_from_df(df, device=dev) for n, df in data.items()}
+        torch.cuda.synchronize()
+        out["ingest_s"] = time.perf_counter() - t0
+        for tier, pool in (("whole", "0"), ("paged", str(1 << 30))):
+            with env_set({"SRT_PAGE_POOL_BYTES": pool}):
+                serve_pass(ex, cached, CACHE_QUERIES)  # fills the cache
+                torch.cuda.synchronize()
+                launches, st = dict(K.LAUNCHES), kernel_stats()
+                t0 = time.perf_counter()
+                hit = serve_pass(ex, cached, CACHE_QUERIES)
+                hit_s = time.perf_counter() - t0
+                d = stats_since(st)
+                reps = served_reports(hit)
+                cache = result_cache.result_cache()
+                leases = (0 if pages.page_pool() is None
+                          else pages.page_pool().n_leases)
+                _require((cache.page_bytes > 0) == (tier == "paged")
+                         and (leases >= len(cache)) == (tier == "paged"),
+                         f"{tier}: wrong tier ({leases} page leases)")
+                _require(dict(K.LAUNCHES) == launches,
+                         f"result cache ({tier}): a hit launched kernels")
+                _require(d.get("rel.host_syncs", 0) == 0
+                         and d.get("rel.dispatches", 0) == 0,
+                         f"result cache ({tier}): a hit synced: {d}")
+                _require(d.get("serving.result_cache.hits") ==
+                         len(CACHE_QUERIES), f"result cache ({tier}): {d}")
+                for q, (frame, _) in hit.items():
+                    r = reps[q]
+                    _require(r is not None and r.provenance == "result_cache"
+                             and r.host_syncs == 0,
+                             f"{q} ({tier} hit): report {r and r.provenance}")
+                    frames_match(frame, oracles[q], f"{q} ({tier} hit)")
+                hit_ms = {q: reps[q].wall_ns / 1e6 for q in hit}
+                out[tier] = {"pass_s": hit_s, "hit_ms": hit_ms,
+                             "resident_bytes": cache.resident_bytes,
+                             "entries": len(cache)}
+                log(f"serving result cache ({tier}): q1-q10 again all hit "
+                    f"(provenance result_cache, 0 launches, 0 host syncs), "
+                    f"pass {hit_s * 1e3:.3f} ms, run_fused "
+                    f"{min(hit_ms.values()):.4f}-{max(hit_ms.values()):.4f}"
+                    f" ms a hit, {cache.resident_bytes} bytes in "
+                    f"{len(cache)} entries [{card}]")
+        ss = data["store_sales"].copy()
+        ss.loc[0, "ss_quantity"] = ss.loc[0, "ss_quantity"] + 1
+        changed = dict(cached, store_sales=rel_from_df(ss, device=dev))
+        st = kernel_stats()
+        frame, pq = serve_pass(ex, changed, ("q3",))["q3"]
+        d = stats_since(st)
+        _require(d.get("serving.result_cache.misses") == 1
+                 and not d.get("serving.result_cache.hits")
+                 and d.get("rel.host_syncs") == 1,
+                 f"a changed ingest did not miss: {d}")
+        log("serving result cache: one changed store_sales row misses "
+            f"(q3 ran, {len(frame)} rows)")
+        # the same content on another device keys apart: a hit would hand
+        # back tensors on the card to a CPU run
+        small = generate(sf=2, seed=SEED)
+        for d_ in (dev, torch.device("cpu")):
+            st = kernel_stats()
+            got = run_fused(PLANS["q3"], {n: rel_from_df(df, device=d_)
+                                          for n, df in small.items()},
+                            device=d_)
+            d = stats_since(st)
+            _require(d.get("serving.result_cache.misses") == 1
+                     and not d.get("serving.result_cache.hits")
+                     and all(c.device.type == d_.type
+                             for c in got.table.columns),
+                     f"result cache on {d_}: {d}")
+            frames_match(got.to_df(), QUERIES["q3"][1](small),
+                         f"q3 (sf=2, {d_})")
+        log("serving result cache: q3 on equal sf=2 content filled on the "
+            "card misses on the CPU, and lands there")
+        result_cache.reset()
+    return out
+
+
+def serving_faults(ex, rels: dict, oracles: dict, log) -> dict:
+    """``FAULT_SPEC`` armed: the two faulted requests reject with their
+    exceptions, counted ``serving.failed``; the next serves."""
+    faults.configure(FAULT_SPEC)
+    try:
+        st = kernel_stats()
+        pend = [ex.submit(PLANS[q], rels) for q in ("q1", "q2", "q3")]
+        errors = []
+        for p in pend[:2]:
+            try:
+                p.result(timeout=SERVE_TIMEOUT)
+                errors.append(None)
+            except (faults.InjectedFault, faults.RetryOOM) as e:
+                errors.append(e)
+        frame = pend[2].to_df(timeout=SERVE_TIMEOUT)
+        d = stats_since(st)
+    finally:
+        faults.reset()
+    kinds = [type(e).__name__ for e in errors]
+    actions = [reliability.retry_action(e) for e in errors if e]
+    _require(kinds == ["InjectedFault", "RetryOOM"], f"faults: {kinds}")
+    _require(actions == ["retry", "retry_oom"], f"retry_action: {actions}")
+    _require(d.get("serving.failed") == 2 and d.get("serving.completed")
+             == 1, f"faults: counters {d}")
+    frames_match(frame, oracles["q3"], "q3 (after the faults)")
+    log(f"serving faults ({FAULT_SPEC}): q1 {kinds[0]} -> {actions[0]}, q2 "
+        f"{kinds[1]} -> {actions[1]}, serving.failed=2; q3 next served "
+        "equal to the oracle")
+    return {"errors": kinds, "actions": actions}
+
+
+def serving_admission(dev, rels: dict, oracles: dict, log) -> dict:
+    """A queue of one behind a worker held inside a gated q9: a third
+    ``block=False`` submit sheds with ``queue.Full``, counted."""
+    gate, started = threading.Event(), threading.Event()
+
+    def _gated_q9(t):
+        started.set()
+        gate.wait(SERVE_TIMEOUT)
+        return PLANS["q9"](t)
+
+    ax = QueryExecutor(device=dev, max_queue=1, max_in_flight=4,
+                       name="admission")
+    try:
+        first = ax.submit(_gated_q9, rels)
+        _require(started.wait(SERVE_TIMEOUT), "the gated query never ran")
+        second = ax.submit(PLANS["q9"], rels)  # the queue is now full
+        st = kernel_stats()
+        try:
+            ax.submit(PLANS["q9"], rels, block=False)
+            shed = False
+        except queue.Full:
+            shed = True
+        rejected = stats_since(st).get("serving.rejected", 0)
+        gate.set()
+        for p in (first, second):
+            frames_match(p.to_df(timeout=SERVE_TIMEOUT), oracles["q9"],
+                         "q9 (admission)")
+    finally:
+        gate.set()
+        ax.close(timeout=SERVE_TIMEOUT)
+    _require(shed and rejected == 1,
+             f"admission: shed={shed} rejected={rejected}")
+    log("serving admission: block=False on a full queue raised "
+        "queue.Full, serving.rejected=1")
+    return {"shed": shed}
+
+
+def _http_get(srv, path: str) -> "tuple[int, str]":
+    url = f"http://127.0.0.1:{srv.port}{path}"
+    try:
+        with urllib.request.urlopen(url, timeout=30) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def serving_scrape(log) -> dict:
+    """``obs/server.py`` on port 0: /metrics parses and carries the
+    serving, SLO and device-memory families, /healthz is 200,
+    /reports?n=3 the three newest reports."""
+    srv = obs_server.start(0)
+    try:
+        status, text = _http_get(srv, "/metrics")
+        samples = obs.parse_prometheus(text)
+        h_status, _ = _http_get(srv, "/healthz")
+        r_status, body = _http_get(srv, "/reports?n=3")
+    finally:
+        obs_server.stop()
+    newest = [r.qid for r in obs.recent_reports(3)]
+    got = [r["qid"] for r in json.loads(body)["reports"]]
+    slo = [k for k in samples if k.startswith("srt_serving_slo_")]
+    _require(status == 200 and "srt_serving_completed" in samples
+             and slo and "srt_mem_device_0_bytes_in_use" in samples,
+             f"/metrics: status {status}, {len(samples)} samples")
+    _require(h_status == 200, f"/healthz: {h_status}")
+    _require(r_status == 200 and got == newest,
+             f"/reports?n=3: {got} != {newest}")
+    log(f"serving scrape: /metrics {len(samples)} samples (serving.completed"
+        f"={samples['srt_serving_completed']:.0f}, {len(slo)} serving.slo "
+        f"gauges, mem.device.0.bytes_in_use="
+        f"{samples['srt_mem_device_0_bytes_in_use']:.0f}), /healthz 200, "
+        f"/reports?n=3 the three newest")
+    return {"samples": len(samples), "slo_gauges": len(slo)}
+
+
+def serving_mesh(dev, mesh, rels: dict, oracles: dict, single: dict, log):
+    """q1-q20 once through ``QueryExecutor(mesh=...)`` at the forced
+    threshold with the exchange join route (the mesh step's ``exchange``
+    pass: shuffle-hash joins, K5 on their keys), launch counts set to 0
+    before and read after, then once more recording every kernel
+    call."""
+    calls = []
+    with env_set({"SRT_BROADCAST_THRESHOLD": MESH_THRESHOLD,
+                  "SRT_SHUFFLE_JOIN_ROUTE": "exchange"}):
+        with QueryExecutor(mesh=mesh, max_queue=8, max_in_flight=16,
+                           name="serving-mesh") as mx:
+            K.reset_launch_counts()
+            served = serve_pass(mx, rels, Q1_10 + Q11_20)
+            torch.cuda.synchronize()
+            launches = {n: K.LAUNCHES[n] for n in MESH_NAMES}
+            reps = served_reports(served)
+            serve_recorded(mx, rels, Q1_10 + Q11_20, calls, "mesh")
+        budget = dist.agreed_scratch_probe(mesh, None, dev)
+    carried = 0
+    for q, (frame, _) in served.items():
+        r = reps[q]
+        frames_match(frame, oracles[q], f"{q} (served over the mesh)")
+        frames_match(frame, single[q], f"{q} (served mesh vs one device)")
+        _require(r is not None and r.host_syncs <= 1
+                 and not r.counters.get("rel.dist_fallbacks"),
+                 f"{q} (served mesh): report {r and r.counters}")
+        _require(r.shuffle == {k: v for k, v in r.counters.items()
+                               if k.startswith("shuffle.")},
+                 f"{q} (served mesh): shuffle section {r.shuffle}")
+        carried += bool(r.shuffle)
+    _require(carried > 0, "no served mesh report carries a shuffle section")
+    _require(launches["murmur3_int64"] > 0,
+             "K5 was not launched serving over the mesh")
+    log(f"serving mesh: q1-q20 served over {mesh!r} equal the oracle and "
+        f"the one-device results; {carried} of 20 reports carry a shuffle "
+        f"section (q18 {json.dumps(reps['q18'].shuffle, sort_keys=True)}); "
+        f"launches {json.dumps(launches, sort_keys=True)}; the scratch "
+        f"budget agreed across the ranks: {budget} bytes")
+    return {"launches": launches, "scratch_budget": budget,
+            "shuffle_sections": carried}, calls
+
+
+def run_serving(dev, rels: dict, data: dict, oracles: dict, mesh, log,
+                card: str):
+    """The serving step (module docstring): q1-q20 served by
+    ``QueryExecutor`` with ``SRT_METRICS`` on. Returns the step's report
+    and the kernel calls of its one-device and mesh paths."""
+    t_step = time.perf_counter()
+    queries = Q1_10 + Q11_20
+    out: dict = {}
+    builds = [r for r in obs.recompile_records()
+              if r.site == "ops.cuda_kernels.build"]
+    log("serving: the kernel library was " + (
+        f"built at startup ({builds[0].duration_s:.3f} s, recorded as a "
+        f"compile event at site {builds[0].site}); the served reports "
+        "show no compile: the library was built before them"
+        if builds else "already built before this process: no compile "
+        "event"))
+    with env_set({"SRT_METRICS": "1"}):
+        # the serial baseline: run_fused and the decode on this thread
+        serial, serial_ms, peak, serial_pass = {}, {}, {}, []
+        for i in range(SERVE_PASSES):
+            t_pass = time.perf_counter()
+            for q in queries:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                serial[q] = run_fused(PLANS[q], rels, device=dev).to_df()
+                torch.cuda.synchronize()
+                serial_ms.setdefault(q, []).append(
+                    (time.perf_counter() - t0) * 1e3)
+                peak[q] = torch.cuda.max_memory_allocated()
+            serial_pass.append(time.perf_counter() - t_pass)
+
+        ex = QueryExecutor(device=dev, max_queue=8, max_in_flight=16)
+        try:
+            passes, reports, served_pass = [], [], []
+            for i in range(SERVE_PASSES):
+                if i == 0:
+                    K.reset_launch_counts()
+                t_pass = time.perf_counter()
+                passes.append(serve_pass(ex, rels, queries))
+                served_pass.append(time.perf_counter() - t_pass)
+                if i == 0:
+                    torch.cuda.synchronize()
+                    launches = {n: K.LAUNCHES[n] for n in Q_NAMES}
+                reports.append(served_reports(passes[-1]))
+            calls = []
+            serve_recorded(ex, rels, queries, calls, "serving")
+            for i, (served, reps) in enumerate(zip(passes, reports)):
+                for q, (frame, pq) in served.items():
+                    frames_match(frame, oracles[q], f"{q} (served {i})")
+                    frames_match(frame, serial[q],
+                                 f"{q} (served {i} vs run_fused)")
+                    r = reps[q]
+                    _require(r is not None and r.qid == pq.qid
+                             and r.query == q and r.host_syncs <= 1
+                             and r.provenance == "eager" and r.fused,
+                             f"{q} (served {i}): report "
+                             f"{r and r.to_dict()}")
+                    _require(r.memory["devices"]["0"]["bytes_limit"] > 0,
+                             f"{q}: no device memory in its report")
+            for name in Q_NAMES:
+                _require(launches.get(name, 0) > 0,
+                         f"kernel {name} was not launched on the served path")
+            log(f"serving launches: {json.dumps(launches, sort_keys=True)}")
+            per_query = {}
+            for q in queries:
+                execute = [reps[q].wall_ns / 1e6 for reps in reports]
+                latency = [s[q][1].latency_ns / 1e6 for s in passes]
+                mem = reports[-1][q].memory
+                r = per_query[q] = {
+                    "serial_ms": statistics.median(serial_ms[q]),
+                    "served_execute_ms": statistics.median(execute),
+                    "served_latency_ms": statistics.median(latency),
+                    "modeled_peak_bytes": mem["modeled_peak_bytes"],
+                    "measured_peak_bytes": peak[q],
+                    "device0": mem["devices"]["0"]}
+                log(f"serving {q}: serial_ms={r['serial_ms']:.3f} "
+                    f"served_execute_ms={r['served_execute_ms']:.3f} "
+                    f"served_latency_ms={r['served_latency_ms']:.3f} "
+                    f"modeled_peak_gib={mem['modeled_peak_bytes'] / 2**30:.2f}"
+                    f" measured_peak_gib={peak[q] / 2**30:.2f} "
+                    f"in_use_gib={mem['devices']['0']['bytes_in_use'] / 2**30:.2f}"
+                    f" process_peak_gib="
+                    f"{mem['devices']['0']['peak_bytes_in_use'] / 2**30:.2f}")
+            log(f"serving passes (q1-q20, decode included): serial "
+                f"{statistics.median(serial_pass):.3f} s, executor "
+                f"{statistics.median(served_pass):.3f} s (medians of "
+                f"{SERVE_PASSES}) [{card}]")
+            log("serving: the q3 report of the last pass:\n"
+                + reports[-1]["q3"].render())
+            out |= {"per_query": per_query, "launches": launches,
+                    "serial_pass_s": serial_pass,
+                    "served_pass_s": served_pass}
+            out["result_cache"] = serving_cache(dev, data, oracles, ex, log,
+                                                card)
+            out["faults"] = serving_faults(ex, rels, oracles, log)
+        finally:
+            ex.close(timeout=SERVE_TIMEOUT)
+        out["admission"] = serving_admission(dev, rels, oracles, log)
+        out["scrape"] = serving_scrape(log)
+        out["mesh"], mesh_calls = serving_mesh(dev, mesh, rels, oracles,
+                                               serial, log)
+    out["step_s"] = time.perf_counter() - t_step
+    return out, calls, mesh_calls
 
 
 # --------------------------------------------------------------------------
@@ -3522,8 +3970,9 @@ def morsel_query(q: str, tables: dict, morsels, dev, base: int,
     ov0 = _overlap_ns()
     info = {}
     t0 = time.perf_counter()
-    _, syncs = _count_syncs(lambda: run(info))
-    torch.cuda.synchronize()
+    with env_set({"SRT_METRICS": "1"}):  # the overlap histogram records
+        _, syncs = _count_syncs(lambda: run(info))
+        torch.cuda.synchronize()
     one_ms = (time.perf_counter() - t0) * 1e3
     peak = torch.cuda.max_memory_allocated() - base
     overlap_ns = _overlap_ns() - ov0
@@ -3778,7 +4227,8 @@ def run_morsel_disk(dev, data: dict, rels: dict, oracles: dict, log,
             read0 = REGISTRY.histogram("io.disk.read_ns").snapshot()["sum"]
             dec0 = REGISTRY.histogram("io.disk.decode_ns").snapshot()["sum"]
             t0 = time.perf_counter()
-            frame, st, info, syncs = streamed(q, tables, MORSELS, dev)
+            with env_set({"SRT_METRICS": "1"}):  # the io histograms record
+                frame, st, info, syncs = streamed(q, tables, MORSELS, dev)
             ms = (time.perf_counter() - t0) * 1e3
             _require_streamed(q, frame, st, info, oracles[q], None, "disk")
             io = info["io"]
@@ -3955,7 +4405,8 @@ def main(argv=None) -> int:
             logfile.flush()
 
     t0 = time.perf_counter()
-    K.kernels()
+    with env_set({"SRT_METRICS": "1"}):  # the build's compile event
+        K.kernels()
     build_s = time.perf_counter() - t0
     log(f"kernels built: {K.library_path()} build_s={build_s:.3f}")
     if args.out:
@@ -4043,8 +4494,8 @@ def main(argv=None) -> int:
     log(f"roster II step: {roster2['step_s']:.3f} s")
 
     t0 = time.perf_counter()
-    mesh, calls = run_mesh(dev, gen, rels, oracles, hash_tab, log,
-                           args.profile)
+    mesh, calls, group = run_mesh(dev, gen, rels, oracles, hash_tab, log,
+                                  args.profile)
     del hash_tab
     log("mesh kernel calls, each equal to its plain version:")
     totals["mesh"] = path_kernels(calls, mesh["launches"], MESH_NAMES, log,
@@ -4052,6 +4503,23 @@ def main(argv=None) -> int:
     del calls
     mesh["step_s"] = time.perf_counter() - t0
     log(f"mesh step: {mesh['step_s']:.3f} s [{card}]")
+
+    t0 = time.perf_counter()
+    serving, calls, mesh_calls = run_serving(dev, rels, data, oracles,
+                                             group[0], log, card)
+    distributed.shutdown()
+    os.remove(group[1])
+    log("served kernel calls, each equal to its plain version on the "
+        "inputs the served q1-q20 gave it:")
+    totals["serving"] = path_kernels(calls, serving["launches"], Q_NAMES,
+                                     log, reps=3)
+    log("kernel calls of q1-q20 served over the mesh, each equal to its "
+        "plain version:")
+    totals["serving mesh"] = path_kernels(
+        mesh_calls, serving["mesh"]["launches"], MESH_NAMES, log, reps=3)
+    del calls, mesh_calls
+    serving["step_s"] = time.perf_counter() - t0
+    log(f"serving step: {serving['step_s']:.3f} s [{card}]")
 
     t0 = time.perf_counter()
     morsel, calls = run_morsel(dev, data, rels, oracles, log, card,
@@ -4083,6 +4551,8 @@ def main(argv=None) -> int:
                  "strings": strings["launches"],
                  "roster II": roster2["launches"],
                  "mesh": mesh["launches"],
+                 "serving": serving["launches"],
+                 "serving mesh": serving["mesh"]["launches"],
                  "morsel": morsel["launches"],
                  "row conversion": rows["launches"]}, card, stress, log)
     if args.out:
@@ -4094,7 +4564,8 @@ def main(argv=None) -> int:
                        "q11_q20": oplib,
                        "hashing": hashed, "roster": roster,
                        "strings": strings, "roster_ii": roster2,
-                       "mesh": mesh, "morsel": morsel,
+                       "mesh": mesh, "serving": serving,
+                       "morsel": morsel,
                        "row_conversion": rows,
                        "sf": SF, "seed": SEED}, f, indent=1, sort_keys=True,
                       default=str)

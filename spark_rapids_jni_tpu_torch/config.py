@@ -7,8 +7,22 @@ reference's names: ``SRT_JOIN_METHOD`` (``auto``/``xla``/``cuda``) and
 ``SRT_DENSE_GROUPBY`` (``auto``/``scatter``/``onehot``/``cuda``), with
 ``cuda`` in place of the reference's ``pallas``, and
 ``SRT_STRING_ROUTE`` (``auto``/``dict``/``bytes``) picks the string
-operators' route. ``SRT_METRICS`` turns span recording on. ``TZDIR``
-names the TZif database the timezone operators read.
+operators' route. ``SRT_METRICS`` turns the gated obs tier on:
+histograms, spans, SLO latency samples and one ``ExecutionReport`` a
+``run_fused`` call. ``TZDIR`` names the TZif database the timezone
+operators read.
+
+The serving and obs knobs keep the reference's names and defaults:
+``SRT_TRACE_EXPORT`` (a directory the reports and flight dumps are
+written to), ``SRT_OBS_HTTP_PORT`` / ``SRT_OBS_HTTP_HOST`` (the scrape
+endpoint), ``SRT_SLO_WINDOW_S`` / ``SRT_SLO_WINDOWS``,
+``SRT_FLIGHT_MIN_INTERVAL_S``, ``SRT_RESULT_CACHE_BYTES`` (the result
+cache's cap; unset or 0 = off), ``SRT_SHUFFLE_SCRATCH_HEADROOM_FRACTION``
+(the probed headroom's share granted to exchange scratch, default 1/4),
+``SRT_QUERY_RETRIES``, ``SRT_RETRY_BACKOFF_MS``, ``SRT_QUERY_DEADLINE_MS``
+(read by ``serving/reliability.RetryPolicy.from_env`` alone, which no run
+reads until the fleet scheduler is ported) and ``SRT_CONTROL_PLANE``
+(refused until the control plane is ported).
 
 The mesh knobs keep the reference's names, defaults and normalisation:
 ``SRT_BROADCAST_THRESHOLD`` (bytes; tables at or below it replicate),

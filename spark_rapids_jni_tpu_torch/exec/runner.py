@@ -74,7 +74,6 @@ counted ``rel.morsel_fallbacks``.
 from __future__ import annotations
 
 import contextlib
-import hashlib
 import threading
 import time
 from collections import OrderedDict
@@ -84,9 +83,12 @@ import numpy as np
 import torch
 
 from ..columnar import Column, Table
-from ..config import env_int, env_str
+from ..config import env_int
 from ..obs import (REGISTRY, count, count_dispatch, gauge, kernel_stats,
                    span, stats_since)
+from ..obs import flight as _flight
+from ..obs import report as _obs_report
+from ..parallel import comm_plan
 from ..tpcds import rel as _rel
 from ..tpcds.rel import FusedFallback, Rel
 from ..utils import faults as _faults
@@ -103,16 +105,6 @@ PHASE_FINALIZE = "finalize"
 # merge-op identities: used to combine and to build the first
 # accumulator; "or" is the presence-bitmap OR (bool vectors)
 _OPS = ("sum", "min", "max", "or")
-
-# the env knobs that steer the planner's routes: part of the entry key,
-# so a run under other knobs never meets merge points recorded under
-# these
-_ROUTE_KNOBS = ("SRT_JOIN_METHOD", "SRT_DENSE_GROUPBY", "SRT_STRING_ROUTE",
-                "SRT_BROADCAST_THRESHOLD", "SRT_GROUPBY_PSUM_WIDTH",
-                "SRT_SHUFFLE_JOIN_ROUTE", "SRT_SHUFFLE_SCRATCH_BYTES",
-                "SRT_SHUFFLE_INTRA", "SRT_SHUFFLE_NEIGHBORHOOD",
-                "SRT_PAGE_BYTES")
-
 
 class _MergesDone(Exception):
     """Raised in a partial run right after its last merge point: the rest
@@ -390,28 +382,6 @@ def _standing_store(key, st: _Standing) -> None:
 # Fingerprints and scan filters
 # ---------------------------------------------------------------------------
 
-def _dict_digest(cats: np.ndarray) -> str:
-    h = hashlib.sha1()
-    h.update(str(cats.dtype).encode())
-    h.update(str(cats.shape).encode())
-    if cats.dtype == object:
-        h.update("\x00".join(map(str, cats)).encode())
-    else:
-        h.update(cats.tobytes())
-    return h.hexdigest()
-
-
-def _rel_fingerprint(rel: Rel) -> tuple:
-    """Schema, verified stats and dictionary digests of a resident rel:
-    what its routes are chosen from."""
-    cols = tuple((int(c.dtype.id), c.dtype.scale, c.size,
-                  c.validity is not None, _rel._trusted_range(c),
-                  _rel._trusted_unique(c)) for c in rel.table.columns)
-    dict_keys = tuple(sorted((n, _dict_digest(v))
-                             for n, v in rel.dicts.items()))
-    return (tuple(rel.names), cols, dict_keys)
-
-
 def _scan_filters(ht, snap) -> tuple:
     """Canonical scan conjuncts of a streamed table's snapshot (``()``
     for a plain HostTable); part of the entry and standing keys."""
@@ -450,15 +420,11 @@ def _stream_fingerprint(stream, snaps, caps) -> tuple:
         col_sig = tuple((int(cols[n].dtype.id), cols[n].dtype.scale,
                          caps[name], cols[n].value_range)
                         for n in ht.names)
-        dict_sig = tuple(sorted((n, _dict_digest(v))
+        dict_sig = tuple(sorted((n, _rel._dict_digest(v))
                                 for n, v in dicts.items()))
         fps.append((name, tuple(ht.names), col_sig, dict_sig,
                     _scan_filters(ht, snaps[name])))
     return tuple(fps)
-
-
-def _planner_env() -> tuple:
-    return tuple(env_str(k, "") for k in _ROUTE_KNOBS)
 
 
 # ---------------------------------------------------------------------------
@@ -630,15 +596,15 @@ def _col_np_dtype(c) -> np.dtype:
     return np.dtype(c.np_dtype)
 
 
-def _incore(plan, rels: dict, dev, mesh, axis) -> Rel:
+def _incore(plan, rels: dict, dev, mesh, axis, info: dict) -> Rel:
     """The plan over every table in-core on ``dev``."""
     full = {name: (r.to_rel(dev) if getattr(r, "is_host_table", False)
                    else r) for name, r in rels.items()}
     if mesh is not None:
         from ..tpcds import dist as _dist
         return _dist.run_partitioned(plan, full, mesh, axis=axis,
-                                     device=dev)
-    return _rel._run_fused_impl(plan, full, dev)
+                                     device=dev, info=info)
+    return _rel._run_fused_impl(plan, full, dev, info)
 
 
 def run_morsels(plan, rels: dict, info: "Optional[dict]" = None, mesh=None,
@@ -655,14 +621,20 @@ def run_morsels(plan, rels: dict, info: "Optional[dict]" = None, mesh=None,
     pname = getattr(plan, "__name__", "plan").lstrip("_")
     dev = (mesh.device if mesh is not None and device is None
            else resolve_device(device))
-    try:
-        return _run_morsels_impl(plan, rels, info, mesh, axis, morsels,
-                                 pname, dev)
-    except FusedFallback as e:
-        count("rel.morsel_fallbacks")
-        count(f"rel.morsel_fallbacks.{pname}")
-        info["fallback"] = str(e)
-        return _incore(plan, rels, dev, mesh, axis)
+    probe = None
+    if mesh is not None:
+        from ..tpcds import dist as _dist
+        probe = _dist.agreed_scratch_probe(mesh, axis, dev)
+    with (comm_plan.agreed_probe_scope(probe) if mesh is not None
+          else contextlib.nullcontext()):
+        try:
+            return _run_morsels_impl(plan, rels, info, mesh, axis,
+                                     morsels, pname, dev)
+        except FusedFallback as e:
+            count("rel.morsel_fallbacks")
+            count(f"rel.morsel_fallbacks.{pname}")
+            info["fallback"] = str(e)
+            return _incore(plan, rels, dev, mesh, axis, info)
 
 
 def _run_budget(dev, mesh, axis) -> Optional[int]:
@@ -713,7 +685,7 @@ def _run_morsels_impl(plan, rels, info, mesh, axis, morsels, pname, dev):
         # (or there is no budget signal and nothing was forced)
         count("rel.route.morsel.incore")
         info["morsel"] = {"incore": True, "budget_bytes": budget}
-        return _incore(plan, rels, dev, mesh, axis)
+        return _incore(plan, rels, dev, mesh, axis, info)
 
     snaps = {name: ht.snapshot() for name, ht in stream.items()}
     caps = mplan.capacities
@@ -725,13 +697,13 @@ def _run_morsels_impl(plan, rels, info, mesh, axis, morsels, pname, dev):
         parts = {name: ("replicated"
                         if _dist.table_nbytes(resident[name]) <= threshold
                         else "sharded") for name in res_order}
-    fps = tuple(_rel_fingerprint(resident[n]) for n in res_order)
+    fps = tuple(_rel._rel_fingerprint(resident[n]) for n in res_order)
     sfps = _stream_fingerprint(stream, snaps, caps)
     sfilters = {name: _scan_filters(stream[name], snaps[name])
                 for name in stream_order}
     has_disk = any(getattr(ht, "is_disk_table", False)
                    for ht in stream.values())
-    penv = _planner_env()
+    penv = _rel.planner_env_key()
     meshdesc = None
     if mesh is not None:
         from ..parallel import mesh_axes_key
@@ -951,8 +923,11 @@ def _run_morsels_impl(plan, rels, info, mesh, axis, morsels, pname, dev):
         # ---- the double-buffered pump -----------------------------------
         overlap = REGISTRY.histogram("exec.morsel.overlap_ns")
         fold_ns = REGISTRY.histogram("io.disk.fold_ns")
+        qid = _obs_report.current_qid()
+        _flight.note("morsel_pump", query=pname, morsels=n_morsels,
+                     delta_start=sum(folded.values()))
         with span("exec.morsel.pump", morsels=n_morsels,
-                  delta_start=sum(folded.values())):
+                  delta_start=sum(folded.values()), qid=qid):
             staged = stage(0) if n_morsels else None
             for k in range(n_morsels):
                 if staged is not None and entry.specs != []:
@@ -988,7 +963,8 @@ def _run_morsels_impl(plan, rels, info, mesh, axis, morsels, pname, dev):
         acc_bytes = sum(t.numel() * t.element_size() for t in acc)
 
         # ---- the merge run ------------------------------------------------
-        with span("exec.morsel.merge"):
+        _flight.note("morsel_merge", query=pname, acc_bytes=acc_bytes)
+        with span("exec.morsel.merge", qid=qid):
             ctx, out, aux = dead_run(PHASE_FINALIZE, acc)
         count_dispatch("exec.morsel.merge")
         if dctx is not None:

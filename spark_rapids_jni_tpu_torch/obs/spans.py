@@ -1,83 +1,208 @@
-"""Spans: named wall-time ranges with attributes.
+"""Spans: nesting named wall-time ranges with attributes.
 
-A minimal port of ``spark_rapids_jni_tpu/obs/spans.py``. With
-``SRT_METRICS`` off a span costs one env read and records nothing; with
-it on, each closed span appends a ``SpanRecord`` to a bounded ring. The
-times are host wall times: a span around queued device work measures
-the enqueue unless the work inside ends in a synchronising read.
+Port of ``spark_rapids_jni_tpu/obs/spans.py``. ``span("rel.join",
+how="inner")`` opens a named range: it nests per thread, records start
+and duration in ns plus host-side attributes, feeds the
+``span.<name>`` histogram, and lands in a bounded ring. ``mark()`` /
+``records_since()`` scope a region without resetting global state (a
+query's report reads its own spans that way); ``export_perfetto()``
+writes the ring as Chrome trace-event JSON.
+
+With ``SRT_METRICS`` off, ``span()`` and ``traced`` cost one environment
+read and record nothing. The reference also opens a
+``jax.profiler.TraceAnnotation`` under ``SRT_TRACE_ENABLED``; the port
+has no such hook (``torch.profiler`` sees the kernels themselves).
+
+The times are host wall times: a span around queued device work
+measures the enqueue unless the work inside ends in a synchronising
+read, as ``run_fused``'s one host sync does.
 """
 
 from __future__ import annotations
 
-import collections
-import contextlib
 import functools
+import os
 import threading
 import time
-from dataclasses import dataclass, field
+from collections import deque
+from typing import Optional
 
 from ..config import metrics_enabled
+from .metrics import REGISTRY
 
-_RING_CAP = 4096
+_records: "deque" = deque(maxlen=100_000)  # guarded-by: _rec_lock
+_rec_lock = threading.Lock()
+_seq = 0  # guarded-by: _rec_lock
+_tls = threading.local()
 
 
-@dataclass
 class SpanRecord:
-    name: str
-    start_ns: int
-    dur_ns: int = 0
-    attrs: dict = field(default_factory=dict)
+    """One finished span. ``seq`` is a process-wide monotonic id
+    assigned when the span closes."""
 
+    __slots__ = ("seq", "name", "start_ns", "dur_ns", "tid", "depth",
+                 "parent", "attrs")
 
-_local = threading.local()
-_ring: "collections.deque[SpanRecord]" = collections.deque(maxlen=_RING_CAP)
-_ring_lock = threading.Lock()
+    def __init__(self, seq, name, start_ns, dur_ns, tid, depth, parent,
+                 attrs):
+        self.seq = seq
+        self.name = name
+        self.start_ns = start_ns
+        self.dur_ns = dur_ns
+        self.tid = tid
+        self.depth = depth
+        self.parent = parent
+        self.attrs = attrs
+
+    def to_dict(self) -> dict:
+        return {"seq": self.seq, "name": self.name,
+                "start_ns": self.start_ns, "dur_ns": self.dur_ns,
+                "tid": self.tid, "depth": self.depth,
+                "parent": self.parent, "attrs": self.attrs}
 
 
 def _stack() -> list:
-    st = getattr(_local, "stack", None)
+    st = getattr(_tls, "stack", None)
     if st is None:
-        st = _local.stack = []
+        st = _tls.stack = []
     return st
 
 
-@contextlib.contextmanager
-def span(name: str, **attrs):
-    """Time the enclosed block as span ``name`` (when metrics are on)."""
-    if not metrics_enabled():
-        yield None
-        return
-    rec = SpanRecord(name, time.perf_counter_ns(), attrs=dict(attrs))
-    st = _stack()
-    st.append(rec)
-    try:
-        yield rec
-    finally:
-        st.pop()
-        rec.dur_ns = time.perf_counter_ns() - rec.start_ns
-        with _ring_lock:
-            _ring.append(rec)
+class _LiveSpan:
+    __slots__ = ("name", "attrs", "start_ns", "parent")
+
+    def __init__(self, name, attrs, parent):
+        self.name = name
+        self.attrs = attrs
+        self.start_ns = time.perf_counter_ns()
+        self.parent = parent
+
+
+class _SpanCtx:
+    """The context manager ``span()`` returns. One use."""
+
+    __slots__ = ("name", "attrs", "_live")
+
+    def __init__(self, name: str, attrs: dict):
+        self.name = name
+        self.attrs = attrs
+        self._live = None
+
+    def __enter__(self):
+        if metrics_enabled():
+            st = _stack()
+            parent = st[-1].name if st else None
+            self._live = _LiveSpan(self.name, self.attrs, parent)
+            st.append(self._live)
+        return self
+
+    def __exit__(self, *exc):
+        global _seq
+        live = self._live
+        if live is None:
+            return False
+        end = time.perf_counter_ns()
+        st = _stack()
+        # pop through any leaked children so one missed __exit__ never
+        # skews every later record's depth
+        while st and st[-1] is not live:
+            st.pop()
+        if st:
+            st.pop()
+        dur = end - live.start_ns
+        with _rec_lock:
+            _seq += 1
+            _records.append(SpanRecord(
+                _seq, live.name, live.start_ns, dur, threading.get_ident(),
+                len(st), live.parent, dict(live.attrs)))
+        REGISTRY.histogram(f"span.{live.name}").observe(dur)
+        return False
+
+    def set_attrs(self, **attrs) -> None:
+        self.attrs.update(attrs)
+
+
+def span(name: str, **attrs) -> _SpanCtx:
+    """Open a named span; attributes must be host-side values."""
+    return _SpanCtx(name, attrs)
+
+
+def current_span_name() -> Optional[str]:
+    st = getattr(_tls, "stack", None)
+    return st[-1].name if st else None
 
 
 def set_attrs(**attrs) -> None:
-    """Attach attributes to the innermost open span, if any."""
-    st = getattr(_local, "stack", None)
+    """Merge attributes into the innermost live span; a no-op when
+    metrics are off or no span is open."""
+    st = getattr(_tls, "stack", None)
     if st:
         st[-1].attrs.update(attrs)
 
 
 def traced(name: str):
-    """Decorator: run the function inside ``span(name)``."""
+    """Decorator: run the function inside ``span(name)``; with metrics
+    off, one environment read and a direct call."""
     def deco(fn):
         @functools.wraps(fn)
         def wrapper(*args, **kwargs):
-            with span(name):
+            if not metrics_enabled():
+                return fn(*args, **kwargs)
+            with _SpanCtx(name, {}):
                 return fn(*args, **kwargs)
         return wrapper
     return deco
 
 
-def span_records() -> "list[SpanRecord]":
-    with _ring_lock:
-        return list(_ring)
+def mark() -> int:
+    """Sequence watermark: pass to ``records_since`` to scope a region."""
+    with _rec_lock:
+        return _seq
 
+
+def records_since(watermark: int = 0) -> list:
+    # records append in increasing seq order: scan from the tail
+    out = []
+    with _rec_lock:
+        for r in reversed(_records):
+            if r.seq <= watermark:
+                break
+            out.append(r)
+    out.reverse()
+    return out
+
+
+def span_records() -> list:
+    return records_since(0)
+
+
+def reset_spans() -> None:
+    with _rec_lock:
+        _records.clear()
+    _tls.stack = []
+
+
+def export_perfetto(records=None) -> dict:
+    """Chrome trace-event JSON (what Perfetto and chrome://tracing load):
+    complete ("X") events, ts/dur in microseconds."""
+    if records is None:
+        records = span_records()
+    pid = os.getpid()
+    return {"displayTimeUnit": "ns", "traceEvents": [
+        {"name": r.name, "cat": "srt", "ph": "X", "ts": r.start_ns / 1e3,
+         "dur": r.dur_ns / 1e3, "pid": pid, "tid": r.tid, "args": r.attrs}
+        for r in records]}
+
+
+def aggregate(records) -> "list[dict]":
+    """Per-name rollup of span records: calls, total and mean wall ns."""
+    agg: dict = {}
+    for r in records:
+        a = agg.setdefault(r.name, {"name": r.name, "calls": 0,
+                                    "total_ns": 0})
+        a["calls"] += 1
+        a["total_ns"] += r.dur_ns
+    out = sorted(agg.values(), key=lambda a: -a["total_ns"])
+    for a in out:
+        a["mean_ns"] = a["total_ns"] // max(a["calls"], 1)
+    return out

@@ -47,6 +47,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 from typing import NamedTuple, Optional, Tuple
 
@@ -141,7 +142,13 @@ def kernels() -> ctypes.CDLL:
     from identical sources and flags exists) and bound once per process."""
     out = library_path()
     if not out.exists():
+        t0 = time.perf_counter_ns()
         _build(out)
+        # the port's one run-time compile: a cold process's first report
+        # shows it (obs/recompile.py)
+        from ..obs.recompile import record_event
+        record_event("ops.cuda_kernels.build", "compile", (out.name,),
+                     duration_s=(time.perf_counter_ns() - t0) / 1e9)
     lib = ctypes.CDLL(str(out))
     vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.srt_hash_join_probe.argtypes = [

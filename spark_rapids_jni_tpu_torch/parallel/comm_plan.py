@@ -30,15 +30,22 @@ over budget (``fits_budget == False``, counted
 ``rel.route.shuffle.budget_unmet``).
 
 Every rank must plan the same rounds (each round is a collective), so
-the budget is an environment knob every rank reads alike, or the
-override below, which a caller applies on every rank. The reference's
-tuned tier and its HBM-headroom probe are not ported: with the knob
-unset the budget is unlimited. The port runs eagerly, so there is no
-plan cache for a budget to re-key.
+the budget is an environment knob every rank reads alike, the override
+below, which a caller applies on every rank, or, with the knob unset,
+the device-memory probe (``obs/memory.probed_scratch_budget``), which a
+partitioned run agrees across its ranks by an all-reduce of the minimum
+at its entry and holds on its thread for the run
+(``agreed_probe_scope``). With the knob unset and no agreed probe held
+(outside a partitioned run, or on a device with no memory stats such as
+the CPU) the budget is unlimited: no rank ever plans from its own
+un-agreed probe. The reference's tuned tier
+is not ported. The port runs eagerly, so there is no plan cache for a
+budget to re-key.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from dataclasses import dataclass
 from typing import Optional, Sequence
@@ -72,16 +79,52 @@ _scratch_override: Optional[int] = None  # guarded-by: _scratch_lock
 _scratch_lock = threading.Lock()
 _scratch_holders: set = set()  # guarded-by: _scratch_lock
 
+# The probe agreed by the ranks of the partitioned run on this thread
+# (agreed_probe_scope); a thread outside one holds none.
+_agreed = threading.local()
+
+
+def _configured_budget() -> "tuple[bool, Optional[int]]":
+    """(True, budget) when the override or ``SRT_SHUFFLE_SCRATCH_BYTES``
+    (0 = unlimited) decides the budget; (False, None) when the knob is
+    unset or malformed."""
+    if _scratch_override is not None:
+        return True, _scratch_override
+    try:
+        b = int(env_str("SRT_SHUFFLE_SCRATCH_BYTES", "").strip())
+    except ValueError:
+        return False, None
+    return True, (b if b > 0 else None)
+
 
 def scratch_budget() -> Optional[int]:
     """Per-device exchange scratch budget in bytes, or None (unlimited:
     every exchange stays single-shot). An active override
     (``shrink_scratch_budget``) wins over ``SRT_SHUFFLE_SCRATCH_BYTES``;
-    unset, malformed or 0 reads as unlimited."""
-    if _scratch_override is not None:
-        return _scratch_override
-    b = env_int("SRT_SHUFFLE_SCRATCH_BYTES", 0)
-    return b if b > 0 else None
+    with the knob unset, the probe agreed by the partitioned run on this
+    thread, else unlimited."""
+    configured, budget = _configured_budget()
+    if configured:
+        return budget
+    return getattr(_agreed, "budget", None)
+
+
+def budget_configured() -> bool:
+    """True when the override or ``SRT_SHUFFLE_SCRATCH_BYTES`` decides the
+    budget, so no probe needs agreeing (both read alike on every rank)."""
+    return _configured_budget()[0]
+
+
+@contextlib.contextmanager
+def agreed_probe_scope(budget: Optional[int]):
+    """Hold ``budget``, the probe a partitioned run agreed on every rank,
+    as this thread's probed budget for the block."""
+    prev = getattr(_agreed, "budget", None)
+    _agreed.budget = budget
+    try:
+        yield
+    finally:
+        _agreed.budget = prev
 
 
 def shrink_scratch_budget(holder=None) -> Optional[int]:

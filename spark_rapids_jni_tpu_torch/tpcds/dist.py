@@ -60,12 +60,14 @@ import torch
 from ..columnar import Column, Table
 from ..config import env_int
 from ..obs import count, count_dispatch, count_host_sync, set_attrs, span
+from ..obs import memory as _obs_memory
 from ..parallel import (all_gather_rows, axis_index_flat, data_axes,
                         exchange_columns, exchange_columns_hier,
                         exchange_wire_bytes, hash_partition_ids,
                         intra_exchange_route, mesh_axes_key,
                         neighborhood_size, plan_exchange,
                         plan_exchange_hier, shard_capacity)
+from ..parallel import comm_plan
 from ..parallel.collectives import all_reduce
 from ..utils.device import resolve_device
 from . import rel as _rel
@@ -349,14 +351,34 @@ def _resolve_axis(mesh, axis) -> "tuple[object, tuple[str, ...]]":
     return (axes[0] if len(axes) == 1 else axes), axes
 
 
-def _fallback(plan, rels, dev, pname: str) -> Rel:
+def _fallback(plan, rels, dev, pname: str, info: dict) -> Rel:
     count("rel.dist_fallbacks")
     count(f"rel.dist_fallbacks.{pname}")
-    return _rel._run_fused_impl(plan, rels, dev)
+    return _rel._run_fused_impl(plan, rels, dev, info)
+
+
+def agreed_scratch_probe(mesh, axis, dev):
+    """The exchange scratch budget's probe agreed by every rank of
+    ``mesh`` (the minimum of the ranks' probes, one all-reduce a mesh
+    and data axis, memoized): called by every rank at the entry of a
+    partitioned run, before any branch a rank could skip. None when the
+    override or ``SRT_SHUFFLE_SCRATCH_BYTES`` decides the budget (no
+    collective then: both read alike on every rank) or no rank's device
+    reports memory."""
+    if comm_plan.budget_configured():
+        return None
+    axis, _ = _resolve_axis(mesh, axis)
+
+    def agree(local: int) -> int:
+        t = torch.tensor([local], dtype=torch.int64, device=dev)
+        return int(all_reduce(t, axis, mesh, "min")[0])
+
+    return _obs_memory.agreed_scratch_budget(
+        (mesh_axes_key(mesh), str(axis)), agree, dev)
 
 
 def run_partitioned(plan, rels: "dict[str, Rel]", mesh, axis=None,
-                    device=None) -> Rel:
+                    device=None, info: "dict | None" = None) -> Rel:
     """Entry point behind ``run_fused(plan, rels, mesh=...)``, called by
     every rank of ``mesh`` with the same global ``rels``. Falls back to
     the single-device fused run (counted ``rel.dist_fallbacks``) when an
@@ -366,8 +388,20 @@ def run_partitioned(plan, rels: "dict[str, Rel]", mesh, axis=None,
     ``axis`` may be one mesh axis or an outer-first tuple; None resolves
     through the logical rule table (``parallel.data_axes``): a 3-D mesh
     shards data over ``(intra, part)`` unless ``SRT_SHUFFLE_INTRA=flat``
-    keeps it on ``part``."""
+    keeps it on ``part``. ``info``, when given, receives ``fused``.
+
+    Every exchange of the run plans its rounds under one scratch budget:
+    with ``SRT_SHUFFLE_SCRATCH_BYTES`` unset, the memory probe agreed by
+    every rank at entry (``agreed_scratch_probe``)."""
+    if info is None:
+        info = {}
     dev = mesh.device if device is None else resolve_device(device)
+    probe = agreed_scratch_probe(mesh, axis, dev)
+    with comm_plan.agreed_probe_scope(probe):
+        return _run_partitioned(plan, rels, mesh, axis, dev, info)
+
+
+def _run_partitioned(plan, rels, mesh, axis, dev, info: dict) -> Rel:
     _rel._check_device(rels, dev)
     axis, axes = _resolve_axis(mesh, axis)
     sizes = tuple(mesh.shape[a] for a in axes)
@@ -378,7 +412,7 @@ def run_partitioned(plan, rels: "dict[str, Rel]", mesh, axis=None,
         r = rels[name]
         if (not _rel._fusable_rel(r) or r.mask is not None
                 or any(c.validity is not None for c in r.table.columns)):
-            return _fallback(plan, rels, dev, pname)
+            return _fallback(plan, rels, dev, pname, info)
         for c in r.table.columns:
             # verify the advisory stats on the GLOBAL column once (memoized;
             # every rank holds the same data, so every rank agrees)
@@ -411,7 +445,8 @@ def run_partitioned(plan, rels: "dict[str, Rel]", mesh, axis=None,
         _rel._DIST_CTX = None
         _rel._TRACE_AUX = None
     if out is None:
-        return _fallback(plan, rels, dev, pname)
+        return _fallback(plan, rels, dev, pname, info)
+    info["fused"] = True
     count("shuffle.peak_scratch_bytes", ctx.scratch_peak)
     count_dispatch("rel.dist_program")
     return finish_partitioned(out, mask, aux, (sort_keys, descending, limit),

@@ -58,12 +58,21 @@ rides ``_inherit_part`` like the partitioning tag; a mid-plan sort, a
 window or a union over streamed rows has no chunked form and raises
 ``FusedFallback`` (the runner then runs the plan in-core).
 
-The batched, result-cache and report layers are not ported yet.
+**Reports and the result cache.** With ``SRT_METRICS`` on, every
+``run_fused`` call emits one ``ExecutionReport`` (``obs/report.py``) on
+each route. With ``SRT_RESULT_CACHE_BYTES`` set, ``rel_from_df`` stamps
+each ingested column with a digest of its host bytes and ``run_fused``
+answers a content-equal repeat from the result cache
+(``serving/result_cache.py``, provenance ``result_cache``): no kernel,
+no host sync. Streamed inputs bypass the cache. The batched layer is not
+ported yet.
 """
 
 from __future__ import annotations
 
 import decimal
+import hashlib
+import time
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -71,10 +80,19 @@ import torch
 
 from ..columnar import Column, Table, bitmask
 from ..columnar.strings import dictionary_encode
-from ..obs import (count, count_dispatch, count_host_sync, set_attrs, span)
+from ..config import env_str, metrics_enabled
+from ..obs import (count, count_dispatch, count_host_sync, dispatch_counts,
+                   kernel_stats, set_attrs, span, stats_since)
+from ..obs import memory as _obs_memory
+from ..obs import recompile as _obs_recompile
+from ..obs import report as _obs_report
+from ..obs import spans as _obs_spans
 from ..ops import gather, sorted_order
 from ..ops.fused_pipeline import MAX_DENSE_WIDTH
+from ..serving import aot_cache as _aot
+from ..serving.result_cache import result_cache
 from ..types import INT8, DType, TypeId, decimal64
+from ..utils import faults as _faults
 from ..utils.device import resolve_device
 from ..utils.errors import expects
 
@@ -621,7 +639,8 @@ def _check_device(rels: "dict[str, Rel]", dev: torch.device) -> None:
 
 
 def run_fused(plan, rels: "dict[str, Rel]", device=None, mesh=None,
-              axis=None, *, morsels=None) -> Rel:
+              axis=None, *, morsels=None,
+              skip_result_cache: bool = False) -> Rel:
     """Execute ``plan(rels) -> Rel`` with the planner flag set, then
     materialize once: at most one data-dependent host sync per query
     (counter-asserted through ``rel.host_syncs``), which also reads every
@@ -648,27 +667,114 @@ def run_fused(plan, rels: "dict[str, Rel]", device=None, mesh=None,
     accumulator on the device, and one merge run finishes the query.
     ``morsels`` is None (sized to ``SRT_MORSEL_BYTES`` or the probed free
     memory), an int (at least that many morsels) or an
-    ``exec.MorselPlan``."""
+    ``exec.MorselPlan``.
+
+    **Reports.** With ``SRT_METRICS`` on, every call emits one
+    ``ExecutionReport`` (``obs/report.py``): the counter deltas, the
+    planner's routes, dispatches and host syncs, the ``shuffle`` section
+    over a mesh, the ``morsel`` and ``io`` sections when streamed, the
+    ``memory`` section (ingest bytes + the widest exchange round, and the
+    device watermarks), spans and compile events, stamped with the
+    ambient query id. ``skip_result_cache`` skips the result cache's
+    consult and fill."""
+    if not metrics_enabled():
+        return _run_fused_routed(plan, rels, {}, device, mesh, axis,
+                                 morsels, skip_result_cache)
+    pname = getattr(plan, "__name__", "plan").lstrip("_")
+    info: dict = {}
+    before = kernel_stats()
+    smark = _obs_spans.mark()
+    rmark = _obs_recompile.mark()
+    t0 = time.perf_counter_ns()
+    with span(f"query.{pname}"):
+        out = _run_fused_routed(plan, rels, info, device, mesh, axis,
+                                morsels, skip_result_cache)
+    wall = time.perf_counter_ns() - t0
+    delta = stats_since(before)
+    disp, syncs = dispatch_counts(delta)
+    # the eager planner counts its routes on every run (the reference
+    # keeps them from the trace, on its plan-cache entry)
+    routes = {k: v for k, v in info.get("trace_counters", {}).items()
+              if k.startswith("rel.route.") or "rel.general_" in k}
+    for k, v in delta.items():
+        if k.startswith("rel.route.") or "rel.general_" in k:
+            routes.setdefault(k, v)
+    shuffle = {k: v for k, v in delta.items() if k.startswith("shuffle.")}
+    memory = {}
+    if info.get("provenance") != _obs_report.PROVENANCE_RESULT_CACHE:
+        memory = _obs_memory.query_memory_section(
+            _obs_memory.rel_ingest_bytes(rels),
+            comm_scratch_bytes=shuffle.get("shuffle.peak_scratch_bytes", 0))
+    _obs_report.emit(_obs_report.ExecutionReport(
+        query=pname, fused=info.get("fused", False),
+        cache_hit=info.get("provenance")
+        == _obs_report.PROVENANCE_RESULT_CACHE,
+        provenance=_obs_report.report_provenance(info),
+        dispatches=disp, host_syncs=syncs, wall_ns=wall, counters=delta,
+        routes=routes,
+        spans=[r.to_dict() for r in _obs_spans.records_since(smark)],
+        recompiles=[r.to_dict()
+                    for r in _obs_recompile.records_since(rmark)],
+        native_routes=_obs_report.native_route_sentinels(),
+        shuffle=shuffle,
+        reliability={k: v for k, v in delta.items()
+                     if k.startswith("serving.fault.")},
+        memory=memory, morsel=info.get("morsel", {}),
+        io=info.get("io", {})))
+    return out
+
+
+def _run_fused_routed(plan, rels: "dict[str, Rel]", info: dict, device,
+                      mesh, axis, morsels, skip_result_cache: bool) -> Rel:
+    """Route one run: streamed inputs to the morsel runner (which keeps
+    its own standing state and bypasses the result cache); otherwise the
+    result cache's consult, the fault seams, the run on one device or
+    over the mesh, and the cache's fill."""
     if morsels is not None or any(getattr(r, "is_host_table", False)
                                   for r in rels.values()):
         from ..exec import runner
-        return runner.run_morsels(plan, rels, None, mesh=mesh, axis=axis,
+        return runner.run_morsels(plan, rels, info, mesh=mesh, axis=axis,
                                   morsels=morsels, device=device)
+    dev = (mesh.device if mesh is not None and device is None
+           else resolve_device(device))
+    rcache = None if skip_result_cache else result_cache()
+    rtoken = None
+    if rcache is not None:
+        rtoken = result_cache_token(plan, rels, mesh, axis, dev)
+        if rtoken is not None:
+            hit = rcache.get(rtoken)
+            if hit is not None:
+                info["provenance"] = _obs_report.PROVENANCE_RESULT_CACHE
+                info["fused"] = True
+                return hit
+    # chaos seams (utils/faults.py): after the result cache (a cached
+    # answer dispatches and allocates nothing), before any device work
+    _faults.maybe_inject(_faults.SEAM_DISPATCH)
+    _faults.maybe_inject(_faults.SEAM_ALLOC)
     if mesh is not None:
         from . import dist
-        return dist.run_partitioned(plan, rels, mesh, axis=axis,
-                                    device=device)
-    return _run_fused_impl(plan, rels, resolve_device(device))
+        out = dist.run_partitioned(plan, rels, mesh, axis=axis, device=dev,
+                                   info=info)
+    else:
+        out = _run_fused_impl(plan, rels, dev, info)
+    if rtoken is not None:
+        rcache.put(rtoken, out)
+    return out
 
 
-def _run_fused_impl(plan, rels: "dict[str, Rel]", dev: torch.device) -> Rel:
-    """The single-device fused run (``run_fused`` without a mesh)."""
+def _run_fused_impl(plan, rels: "dict[str, Rel]", dev: torch.device,
+                    info: "Optional[dict]" = None) -> Rel:
+    """The single-device fused run (``run_fused`` without a mesh);
+    ``info``, when given, receives ``fused``."""
     global _FUSED_TRACING, _TRACE_AUX
+    if info is None:
+        info = {}
     _check_device(rels, dev)
     pname = getattr(plan, "__name__", "plan").lstrip("_")
     for name in sorted(rels):
         if not _fusable_rel(rels[name]) or rels[name].mask is not None:
             count("rel.fused_fallbacks")
+            info["fused"] = False
             return plan(rels).compact()
         for c in rels[name].table.columns:
             _trusted_range(c)  # verify advisory stats once (memoized)
@@ -685,8 +791,10 @@ def _run_fused_impl(plan, rels: "dict[str, Rel]", dev: torch.device) -> Rel:
     if out is None:
         count("rel.fused_fallbacks")
         count(f"rel.fused_fallbacks.{pname}")
+        info["fused"] = False
         return plan(rels).compact()
     count_dispatch("rel.fused_program")
+    info["fused"] = True
     return finish_fused(out, aux)
 
 
@@ -736,6 +844,98 @@ def finish_fused(out: Rel, aux: list, sync_site: "Optional[str]" = None
                out.names, dicts=out.dicts)
 
 
+# --------------------------------------------------------------------------
+# Result-cache keying: fingerprints and ingest content digests
+# --------------------------------------------------------------------------
+
+# the env knobs that steer the planner's routes: part of the result
+# cache's and the morsel runner's keys
+_ROUTE_KNOBS = ("SRT_JOIN_METHOD", "SRT_DENSE_GROUPBY", "SRT_STRING_ROUTE",
+                "SRT_BROADCAST_THRESHOLD", "SRT_GROUPBY_PSUM_WIDTH",
+                "SRT_SHUFFLE_JOIN_ROUTE", "SRT_SHUFFLE_SCRATCH_BYTES",
+                "SRT_SHUFFLE_INTRA", "SRT_SHUFFLE_NEIGHBORHOOD",
+                "SRT_PAGE_BYTES")
+
+
+def planner_env_key() -> tuple:
+    return tuple(env_str(k, "") for k in _ROUTE_KNOBS)
+
+
+def _dict_digest(cats: np.ndarray) -> str:
+    h = hashlib.sha1()
+    h.update(str(cats.dtype).encode())
+    h.update(str(cats.shape).encode())
+    if cats.dtype == object:
+        h.update("\x00".join(map(str, cats)).encode())
+    else:
+        h.update(cats.tobytes())
+    return h.hexdigest()
+
+
+def _rel_fingerprint(rel: Rel) -> tuple:
+    """Schema, verified stats and dictionary digests of a resident rel:
+    what its routes are chosen from (the result cache's and the morsel
+    runner's keys)."""
+    cols = tuple((int(c.dtype.id), c.dtype.scale, c.size,
+                  c.validity is not None, _trusted_range(c),
+                  _trusted_unique(c)) for c in rel.table.columns)
+    dict_keys = tuple(sorted((n, _dict_digest(v))
+                             for n, v in rel.dicts.items()))
+    return (tuple(rel.names), cols, dict_keys)
+
+
+def _ingest_content_digest(arr: np.ndarray) -> str:
+    """sha1 of an ingest array's bytes, dtype and shape: the per-column
+    content identity the result cache keys on, computed by
+    ``rel_from_df`` only while the cache is on."""
+    h = hashlib.sha1()
+    h.update(str(arr.dtype).encode())
+    h.update(str(arr.shape).encode())
+    h.update(np.ascontiguousarray(arr).tobytes())
+    return h.hexdigest()
+
+
+def result_cache_token(plan, rels: "dict[str, Rel]", mesh=None,
+                       axis=None, device=None) -> Optional[str]:
+    """The content token of one (plan, inputs) submission, or None
+    (counted ``serving.result_cache.uncacheable``) when an input is
+    streamed, masked, or has a column without an ingest digest (a
+    derived rel, a STRING column with nulls): the cache serves exact
+    content matches only. Keys go through ``serving/aot_cache``'s token
+    helpers.
+
+    The token names the run's device (``device``, resolved as
+    ``run_fused`` resolves it) and the devices its inputs lie on: a
+    cached result's tensors live where it was computed, so the same
+    content on another device misses."""
+    order = sorted(rels)
+    digests = []
+    for name in order:
+        r = rels[name]
+        if getattr(r, "is_host_table", False) or r.mask is not None:
+            count("serving.result_cache.uncacheable")
+            return None
+        for c in r.table.columns:
+            d = getattr(c, "_content_digest", None)
+            if d is None:
+                count("serving.result_cache.uncacheable")
+                return None
+            digests.append(d)
+    fps = tuple(_rel_fingerprint(rels[name]) for name in order)
+    dev = (mesh.device if mesh is not None and device is None
+           else resolve_device(device))
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    devices = (str(dev), tuple(sorted({str(c.device) for name in order
+                                       for c in rels[name].table.columns})))
+    meshdesc = None
+    if mesh is not None:
+        from ..parallel import mesh_axes_key
+        meshdesc = (str(axis), mesh_axes_key(mesh))
+    return _aot.result_token(plan, (tuple(order), fps, tuple(digests),
+                                    planner_env_key(), meshdesc, devices))
+
+
 def _trust_ingest(col: Column) -> Column:
     """Mark an ingest's exact host stats VERIFIED by construction."""
     if col.value_range is not None and col.validity is None:
@@ -758,6 +958,9 @@ def rel_from_df(df, decimals: "Optional[Dict[str, int]]" = None,
     import pandas as pd
     dev = resolve_device(device)
     decimals = decimals or {}
+    # the result cache on: stamp each column with its content digest
+    # (the host bytes are in hand exactly once, here); off: no cost
+    want_digest = result_cache() is not None
     names, cols, dicts = [], [], {}
     for name in df.columns:
         s = df[name]
@@ -781,7 +984,10 @@ def rel_from_df(df, decimals: "Optional[Dict[str, int]]" = None,
                     device=dev))
                 continue
             dicts[name] = cats
+            arr = codes
             col = Column.from_numpy(codes, device=dev)
+        if want_digest:
+            col._content_digest = _ingest_content_digest(arr)
         cols.append(_trust_ingest(col))
     return Rel(Table(cols), names, dicts=dicts)
 

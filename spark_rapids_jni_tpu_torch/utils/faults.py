@@ -1,12 +1,15 @@
 """Deterministic fault injection: the chaos seams.
 
 Port of ``spark_rapids_jni_tpu/utils/faults.py``, pure Python. The port
-reaches two seams so far: ``dispatch`` fires once a streamed morsel in
-the out-of-core pump (``exec/runner.py``), and ``disk`` in a Parquet
-table's row-group read (``exec/disk_table.py``). The serving seams keep
-their names for the serving layer, which is not ported yet; the
-memory-pressure kinds raise this module's ``RetryOOM`` and
-``SplitAndRetryOOM`` (the reference's come from its native bridge).
+reaches three seams: ``dispatch`` and ``alloc`` once a query in
+``run_fused`` (in-core and mesh, after the result cache's consult and
+before any device work) and ``dispatch`` once a streamed morsel in the
+out-of-core pump (``exec/runner.py``), and ``disk`` in a Parquet
+table's row-group read (``exec/disk_table.py``). The fleet's seams keep
+their names for the fleet, which is not ported yet; the memory-pressure
+kinds raise this module's ``RetryOOM`` and ``SplitAndRetryOOM`` (the
+reference's come from its native bridge), which the serving layer's
+retry matrix classifies (``serving/reliability.py``).
 
 **Spec grammar** (``SRT_FAULTS``, or :func:`configure`)::
 
@@ -15,14 +18,16 @@ memory-pressure kinds raise this module's ``RetryOOM`` and
 
 Seams, where a fault fires (one ``maybe_inject`` call each):
 
-- ``dispatch``: once a live morsel, before its partial run
-  (``exec/runner.py``); the standing accumulator is never mutated in
-  place, so a retry replays bit-exact;
+- ``dispatch``: once a query before its run (``tpcds/rel.py``), and
+  once a live morsel before its partial run (``exec/runner.py``); the
+  standing accumulator is never mutated in place, so a retry replays
+  bit-exact;
+- ``alloc``: once a query before its run (``tpcds/rel.py``);
 - ``disk``: a Parquet row group's read (``exec/disk_table.py``
   ``_decode_group``), retried in place (``io.disk.retries``);
-- ``worker``, ``aot_load``, ``shuffle``, ``batch``, ``alloc``,
-  ``respawn``, ``control``: the reference's serving seams, reached by
-  nothing here yet.
+- ``worker``, ``aot_load``, ``shuffle``, ``batch``, ``respawn``,
+  ``control``: the reference's fleet seams, reached by nothing here
+  yet.
 
 Kinds, what fires: ``raise`` and ``corrupt`` raise
 :class:`InjectedFault` (transient), ``crash`` :class:`WorkerCrash`,

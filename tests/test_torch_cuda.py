@@ -1266,3 +1266,131 @@ def test_cuda_morsel_pump_adds_no_sync(morsel_tables):
     streamed = syncs(lambda: run_morsels(PLANS["q3"], host, morsels=8))
     incore = syncs(lambda: run_fused(PLANS["q3"], rels))
     assert streamed <= incore, (streamed, incore)
+
+
+# --------------------------------------------------------------------------
+# The serving path on the card: QueryExecutor, reports, result cache
+# --------------------------------------------------------------------------
+
+def _served_frames_equal(got, want, what):
+    import numpy as np
+    assert list(got.columns) == list(want.columns), what
+    assert len(got) == len(want), what
+    for c in got.columns:
+        g, w = got[c].to_numpy(), want[c].to_numpy()
+        if g.dtype.kind == "f" or w.dtype.kind == "f":
+            np.testing.assert_allclose(g.astype(np.float64),
+                                       w.astype(np.float64), rtol=1e-9,
+                                       atol=1e-9, equal_nan=True,
+                                       err_msg=f"{what}.{c}")
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=f"{what}.{c}")
+
+
+@pytest.mark.cuda
+def test_cuda_executor_serves_q1_q20_with_reports(cuda_device, monkeypatch):
+    from spark_rapids_jni_tpu_torch import obs
+    from spark_rapids_jni_tpu_torch.serving import QueryExecutor
+    from spark_rapids_jni_tpu_torch.tpcds import PLANS, QUERIES, generate
+    from spark_rapids_jni_tpu_torch.tpcds.rel import rel_from_df
+    monkeypatch.setenv("SRT_METRICS", "1")
+    monkeypatch.setenv("SRT_JOIN_METHOD", "cuda")
+    monkeypatch.setenv("SRT_DENSE_GROUPBY", "cuda")
+    data = generate(sf=2, seed=7)
+    rels = {n: rel_from_df(df, device=cuda_device) for n, df in data.items()}
+    before = dict(K.LAUNCHES)
+    with QueryExecutor(device=cuda_device, max_queue=8,
+                       max_in_flight=20) as ex:
+        pend = {q: ex.submit(PLANS[q], rels) for q in QUERIES}
+        for q, p in pend.items():
+            _served_frames_equal(p.to_df(timeout=300), QUERIES[q][1](data),
+                                 q)
+    reports = {r.qid: r for r in obs.recent_reports()}
+    for q, p in pend.items():
+        rep = reports[p.qid]
+        assert rep.query == q and rep.host_syncs <= 1
+        assert rep.memory["devices"]["0"]["bytes_limit"] > 0
+    for name in ("hash_join_probe", "ragged_groupby_sum_count",
+                 "bitmask_pack"):
+        assert K.LAUNCHES[name] > before.get(name, 0), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["0", str(1 << 28)], ids=["whole", "paged"])
+def test_cuda_result_cache_hit_launches_nothing(cuda_device, monkeypatch,
+                                                pool):
+    from spark_rapids_jni_tpu_torch import obs
+    from spark_rapids_jni_tpu_torch.serving import result_cache
+    from spark_rapids_jni_tpu_torch.tpcds import PLANS, QUERIES, generate
+    from spark_rapids_jni_tpu_torch.tpcds.rel import rel_from_df, run_fused
+    monkeypatch.setenv("SRT_RESULT_CACHE_BYTES", str(1 << 30))
+    monkeypatch.setenv("SRT_PAGE_POOL_BYTES", pool)
+    monkeypatch.setenv("SRT_JOIN_METHOD", "cuda")
+    monkeypatch.setenv("SRT_DENSE_GROUPBY", "cuda")
+    result_cache.reset()
+    try:
+        data = generate(sf=2, seed=7)
+        rels = {n: rel_from_df(df, device=cuda_device)
+                for n, df in data.items()}
+        for q in ("q1", "q5", "q6"):
+            run_fused(PLANS[q], rels, device=cuda_device)
+            torch.cuda.synchronize()
+            launches, st = dict(K.LAUNCHES), obs.kernel_stats()
+            got = run_fused(PLANS[q], rels, device=cuda_device)
+            assert dict(K.LAUNCHES) == launches, q
+            d = obs.stats_since(st)
+            assert d.get("serving.result_cache.hits") == 1, d
+            assert d.get("rel.host_syncs", 0) == 0, d
+            _served_frames_equal(got.to_df(), QUERIES[q][1](data), q)
+    finally:
+        result_cache.reset()
+
+
+@pytest.mark.cuda
+def test_cuda_result_cache_keys_apart_across_devices(cuda_device,
+                                                     monkeypatch):
+    """The same content filled on the CPU misses on the card, and the
+    other way round: each run's result lies on its own device."""
+    from spark_rapids_jni_tpu_torch import obs
+    from spark_rapids_jni_tpu_torch.serving import result_cache
+    from spark_rapids_jni_tpu_torch.tpcds import PLANS, QUERIES, generate
+    from spark_rapids_jni_tpu_torch.tpcds.rel import rel_from_df, run_fused
+    monkeypatch.setenv("SRT_RESULT_CACHE_BYTES", str(1 << 30))
+    result_cache.reset()
+    try:
+        data = generate(sf=2, seed=7)
+        for first, second in (("cpu", cuda_device), (cuda_device, "cpu")):
+            result_cache.reset()
+            for dev in (first, second):
+                rels = {n: rel_from_df(df, device=dev)
+                        for n, df in data.items()}
+                st = obs.kernel_stats()
+                got = run_fused(PLANS["q3"], rels, device=dev)
+                d = obs.stats_since(st)
+                assert d.get("serving.result_cache.misses") == 1, (dev, d)
+                assert d.get("serving.result_cache.hits", 0) == 0, (dev, d)
+                assert all(c.device.type == torch.device(dev).type
+                           for c in got.table.columns), dev
+                _served_frames_equal(got.to_df(), QUERIES["q3"][1](data),
+                                     f"q3 on {dev}")
+            st = obs.kernel_stats()
+            run_fused(PLANS["q3"], rels, device=second)
+            assert obs.stats_since(st).get("serving.result_cache.hits") == 1
+    finally:
+        result_cache.reset()
+
+
+@pytest.mark.cuda
+def test_cuda_memory_gauges_and_probe(cuda_device):
+    from spark_rapids_jni_tpu_torch.obs import memory
+    from spark_rapids_jni_tpu_torch.parallel import comm_plan
+    x = torch.empty(1 << 20, dtype=torch.uint8, device=cuda_device)
+    stats = memory.sample_device_memory()
+    assert stats[0]["bytes_in_use"] >= x.numel()
+    assert stats[0]["peak_bytes_in_use"] >= stats[0]["bytes_in_use"]
+    assert stats[0]["bytes_limit"] == \
+        torch.cuda.get_device_properties(0).total_memory
+    budget = memory.probed_scratch_budget(cuda_device)
+    assert budget >= comm_plan.MIN_SCRATCH_BYTES
+    assert budget & (budget - 1) == 0
+    assert 0.0 < memory.device_used_fraction() < 1.0

@@ -107,7 +107,8 @@ def test_read_parquet_byte_equal(fact_paths):
         assert a.data.numpy().tobytes() == np.asarray(r.data).tobytes()
 
 
-def test_read_row_group_projects_and_counts(fact_paths):
+def test_read_row_group_projects_and_counts(fact_paths, monkeypatch):
+    monkeypatch.setenv("SRT_METRICS", "1")  # histograms record only then
     pf = open_parquet(fact_paths["store_sales"])
     full = pf.read_row_group(0)
     hist = obs.REGISTRY.histogram("io.disk.read_ns")

@@ -59,7 +59,11 @@ def test_sources_exist():
                 "utils/faults.py", "io/__init__.py", "io/arrow.py",
                 "io/parquet.py", "exec/__init__.py", "exec/host_table.py",
                 "exec/morsel.py", "exec/pages.py", "exec/runner.py",
-                "exec/disk_table.py"):
+                "exec/disk_table.py", "obs/report.py", "obs/flight.py",
+                "obs/slo.py", "obs/server.py", "obs/recompile.py",
+                "obs/spans.py", "utils/tracing.py", "serving/__init__.py",
+                "serving/executor.py", "serving/reliability.py",
+                "serving/result_cache.py", "serving/aot_cache.py"):
         assert rel in names
     for src in ("hash_join_probe.cu", "ragged_groupby.cu",
                 "bitmask_pack.cu", "murmur3.cu", "pack_rows.cu"):
@@ -99,6 +103,9 @@ def test_import_loads_no_jax_module():
         "import spark_rapids_jni_tpu_torch.parallel\n"
         "import spark_rapids_jni_tpu_torch.parallel.distributed\n"
         "import spark_rapids_jni_tpu_torch.tpcds.dist\n"
+        "import spark_rapids_jni_tpu_torch.serving\n"
+        "import spark_rapids_jni_tpu_torch.obs.server\n"
+        "import spark_rapids_jni_tpu_torch.utils.tracing\n"
         "from spark_rapids_jni_tpu_torch.tpcds.oplib import registry\n"
         "registry.ensure_loaded()\n"
         "import chip_smoke\n"

@@ -411,7 +411,8 @@ def test_terminal_stream_without_limit_falls_back(host_rels, ref_rels):
 # 6. the run's facts: info, gauges, the overlap histogram
 # --------------------------------------------------------------------------
 
-def test_morsel_info_and_overlap_histogram(host_rels):
+def test_morsel_info_and_overlap_histogram(host_rels, monkeypatch):
+    monkeypatch.setenv("SRT_METRICS", "1")  # histograms record only then
     hist = obs.REGISTRY.histogram("exec.morsel.overlap_ns")
     seen = hist.snapshot()["count"]
     info = {}
