@@ -212,6 +212,56 @@ In order, it:
    report's ``shuffle`` section its ``shuffle.*`` counters, with K5
    launched on the shuffle-hash joins' keys; it prints the scratch
    budget the ranks agreed;
+10c. the batched serving step, with ``SRT_METRICS`` on and the result
+   cache off, on step 3's tables and ``rels_b``: the same tables but
+   store_sales ingested again from its frame with ss_net_profit rotated
+   by 3,333,333 rows (the same fingerprint, other answers where a query
+   reads it). (a) Each of q1-q20 runs in the window ``[rels, rels_b,
+   rels]`` through ``run_fused_batched`` (k=3, the padded route's
+   capacity 4): the cold window captures the batch program into a CUDA
+   graph, three warm windows replay it; the launch counts are set to 0
+   before q1's first window and read after q20's last, and the batch
+   cache is cleared after each query (its graphs, pools and buffers
+   freed). It requires every slot to equal the serial ``run_fused`` of
+   its rels (integers exact, floats rtol=atol=1e-9) and slot 0 the
+   oracle; a warm window one ``rel.fused_batch_program``, one counted
+   host sync and no other synchronising CUDA call, provenance
+   ``warm_memory`` and ``rel.route.serving.batched == 3``; the cold
+   window provenance ``cold_compile`` with one compile event (the
+   capture); q1-q10 to replay a graph (a query of q11-q20 that cannot is
+   printed with its ``BatchIncompatible`` reason, route-counted
+   ``rel.batch.fallbacks``); K1, K2 and K3 launched inside the captured
+   programs. Per query it prints the warm window's ms (median of 3)
+   beside the sum of its three slots' serial ms, the cold window's and
+   the capture's ms, the hand-kernel launches of one replay, the static
+   buffer bytes (store_sales' four slots; the shared tables are read in
+   place) and the peak memory allocated. (b) q1-q10's windows once
+   more with the batch program run eagerly (no capture), every kernel
+   call recorded and held against its plain version (exact), each slot
+   equal to the replayed one. (c) q3's window on the ragged route with
+   ``SRT_PAGE_POOL_BYTES`` 4 GiB (the three 880 MB store_sales slots need
+   3 GiB) must count ``rel.route.batch.ragged`` and report the effective
+   capacity; with a pool of one page it must count
+   ``rel.batch.pool_degraded`` and serve padded. (d) A ``FleetScheduler``
+   with tenants ``gold`` (priority 1, weight 3) and ``bronze`` (0, 1), two
+   workers and a 20 ms window takes bursts of 32 submissions each of q9
+   and q17, half from each tenant, at ``SRT_BATCH_MAX=16`` and at 1 (two
+   warm-up bursts first): every result equal to the serial one, the
+   per-tenant counters, and at 16 ``serving.batch.formed >= 1`` with a
+   window of 16; it prints each query's p50 and p99 latency, the
+   burst's queries/s and its windows' sizes (and how many captured) both
+   ways. Then bursts of 16 q9 under
+   ``batch:raise:1`` (``serving.batch.fallback``), ``batch:split_oom:1``
+   (``serving.fault.oom.split``) and ``worker:crash:1``
+   (``serving.fault.worker_restarts == 1``, the queries requeued), each
+   query served and equal, and a q9 queued behind q19 with a 1 ms
+   deadline must raise ``QueryExpired``. (e) A ``FleetScheduler`` with two
+   workers and ``SRT_BATCH_MAX=4`` serves q1-q20, three submissions each
+   (``rels``, ``rels_b``, ``rels``), in two rounds, and the batch cache
+   is not cleared: every result equal to its serial one and none failed;
+   after each round it prints the memory allocated and reserved, the
+   cache's entries and the bytes they charge, and the evictions (by the
+   card's headroom, by an out-of-memory error, by count);
 11. the morsel step (out-of-core execution, ``exec/``): the four fact
    tables of step 3's frames (1,346,648,000 bytes) become host tables
    and the dimensions stay on the card. It prints one plain copy of
@@ -262,10 +312,11 @@ In order, it:
    device time of its K6 (to rows) or K3 (from rows) calls (the rest is
    host work, other kernels and idle card);
 13. prints the ``kernels`` JSON line (K1-K6, each with its launches on
-    its paths: K1-K3 on q1-q10, q11-q20, the served path and the morsel
-    step, the kernels launched serving over the mesh, K3 also on
-    the roster, the strings step, roster II and, in its table form, on
-    the row conversions and nested rows, and K1-K6 on the mesh), the card
+    its paths: K1-K3 on q1-q10, q11-q20, the served path, the batched
+    path and the morsel step, the kernels launched serving over the
+    mesh, K3 also on the roster, the strings step, roster II and, in its
+    table form, on the row conversions and nested rows, and K1-K6 on the
+    mesh), the card
     again, and as the last line ``{"ok": true, "device": {...}}``.
 
 Every kernel time is device time from CUDA events, the median of 10 runs
@@ -276,12 +327,14 @@ function, and the bound: the larger of the bytes the function must move
 over the card's 3.35 TB/s and its operations over 67 T/s, or, for K2,
 the updates of its busiest slot at one shared-memory atomic per SM
 clock. The ``kernels`` line sums each kernel over its calls on its
-paths: K1-K3 over q1-q10, q11-q20, the served path's counted pass and
-the morsel step's,
+paths: K1-K3 over q1-q10, q11-q20, the served path's counted pass, the
+batched path (launches: the replayed windows of step 10c (a); calls and
+times: its recording pass (b)) and the morsel step's,
 K4 and K5 over the hashing step, K3 over the roster, the strings step
 and roster II, K6 and K3's table form over the row-conversion step, and
 all of them over the mesh step and the mesh-served pass (the mesh,
-serving and morsel steps time 3 runs a call, to keep them short). The
+serving, batched and morsel steps time 3 runs a call, to keep them
+short). The
 morsel step's first warm run of each query and its Parquet runs turn
 ``SRT_METRICS`` on, so the overlap and io histograms record; its timed
 medians run with it off.
@@ -340,7 +393,8 @@ from spark_rapids_jni_tpu_torch.exec import (HostTable, ParquetHostTable,
                                              reset_standing_state)
 from spark_rapids_jni_tpu_torch.exec.runner import reset_staging, run_morsels
 from spark_rapids_jni_tpu_torch import obs
-from spark_rapids_jni_tpu_torch.obs import REGISTRY, kernel_stats, stats_since
+from spark_rapids_jni_tpu_torch.obs import (REGISTRY, dispatch_counts,
+                                            kernel_stats, stats_since)
 from spark_rapids_jni_tpu_torch.obs import server as obs_server
 from spark_rapids_jni_tpu_torch.obs.memory import hbm_headroom_bytes
 from spark_rapids_jni_tpu_torch.ops import cuda_kernels as K
@@ -363,10 +417,16 @@ from spark_rapids_jni_tpu_torch.ops.get_json_object import (_eval_py,
 from spark_rapids_jni_tpu_torch.ops.sort import gather_column
 from spark_rapids_jni_tpu_torch.parallel import (distributed, make_mesh,
                                                  shuffle_table)
-from spark_rapids_jni_tpu_torch.serving import (QueryExecutor, reliability,
+from spark_rapids_jni_tpu_torch.serving import (FleetScheduler,
+                                                QueryExecutor, QueryExpired,
+                                                TenantConfig, reliability,
                                                 result_cache)
 from spark_rapids_jni_tpu_torch.tpcds import PLANS, QUERIES, dist, generate
-from spark_rapids_jni_tpu_torch.tpcds.rel import rel_from_df, run_fused
+from spark_rapids_jni_tpu_torch.tpcds.rel import (BatchIncompatible,
+                                                  batch_cache_stats,
+                                                  clear_batch_cache,
+                                                  rel_from_df, run_fused,
+                                                  run_fused_batched)
 from spark_rapids_jni_tpu_torch.utils import faults
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate
@@ -386,6 +446,7 @@ KERNELS = (("hash_join_probe", (("q1-q10", "hash_join_probe"),
                                  ("mesh", "hash_join_probe"),
                                  ("serving", "hash_join_probe"),
                                  ("serving mesh", "hash_join_probe"),
+                                 ("batched", "hash_join_probe"),
                                  ("morsel", "hash_join_probe"))),
            ("ragged_groupby_sum_count",
             (("q1-q10", "ragged_groupby_sum_count"),
@@ -393,11 +454,13 @@ KERNELS = (("hash_join_probe", (("q1-q10", "hash_join_probe"),
              ("mesh", "ragged_groupby_sum_count"),
              ("serving", "ragged_groupby_sum_count"),
              ("serving mesh", "ragged_groupby_sum_count"),
+             ("batched", "ragged_groupby_sum_count"),
              ("morsel", "ragged_groupby_sum_count"))),
            ("bitmask_pack", (("q1-q10", "bitmask_pack"),
                              ("q11-q20", "bitmask_pack"),
                              ("serving", "bitmask_pack"),
                              ("serving mesh", "bitmask_pack"),
+                             ("batched", "bitmask_pack"),
                              ("morsel", "bitmask_pack"),
                              ("row conversion", "bitmask_pack"),
                              ("row conversion", "bitmask_pack_fields"),
@@ -720,6 +783,9 @@ def recording(calls: list, query: list):
         sig = inspect.signature(WRAPPERS[name])
 
         def record(*a, **kw):
+            # a clone taken while a stream captures a graph holds nothing
+            _require(not torch.cuda.is_current_stream_capturing(),
+                     f"{name} recorded inside a graph capture")
             bound_args = sig.bind(*a, **kw)
             bound_args.apply_defaults()
             calls.append((query[0], name, tuple(
@@ -3889,6 +3955,408 @@ def run_serving(dev, rels: dict, data: dict, oracles: dict, mesh, log,
 
 
 # --------------------------------------------------------------------------
+# The batched serving step: run_fused_batched windows replayed from CUDA
+# graphs, the recording pass, the ragged route and the fleet scheduler
+# --------------------------------------------------------------------------
+
+BATCH_K = 3                   # a window [rels, rels_b, rels]: capacity 4
+BATCH_WARM = 3                # warm windows a query (their median)
+BATCH_ROTATE = 3_333_333      # rels_b's ss_net_profit rotation, rows
+RAGGED_POOL = 4 << 30         # funds q3's three 850 MB store_sales slots
+SMALL_POOL = 1 << 16          # one page, too small for any window
+MIX_BATCH_MAX = 4             # the fleet mix's windows: three, capacity 4
+BURST = 32                    # q9 and q17 submissions each a burst
+BURST_QUERIES = ("q9", "q17")
+BURST_WINDOW_MS = 20          # the scheduler's fixed coalescing window
+FAULT_BURST = 16              # q9 submissions a fault pass
+
+
+def batch_rels(dev, rels: dict, data: dict) -> dict:
+    """``rels`` with store_sales ingested again from its frame, its
+    ss_net_profit rotated by ``BATCH_ROTATE`` rows: the same fingerprint
+    (schema, stats, sizes), other answers wherever a query reads it."""
+    ss = data["store_sales"].copy()
+    ss["ss_net_profit"] = np.roll(ss["ss_net_profit"].to_numpy(),
+                                  BATCH_ROTATE)
+    return dict(rels, store_sales=rel_from_df(ss, device=dev))
+
+
+def batch_window(q: str, window: list, dev, graph=None) -> list:
+    return run_fused_batched(PLANS[q], window, device=dev, _graph=graph)
+
+
+def batched_queries(dev, rels: dict, rels_b: dict, oracles: dict, log,
+                    card: str) -> "tuple[dict, dict, dict]":
+    """Pass (a): each of q1-q20 in a window of ``BATCH_K``: the cold
+    window captures, ``BATCH_WARM`` warm windows replay; each slot equal
+    to its serial run and slot 0 to the oracle; one batch program, one
+    counted host sync and no other synchronising CUDA call a warm window.
+    Returns the per-query report, the main path's launch counts, the
+    last warm window's frames and the serial frames."""
+    window = [rels, rels_b, rels]
+    serial, serial_ms = {}, {}
+    for q in Q1_10 + Q11_20:  # the serial baseline, before the counts
+        serial[q] = [run_fused(PLANS[q], r, device=dev).to_df()
+                     for r in (rels, rels_b)]
+        serial_ms[q] = [wall_ms(lambda r=r: run_fused(PLANS[q], r,
+                                                      device=dev))
+                        for r in (rels, rels_b)]
+    per_query, frames = {}, {}
+    K.reset_launch_counts()
+    for q in Q1_10 + Q11_20:
+        want = (serial[q][0], serial[q][1], serial[q][0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = kernel_stats()
+        t0 = time.perf_counter()
+        try:
+            outs = batch_window(q, window, dev)
+        except BatchIncompatible as e:
+            _require(q in Q11_20, f"{q} did not batch: {e}")
+            d = stats_since(before)
+            _require(d.get("rel.batch.fallbacks") == 1,
+                     f"{q}: BatchIncompatible not route-counted: {d}")
+            per_query[q] = {"batched": False, "reason": str(e)[:300]}
+            log(f"batched {q}: BatchIncompatible, route-counted "
+                f"rel.batch.fallbacks: {str(e)[:300]}")
+            clear_batch_cache()
+            continue
+        torch.cuda.synchronize()
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        cold = obs.last_report(q)
+        (stats,) = batch_cache_stats()
+        for i, o in enumerate(outs):
+            frames_match(o.to_df(), want[i], f"{q} (batched slot {i})")
+        frames_match(outs[0].to_df(), oracles[q], f"{q} (batched slot 0)")
+        warm, syncs_seen = [], []
+        for _ in range(BATCH_WARM):
+            before = kernel_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs, syncs = _count_syncs(lambda: batch_window(q, window, dev))
+            torch.cuda.synchronize()
+            warm.append((time.perf_counter() - t0) * 1e3)
+            d = stats_since(before)
+            disp, host = dispatch_counts(d)
+            rep = obs.last_report(q)
+            _require(d.get("rel.dispatches.rel.fused_batch_program") == 1
+                     and host == 1 and syncs == 1
+                     and d.get("rel.route.serving.batched") == BATCH_K
+                     and rep.provenance == "warm_memory"
+                     and rep.batch == BATCH_K,
+                     f"{q} warm window: dispatches {disp}, host syncs "
+                     f"{host}, synchronising calls {syncs}, counters {d}, "
+                     f"provenance {rep.provenance}")
+            syncs_seen.append(syncs)
+            for i, o in enumerate(outs):
+                frames_match(o.to_df(), want[i], f"{q} (replayed slot {i})")
+        frames[q] = [o.to_df() for o in outs]
+        peak = torch.cuda.max_memory_allocated()
+        launches = stats["replay_launches"]
+        captures = [r for r in cold.recompiles
+                    if r["site"] == f"rel.fused_batch.{q}"]
+        _require(cold.provenance == "cold_compile" and len(captures) == 1
+                 and stats["graph"],
+                 f"{q}: cold window provenance {cold.provenance}, "
+                 f"captures {captures}")
+        _require(q not in Q1_10 or stats["graph"],
+                 f"{q} did not replay a graph")
+        r = per_query[q] = {
+            "batched": True, "warm_ms": statistics.median(warm),
+            "serial_sum_ms": 2 * serial_ms[q][0] + serial_ms[q][1],
+            "serial_ms": serial_ms[q], "cold_ms": cold_ms,
+            "capture_ms": captures[0]["duration_s"] * 1e3,
+            "replay_launches": launches,
+            "static_bytes": stats["static_bytes"], "peak_bytes": peak,
+            "cuda_sync_calls": syncs_seen}
+        log(f"batched {q}: warm_ms={r['warm_ms']:.3f} (k={BATCH_K}, "
+            f"capacity 4) serial_sum_ms={r['serial_sum_ms']:.3f} "
+            f"(slots {serial_ms[q][0]:.3f} + {serial_ms[q][1]:.3f} + "
+            f"{serial_ms[q][0]:.3f}) cold_ms={cold_ms:.1f} "
+            f"capture_ms={r['capture_ms']:.1f} replay_launches="
+            f"{json.dumps(launches, sort_keys=True)} static_gib="
+            f"{r['static_bytes'] / 2**30:.3f} peak_gib={peak / 2**30:.2f} "
+            f"sync_calls={syncs_seen} [{card}]")
+        clear_batch_cache()  # frees the graph, its pool and its buffers
+    torch.cuda.synchronize()
+    main_launches = {n: K.LAUNCHES[n] for n in Q_NAMES}
+    in_graphs = collections.Counter()
+    for r in per_query.values():
+        in_graphs.update(r.get("replay_launches", {}))
+    for name in Q_NAMES:
+        _require(main_launches[name] > 0 and in_graphs[name] > 0,
+                 f"kernel {name} was not launched in a captured batch "
+                 f"program (main path {main_launches}, in the graphs "
+                 f"{dict(in_graphs)})")
+    log(f"batched launches (q1-q20 windows, cold and warm): "
+        f"{json.dumps(main_launches, sort_keys=True)}; in one replay of "
+        f"each query's graph: {json.dumps(dict(in_graphs), sort_keys=True)}")
+    return per_query, main_launches, frames, serial
+
+
+def batched_recorded(dev, rels: dict, rels_b: dict, replayed: dict, log
+                     ) -> "tuple[list, dict]":
+    """Pass (b): q1-q10's windows once more with the batch program run
+    eagerly (no capture: a recorded clone inside a capture would hold
+    nothing), every kernel call recorded; each slot equal to the
+    replayed one. Returns the calls and this pass's launch counts."""
+    calls, query = [], [None]
+    K.reset_launch_counts()
+    with recording(calls, query):
+        for q in Q1_10:
+            query[0] = f"batched {q}"
+            outs = batch_window(q, [rels, rels_b, rels], dev, graph=False)
+            for i, (o, want) in enumerate(zip(outs, replayed[q])):
+                frames_match(o.to_df(), want, f"{q} (eager slot {i} vs "
+                                              "replayed)")
+            clear_batch_cache()
+    torch.cuda.synchronize()
+    launches = {n: K.LAUNCHES[n] for n in Q_NAMES}
+    log(f"batched recording pass: q1-q10 windows run eagerly equal the "
+        f"replayed ones; launches {json.dumps(launches, sort_keys=True)}")
+    return calls, launches
+
+
+def batched_ragged(dev, rels: dict, rels_b: dict, oracles: dict, log
+                   ) -> dict:
+    """Pass (c): q3's window on the ragged route with a pool that funds
+    it, then with one that cannot (the padded twin, counted)."""
+    out = {}
+    window = [rels, rels_b, rels]
+    for label, pool, tag in (("ragged", RAGGED_POOL, "ragged"),
+                             ("degraded", SMALL_POOL, "padded")):
+        with env_set({"SRT_BATCH_ROUTE": "ragged",
+                      "SRT_PAGE_POOL_BYTES": str(pool)}):
+            pages.reset()
+            before = kernel_stats()
+            outs = batch_window("q3", window, dev)
+            d = stats_since(before)
+            rep = obs.last_report("q3")
+            (stats,) = batch_cache_stats()
+            clear_batch_cache()
+        pages.reset()
+        frames_match(outs[0].to_df(), oracles["q3"], f"q3 ({label})")
+        degraded = d.get("rel.batch.pool_degraded", 0)
+        _require(d.get(f"rel.route.batch.{tag}") == BATCH_K
+                 and degraded == (label == "degraded"),
+                 f"q3 {label}: counters {d}")
+        out[label] = {"capacity": stats["capacity"],
+                      "batch_multiplier": rep.memory["batch_multiplier"],
+                      "padded_waste_bytes":
+                          rep.memory.get("padded_waste_bytes", 0),
+                      "pool_bytes": pool}
+        log(f"batched q3 {label} (SRT_PAGE_POOL_BYTES={pool}): "
+            f"rel.route.batch.{tag}={BATCH_K} pool_degraded={degraded} "
+            f"effective capacity {stats['capacity']}, padded_waste_bytes "
+            f"{out[label]['padded_waste_bytes']}")
+    return out
+
+
+def batched_fleet_mix(dev, rels: dict, rels_b: dict, serial: dict, log,
+                      card: str) -> dict:
+    """Pass (e): a ``FleetScheduler`` serves q1-q20, three submissions
+    each (``rels``, ``rels_b``, ``rels``), in two rounds, and the batch
+    cache is never cleared: its entries are bounded by the card's
+    headroom alone. Every result equal to its serial one, none failed;
+    memory in use, the allocator's reserve, the cache's charge and its
+    evictions printed after each round."""
+    out = {}
+    qs = Q1_10 + Q11_20
+    with env_set({"SRT_BATCH_MAX": str(MIX_BATCH_MAX)}):
+        with FleetScheduler(n_workers=2, device=dev,
+                            batch_window_ms=BURST_WINDOW_MS,
+                            name="fleet-mix") as s:
+            for rnd in ("cold", "warm"):
+                before = kernel_stats()
+                t0 = time.perf_counter()
+                pend = [(q, i, s.submit(PLANS[q], r))
+                        for q in qs
+                        for i, r in enumerate((rels, rels_b, rels))]
+                res = [(q, i, p.to_df(timeout=SERVE_TIMEOUT))
+                       for q, i, p in pend]
+                secs = time.perf_counter() - t0
+                torch.cuda.synchronize()
+                d = stats_since(before)
+                for q, i, frame in res:
+                    frames_match(frame, serial[q][i % 2],
+                                 f"{q} (fleet mix {rnd}, slot {i})")
+                _require(not d.get("serving.failed")
+                         and d.get("serving.batch.formed", 0) >= 1,
+                         f"fleet mix {rnd}: counters {d}")
+                stats = batch_cache_stats()
+                r = out[rnd] = {
+                    "seconds": secs,
+                    "allocated_bytes": torch.cuda.memory_allocated(dev),
+                    "reserved_bytes": torch.cuda.memory_reserved(dev),
+                    "cache_entries": len(stats),
+                    "cache_graphs": sum(st["graph"] for st in stats),
+                    "cache_bytes": sum(st["bytes"] for st in stats),
+                    "counters": {k: v for k, v in d.items() if k in (
+                        "serving.batch.formed", "serving.batch.queries",
+                        "serving.batch.fallback", "serving.fault.oom.split",
+                        "rel.batch.budget_evictions", "rel.batch.oom",
+                        "rel.plan_cache_evictions.fused_batch",
+                        "rel.batch.fallbacks")}}
+                log(f"fleet mix {rnd} (q1-q20 x 3, 2 workers, "
+                    f"SRT_BATCH_MAX={MIX_BATCH_MAX}, cache never "
+                    f"cleared): {secs:.2f} s; allocated "
+                    f"{r['allocated_bytes'] / 2**30:.2f} GiB, reserved "
+                    f"{r['reserved_bytes'] / 2**30:.2f} GiB; cache "
+                    f"{r['cache_entries']} entries ({r['cache_graphs']} "
+                    f"graphs) charging {r['cache_bytes'] / 2**30:.2f} GiB; "
+                    f"{json.dumps(r['counters'], sort_keys=True)} [{card}]")
+    clear_batch_cache()
+    return out
+
+
+def burst(sched, rels: dict, tenants=("gold", "bronze"),
+          queries=BURST_QUERIES, n=BURST) -> "tuple[list, float]":
+    """``n`` submissions of each query, alternating tenants, submitted
+    back to back; [(q, frame, latency ms)] and the burst's seconds."""
+    t0 = time.perf_counter()
+    pend = [(q, sched.submit(PLANS[q], rels, tenant=tenants[i % 2]))
+            for i in range(n) for q in queries]
+    out = [(q, p.to_df(timeout=SERVE_TIMEOUT), p.latency_ns / 1e6)
+           for q, p in pend]
+    return out, time.perf_counter() - t0
+
+
+def burst_check(results: list, serial: dict, what: str) -> None:
+    for q, frame, _ in results:
+        frames_match(frame, serial[q], f"{q} ({what})")
+
+
+def batched_scheduler(dev, rels: dict, oracles: dict, log, card: str
+                      ) -> dict:
+    """Pass (d): a ``FleetScheduler`` of two tenants and two workers takes
+    bursts of q9 and q17, batched (``SRT_BATCH_MAX=16``) and not, then
+    fault passes; every result equal to the serial one."""
+    serial = {q: run_fused(PLANS[q], rels, device=dev).to_df()
+              for q in BURST_QUERIES}
+    tenants = [TenantConfig("gold", priority=1, weight=3),
+               TenantConfig("bronze", priority=0, weight=1)]
+    out = {}
+    for label, bmax in (("batched", "16"), ("unbatched", "1")):
+        with env_set({"SRT_BATCH_MAX": bmax}):
+            with FleetScheduler(tenants=tenants, n_workers=2, device=dev,
+                                batch_window_ms=BURST_WINDOW_MS,
+                                name=f"burst-{label}") as s:
+                for _ in range(2):  # capture the windows' graphs
+                    warm, _ = burst(s, rels)
+                    burst_check(warm, serial, f"{label} warm-up burst")
+                obs.reset_reports()
+                before = kernel_stats()
+                res, secs = burst(s, rels)
+                d = stats_since(before)
+                batches = [r for r in obs.recent_reports() if r.batch]
+                sizes = collections.Counter(r.batch for r in batches)
+                colds = sum(r.provenance == "cold_compile" for r in batches)
+        burst_check(res, serial, f"{label} burst")
+        lat = {q: sorted(ms for qq, _, ms in res if qq == q)
+               for q in BURST_QUERIES}
+        r = out[label] = {
+            "queries_per_s": len(res) / secs, "seconds": secs,
+            "p50_ms": {q: float(np.percentile(v, 50)) for q, v in lat.items()},
+            "p99_ms": {q: float(np.percentile(v, 99)) for q, v in lat.items()},
+            "windows": dict(sizes), "captures": colds,
+            "counters": {k: v for k, v in d.items()
+                         if k.startswith("serving.")}}
+        for t in ("gold", "bronze"):
+            _require(d.get(f"serving.tenant.{t}.completed") == BURST,
+                     f"{label} burst: tenant {t} counters {d}")
+        if label == "batched":
+            _require(d.get("serving.batch.formed", 0) >= 1
+                     and sizes.get(16, 0) >= 1,
+                     f"batched burst: windows {dict(sizes)}, counters {d}")
+        log(f"scheduler burst {label} (2 tenants, 2 workers, "
+            f"{len(res)} queries, SRT_BATCH_MAX={bmax}): "
+            f"{r['queries_per_s']:.1f} queries/s, "
+            + ", ".join(f"{q} p50 {r['p50_ms'][q]:.2f} p99 "
+                        f"{r['p99_ms'][q]:.2f} ms" for q in BURST_QUERIES)
+            + f", batch windows {json.dumps(dict(sizes), sort_keys=True)} "
+            f"({colds} of them captured), batch.formed="
+            f"{d.get('serving.batch.formed', 0)} [{card}]")
+    out["faults"] = batched_faults(dev, rels, serial, tenants, log)
+    return out
+
+
+def batched_faults(dev, rels: dict, serial: dict, tenants, log) -> dict:
+    """The scheduler under injected faults, one at a time, each a burst
+    of ``FAULT_BURST`` q9 submissions; then a 1 ms deadline behind q19."""
+    out = {}
+    for spec, counter in (("batch:raise:1", "serving.batch.fallback"),
+                          ("batch:split_oom:1", "serving.fault.oom.split"),
+                          ("worker:crash:1",
+                           "serving.fault.worker_restarts")):
+        with env_set({"SRT_BATCH_MAX": "16"}):
+            faults.configure(spec)
+            try:
+                before = kernel_stats()
+                with FleetScheduler(tenants=tenants, n_workers=2,
+                                    device=dev, retry_backoff_ms=0,
+                                    batch_window_ms=BURST_WINDOW_MS,
+                                    name="burst-faults") as s:
+                    res, _ = burst(s, rels, queries=("q9",),
+                                   n=FAULT_BURST)
+                d = stats_since(before)
+                left = faults.remaining()
+            finally:
+                faults.reset()
+        burst_check(res, serial, spec)
+        _require(d.get(counter, 0) >= 1 and not d.get("serving.failed")
+                 and left == {}, f"{spec}: counters {d}, unfired {left}")
+        if spec.startswith("worker"):
+            _require(d.get("serving.fault.worker_restarts") == 1
+                     and d.get("serving.fault.requeued", 0) >= 1,
+                     f"{spec}: counters {d}")
+        out[spec] = {k: v for k, v in d.items()
+                     if k.startswith(("serving.fault.", "serving.batch."))}
+        log(f"scheduler under {spec}: {len(res)} q9 served equal to the "
+            f"serial result; {json.dumps(out[spec], sort_keys=True)}")
+    with FleetScheduler(n_workers=1, device=dev, name="deadline") as s:
+        long = s.submit(PLANS["q19"], rels)
+        late = s.submit(PLANS["q9"], rels, deadline_ms=1)
+        frames_match(long.to_df(timeout=SERVE_TIMEOUT),
+                     run_fused(PLANS["q19"], rels, device=dev).to_df(),
+                     "q19 (deadline pass)")
+        try:
+            late.result(timeout=SERVE_TIMEOUT)
+            expired = False
+        except QueryExpired:
+            expired = True
+    _require(expired, "the 1 ms deadline behind q19 did not expire")
+    log("scheduler deadline: q9 queued behind q19 with a 1 ms deadline "
+        "raised QueryExpired at dequeue")
+    out["deadline"] = {"expired": expired}
+    return out
+
+
+def run_batching(dev, rels: dict, data: dict, oracles: dict, log,
+                 card: str) -> "tuple[dict, list, dict]":
+    """The batched serving step (module docstring, 10c), with
+    ``SRT_METRICS`` on and the result cache off. Returns the step's
+    report, the recording pass's calls and its launch counts."""
+    t_step = time.perf_counter()
+    out: dict = {}
+    with env_set({"SRT_METRICS": "1", "SRT_RESULT_CACHE_BYTES": "0",
+                  "SRT_BATCH_ROUTE": "padded"}):
+        result_cache.reset()
+        rels_b = batch_rels(dev, rels, data)
+        (out["per_query"], out["launches"], replayed,
+         serial) = batched_queries(dev, rels, rels_b, oracles, log, card)
+        calls, launches = batched_recorded(dev, rels, rels_b, replayed, log)
+        out["recorded_launches"] = launches
+        del replayed
+        out["ragged"] = batched_ragged(dev, rels, rels_b, oracles, log)
+        out["scheduler"] = batched_scheduler(dev, rels, oracles, log, card)
+        out["fleet_mix"] = batched_fleet_mix(dev, rels, rels_b, serial, log,
+                                             card)
+        del rels_b, serial
+    out["step_s"] = time.perf_counter() - t_step
+    return out, calls, launches
+
+
+# --------------------------------------------------------------------------
 # The morsel step: q1-q20 with the fact tables streamed from host memory
 # and from Parquet through pinned, double-buffered staging
 # --------------------------------------------------------------------------
@@ -4521,6 +4989,14 @@ def main(argv=None) -> int:
     serving["step_s"] = time.perf_counter() - t0
     log(f"serving step: {serving['step_s']:.3f} s [{card}]")
 
+    batching, calls, batch_rec = run_batching(dev, rels, data, oracles, log,
+                                              card)
+    log("batched kernel calls, each equal to its plain version on the "
+        "inputs q1-q10's windows gave the eager batch program:")
+    totals["batched"] = path_kernels(calls, batch_rec, Q_NAMES, log, reps=3)
+    del calls
+    log(f"batched serving step: {batching['step_s']:.3f} s [{card}]")
+
     t0 = time.perf_counter()
     morsel, calls = run_morsel(dev, data, rels, oracles, log, card,
                                args.profile)
@@ -4553,6 +5029,7 @@ def main(argv=None) -> int:
                  "mesh": mesh["launches"],
                  "serving": serving["launches"],
                  "serving mesh": serving["mesh"]["launches"],
+                 "batched": batching["launches"],
                  "morsel": morsel["launches"],
                  "row conversion": rows["launches"]}, card, stress, log)
     if args.out:
@@ -4565,7 +5042,7 @@ def main(argv=None) -> int:
                        "hashing": hashed, "roster": roster,
                        "strings": strings, "roster_ii": roster2,
                        "mesh": mesh, "serving": serving,
-                       "morsel": morsel,
+                       "batching": batching, "morsel": morsel,
                        "row_conversion": rows,
                        "sf": SF, "seed": SEED}, f, indent=1, sort_keys=True,
                       default=str)

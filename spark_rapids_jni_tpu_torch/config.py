@@ -20,9 +20,15 @@ endpoint), ``SRT_SLO_WINDOW_S`` / ``SRT_SLO_WINDOWS``,
 cache's cap; unset or 0 = off), ``SRT_SHUFFLE_SCRATCH_HEADROOM_FRACTION``
 (the probed headroom's share granted to exchange scratch, default 1/4),
 ``SRT_QUERY_RETRIES``, ``SRT_RETRY_BACKOFF_MS``, ``SRT_QUERY_DEADLINE_MS``
-(read by ``serving/reliability.RetryPolicy.from_env`` alone, which no run
-reads until the fleet scheduler is ported) and ``SRT_CONTROL_PLANE``
-(refused until the control plane is ported).
+(``serving/reliability.RetryPolicy.from_env``, read by the fleet
+scheduler) and ``SRT_CONTROL_PLANE`` (refused until the control plane is
+ported). The micro-batching knobs (``ops/fused_pipeline.py``,
+``serving/``): ``SRT_BATCH_MAX`` (queries a batched dispatch coalesces,
+clamped to the capacity ladder 2/4/8/16), ``SRT_BATCH_ROUTE``
+(``auto``/``padded``/``ragged``), ``SRT_BATCH_WINDOW_MS`` (a fixed
+coalescing window; unset = the adaptive one),
+``SRT_BATCH_WINDOW_MAX_MS`` (its ceiling, default 5) and
+``SRT_PLAN_CACHE_SIZE`` (batch-cache entries kept, default 64).
 
 The mesh knobs keep the reference's names, defaults and normalisation:
 ``SRT_BROADCAST_THRESHOLD`` (bytes; tables at or below it replicate),

@@ -625,8 +625,10 @@ def run_morsels(plan, rels: dict, info: "Optional[dict]" = None, mesh=None,
     if mesh is not None:
         from ..tpcds import dist as _dist
         probe = _dist.agreed_scratch_probe(mesh, axis, dev)
-    with (comm_plan.agreed_probe_scope(probe) if mesh is not None
-          else contextlib.nullcontext()):
+    # the planner's flags are process-global: one plan run at a time
+    with _rel._PLAN_LOCK, (comm_plan.agreed_probe_scope(probe)
+                           if mesh is not None
+                           else contextlib.nullcontext()):
         try:
             return _run_morsels_impl(plan, rels, info, mesh, axis,
                                      morsels, pname, dev)

@@ -268,17 +268,21 @@ def rel_ingest_bytes(rels: dict) -> int:
 
 def query_memory_section(ingest_bytes: int, comm_scratch_bytes: int = 0,
                          batch_multiplier: int = 1,
-                         sample_devices: bool = True) -> dict:
+                         sample_devices: bool = True,
+                         padded_waste_bytes: int = 0) -> dict:
     """One ExecutionReport's ``memory`` section: the modeled peak (ingest
     x batch multiplier + the widest exchange round's scratch, an upper
-    bound's shape, not an allocator trace) and the measured device
-    watermarks."""
+    bound's shape, not an allocator trace), the bytes a batched window's
+    pad slots pin beyond the live ones (``padded_waste_bytes``, when
+    any) and the measured device watermarks."""
     modeled = int(ingest_bytes) * max(1, int(batch_multiplier)) \
         + int(comm_scratch_bytes)
     section = {"ingest_bytes": int(ingest_bytes),
                "comm_scratch_bytes": int(comm_scratch_bytes),
                "batch_multiplier": max(1, int(batch_multiplier)),
                "modeled_peak_bytes": modeled}
+    if padded_waste_bytes:
+        section["padded_waste_bytes"] = int(padded_waste_bytes)
     gauge("mem.modeled.query_peak_bytes").set(modeled)
     if sample_devices:
         devices = {i: s for i, s in sample_device_memory().items()

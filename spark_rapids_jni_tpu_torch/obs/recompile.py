@@ -12,8 +12,11 @@ is recorded here as a ``compile`` event at site
 ``ops.cuda_kernels.build``, with its wall time and the span it fell in,
 so a cold server's first ``ExecutionReport`` shows the build in its
 ``recompiles`` section. Loading a library already built from the same
-sources records nothing. ``record_event`` respects the ``SRT_METRICS``
-gate, as in the reference.
+sources records nothing. The batched runner's capture of a window's
+program into a CUDA graph (``serving/aot_cache.capture_graph``) is the
+other: one ``compile`` event at site ``rel.fused_batch.<query>`` with
+the capacity and the capture's wall time. ``record_event`` respects the
+``SRT_METRICS`` gate, as in the reference.
 """
 
 from __future__ import annotations

@@ -11,16 +11,21 @@ files when ``SRT_TRACE_EXPORT`` names a directory.
 
 **Provenance.** The reference names where its compiled program came
 from (``cold_compile``, ``warm_disk``, ``warm_memory``). Eager PyTorch
-compiles no plan, so the port's values are ``eager`` (the plan ran),
-``result_cache`` (the content-keyed result cache answered; nothing ran)
-and ``delta`` (the morsel runner's standing re-run folded only the
-appended rows). ``cache_hit`` is True only for a result-cache hit.
+compiles no plan, so a ``run_fused`` report says ``eager`` (the plan
+ran), ``result_cache`` (the content-keyed result cache answered; nothing
+ran) or ``delta`` (the morsel runner's standing re-run folded only the
+appended rows). The batched runner on the card captures its program
+into a CUDA graph: a window that captured says ``cold_compile``, one
+that replayed a graph ``warm_memory`` (there is no disk tier: a graph
+has no serialized form); on the CPU it runs eagerly and says ``eager``.
+``cache_hit`` is True for a result-cache hit, and for a batched window
+that found its batch-cache entry.
 
 **Query correlation.** ``mint_qid`` gives each admitted query an id
 unique across processes; the serving worker enters ``qid_scope``
 around a dispatch, and ``emit`` and the flight recorder stamp the
-ambient id. The reference's batch-qid field stays empty until
-micro-batching is ported.
+ambient id. A batched dispatch runs under its first member's qid with
+every member's in ``batch_qids``, which the one batch report carries.
 
 ``native_route_sentinels`` and ``native_ra_snapshot`` read the native
 bridge (``native.py``), which the port has not ported: both return
@@ -47,6 +52,8 @@ _emit_seq = 0  # guarded-by: _lock
 PROVENANCE_EAGER = "eager"
 PROVENANCE_RESULT_CACHE = "result_cache"
 PROVENANCE_DELTA = "delta"
+PROVENANCE_COLD_COMPILE = "cold_compile"
+PROVENANCE_WARM_MEMORY = "warm_memory"
 
 _QID_SALT = os.urandom(2).hex()
 _qid_seq = 0  # guarded-by: _lock
@@ -67,17 +74,27 @@ def current_qid() -> str:
     return getattr(_qid_tls, "qid", "")
 
 
+def current_batch_qids() -> tuple:
+    """Every member qid of the batched dispatch this thread runs (empty
+    outside one)."""
+    return getattr(_qid_tls, "batch_qids", ())
+
+
 @contextmanager
-def qid_scope(qid: str):
-    """Make ``qid`` the ambient id for everything this thread runs in
+def qid_scope(qid: str, batch_qids=None):
+    """Make ``qid`` (and, for a batched dispatch, its members'
+    ``batch_qids``) the ambient ids for everything this thread runs in
     the block: reports emitted and flight events noted inside inherit
-    it. Nests; the outer id comes back on exit."""
+    them. Nests; the outer ids come back on exit."""
     prev = getattr(_qid_tls, "qid", "")
+    prev_batch = getattr(_qid_tls, "batch_qids", ())
     _qid_tls.qid = qid or ""
+    _qid_tls.batch_qids = tuple(batch_qids) if batch_qids else ()
     try:
         yield
     finally:
         _qid_tls.qid = prev
+        _qid_tls.batch_qids = prev_batch
 
 
 # Counter-name fragments that mark a fallback route (correct but slow):
@@ -106,7 +123,7 @@ class ExecutionReport:
     dispatches: int                # counted device programs this run
     host_syncs: int                # data-dependent host syncs this run
     wall_ns: int                   # end-to-end wall time
-    provenance: str = ""           # eager | result_cache | delta
+    provenance: str = ""  # eager|result_cache|delta|cold_compile|warm_memory
     batch: int = 0                 # queries one batch dispatch served
     counters: dict = field(default_factory=dict)   # counter deltas
     routes: dict = field(default_factory=dict)     # planner decisions
@@ -221,9 +238,11 @@ def native_ra_snapshot() -> dict:
 
 def report_provenance(info: dict) -> str:
     """The report's provenance from a run's ``info``: the morsel
-    runner's ``cold``/``warm_memory`` runs are plain eager runs."""
+    runner's ``cold``/``warm_memory`` runs are plain eager runs; a
+    batched window's capture and replay keep theirs."""
     p = info.get("provenance", "")
-    return p if p in (PROVENANCE_RESULT_CACHE, PROVENANCE_DELTA) \
+    return p if p in (PROVENANCE_RESULT_CACHE, PROVENANCE_DELTA,
+                      PROVENANCE_COLD_COMPILE, PROVENANCE_WARM_MEMORY) \
         else PROVENANCE_EAGER
 
 
@@ -253,6 +272,8 @@ def emit(report: ExecutionReport) -> None:
     report._emit_thread = threading.get_ident()
     if not report.qid:
         report.qid = current_qid()
+    if not report.batch_qids:
+        report.batch_qids = list(current_batch_qids())
     with _lock:
         _emit_seq += 1
         seq = _emit_seq

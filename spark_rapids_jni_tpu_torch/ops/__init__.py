@@ -9,7 +9,8 @@ from .copying import apply_boolean_mask, concatenate, concat_columns, \
     slice_rows
 from .conditional import if_else, case_when, coalesce
 from .get_json_object import get_json_object
-from .join import inner_join, left_join, left_semi_join, left_anti_join
+from .join import (inner_join, inner_join_batched, left_join,
+                   left_semi_join, left_anti_join)
 from .groupby import groupby_aggregate
 from .fused_pipeline import (
     DenseKeyMap, dense_map_applicable, build_dense_map, dense_lookup,
@@ -36,8 +37,9 @@ __all__ = [
     "map_utils", "histogram", "tdigest", "zorder", "get_json_object",
     "if_else", "case_when", "coalesce", "apply_boolean_mask",
     "concatenate", "concat_columns", "slice_rows", "sort_by_key", "sort",
-    "sorted_order", "gather", "inner_join", "left_join", "left_semi_join",
-    "left_anti_join", "groupby_aggregate", "DenseKeyMap",
+    "sorted_order", "gather", "inner_join", "inner_join_batched",
+    "left_join", "left_semi_join", "left_anti_join", "groupby_aggregate",
+    "DenseKeyMap",
     "dense_map_applicable", "build_dense_map", "dense_lookup",
     "dense_groupby_sum_count", "dense_groupby_table",
     "dense_groupby_method", "dense_groupby_extreme",

@@ -31,13 +31,18 @@ when its table fits in shared memory (``probe_table_shared``) and
 otherwise its build and then its probe, K2 once a call (it writes its
 outputs whole, so a call with no rows launches it too), the others one
 each. Any other call with no rows launches nothing (a zero-block grid is
-a launch error).
+a launch error). While this thread captures a CUDA graph
+(``capture_launches``), a wrapper's launches go to the capture's own
+counter instead: nothing runs during a capture, and the graph's owner
+adds them to ``LAUNCHES`` on every replay
+(``serving/aot_cache.capture_graph``).
 """
 
 from __future__ import annotations
 
 import bisect
 import collections
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -47,6 +52,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 from typing import NamedTuple, Optional, Tuple
@@ -87,6 +93,28 @@ LAUNCHES: "collections.Counter[str]" = collections.Counter()
 
 def reset_launch_counts() -> None:
     LAUNCHES.clear()
+
+
+# a graph capture in progress on this thread: its launch counter
+_capture_tls = threading.local()
+
+
+def _count_launch(name: str, n: int = 1) -> None:
+    rec = getattr(_capture_tls, "launches", None)
+    (LAUNCHES if rec is None else rec)[name] += n
+
+
+@contextlib.contextmanager
+def capture_launches():
+    """Count this thread's wrapper launches into a fresh Counter, yielded,
+    instead of ``LAUNCHES``, for the duration of a graph capture."""
+    prev = getattr(_capture_tls, "launches", None)
+    rec: "collections.Counter[str]" = collections.Counter()
+    _capture_tls.launches = rec
+    try:
+        yield rec
+    finally:
+        _capture_tls.launches = prev
 
 
 def _nvcc() -> str:
@@ -339,7 +367,7 @@ def hash_join_probe(build_keys: torch.Tensor, probe_keys: torch.Tensor,
         _ptr(plive), n_probe, _ptr(table), cap, idx.data_ptr(),
         found.data_ptr(), _stream(dev))
     _check(rc, "hash_join_probe")
-    LAUNCHES["hash_join_probe"] += 1 if shared else 2  # build, probe
+    _count_launch("hash_join_probe", 1 if shared else 2)  # build, probe
     return idx, found
 
 
@@ -414,7 +442,7 @@ def ragged_groupby_sum_count(slots: torch.Tensor, live: torch.Tensor,
         workspace.data_ptr(), sums.data_ptr(), counts.data_ptr(),
         _stream(dev))
     _check(rc, "ragged_groupby_sum_count")
-    LAUNCHES["ragged_groupby_sum_count"] += 1
+    _count_launch("ragged_groupby_sum_count")
     return sums, counts
 
 
@@ -449,7 +477,7 @@ def bitmask_pack(valid: torch.Tensor) -> torch.Tensor:
     rc = kernels().srt_bitmask_pack(v.data_ptr(), n, words.data_ptr(),
                                         n_words, _stream(dev))
     _check(rc, "bitmask_pack")
-    LAUNCHES["bitmask_pack"] += 1
+    _count_launch("bitmask_pack")
     return words
 
 
@@ -494,7 +522,7 @@ def bitmask_pack_fields(vbytes: torch.Tensor, n_fields: int
         vbytes.data_ptr(), vbytes.stride(0), n, n_fields, out.data_ptr(),
         n_words, _stream(dev))
     _check(rc, "bitmask_pack_fields")
-    LAUNCHES["bitmask_pack_fields"] += 1
+    _count_launch("bitmask_pack_fields")
     return out
 
 
@@ -554,7 +582,7 @@ def _murmur3_launch(name: str, values: torch.Tensor, seeds: torch.Tensor,
     rc = getattr(kernels(), f"srt_{name}")(v.data_ptr(), s.data_ptr(),
                                            out.data_ptr(), n, _stream(dev))
     _check(rc, name)
-    LAUNCHES[name] += 1
+    _count_launch(name)
     return out
 
 
@@ -783,5 +811,5 @@ def pack_rows(columns, widths, validity=None) -> torch.Tensor:
         plan.buf_bytes, plan.img_stride, ptrs.data_ptr(), n,
         out.data_ptr(), _stream(dev))
     _check(rc, "pack_rows")
-    LAUNCHES["pack_rows"] += 1
+    _count_launch("pack_rows")
     return out

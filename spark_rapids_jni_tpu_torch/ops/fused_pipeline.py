@@ -15,7 +15,10 @@ torch scatters raise on an out-of-range index where JAX's
 sentinel slot ``width`` of a ``width + 1`` buffer and slices it off.
 The two-phase merges of a partitioned run (``dense_merge_replicated``,
 ``dense_merge_scattered``) take the mesh's collectives
-(``parallel/collectives.py``). The micro-batch routes are not ported yet.
+(``parallel/collectives.py``). The micro-batching knobs (``batch_route``,
+``max_batch_queries``, ``batch_capacity`` over the static ladder
+``BATCH_CAPACITIES``) steer ``tpcds/rel.run_fused_batched`` and the
+fleet scheduler.
 """
 
 from __future__ import annotations
@@ -27,15 +30,68 @@ import numpy as np
 import torch
 
 from ..columnar import Column, Table
-from ..config import dense_groupby_mode
+from ..config import dense_groupby_mode, env_int, env_str
 from ..utils.errors import expects
-from ..obs import count, traced
+from ..obs import count, flight_note, traced
 
 # Dense maps beyond this width stop paying for themselves.
 MAX_DENSE_WIDTH = 1 << 24
 
 # K2's width cap, the reference's PALLAS_GROUPBY_MAX_WIDTH.
 CUDA_GROUPBY_MAX_WIDTH = 1 << 13
+
+
+# Micro-query batching (serving/batcher.py, tpcds/rel.run_fused_batched):
+# a bounded ladder of static batch capacities, so the distinct batched
+# programs (one captured CUDA graph each on the card) stay O(log K) instead
+# of one per arrival count; a partially filled window pads up to the next
+# rung (pad slots carry copies of slot 0 and are never demultiplexed).
+BATCH_CAPACITIES = (2, 4, 8, 16)
+
+
+@traced("fused_pipeline.batch_route")
+def batch_route() -> str:
+    """Normalized ``SRT_BATCH_ROUTE``: ``padded`` forces the capacity
+    rung, ``ragged`` sizes the program by the page pool's lease (serving
+    padded, counted, when the pool is off or exhausted), ``auto``
+    (default, and every invalid spelling) takes ragged whenever the pool
+    can fund the window."""
+    r = env_str("SRT_BATCH_ROUTE", "auto")
+    return r if r in ("padded", "ragged", "auto") else "auto"
+
+
+# one-time SRT_BATCH_MAX-over-ladder note; benign flag race (worst case
+# two notes), the counter underneath is exact
+_max_clamp_noted = False
+
+
+@traced("fused_pipeline.max_batch_queries")
+def max_batch_queries() -> int:
+    """Upper bound on queries coalesced into one batched dispatch
+    (``SRT_BATCH_MAX``, clamped to the capacity ladder; the scheduler
+    reads <=1 as batching off). A value above the ladder's top still
+    clamps, but loudly: ``serving.batch.max_clamped`` per clamped read
+    and one flight note."""
+    k = env_int("SRT_BATCH_MAX", BATCH_CAPACITIES[-1])
+    if k > BATCH_CAPACITIES[-1]:
+        count("serving.batch.max_clamped")
+        global _max_clamp_noted
+        if not _max_clamp_noted:
+            _max_clamp_noted = True
+            flight_note("batch.max_clamped",
+                        requested=k, ladder_max=BATCH_CAPACITIES[-1])
+    return min(k, BATCH_CAPACITIES[-1])
+
+
+@traced("fused_pipeline.batch_capacity")
+def batch_capacity(k: int) -> int:
+    """Smallest static capacity >= k on the ladder (k is pre-clamped by
+    ``max_batch_queries``): the batch program is keyed on this rung, not
+    on k."""
+    for c in BATCH_CAPACITIES:
+        if c >= k:
+            return c
+    return BATCH_CAPACITIES[-1]
 
 
 @dataclass(frozen=True)

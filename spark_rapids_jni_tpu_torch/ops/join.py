@@ -6,7 +6,9 @@ both key sides into ONE stable sort and read matches off the sorted
 arrangement (group bounds by cumulative max/min scans), as the
 reference does; the reference's shape bucketing (``utils/batching``) and
 jit caches have no counterpart, since PyTorch runs eagerly and compiles
-nothing per shape. ``inner_join_batched`` is not ported yet.
+nothing per shape. ``inner_join_batched`` runs K independent joins as one
+(K, n) row-wise sort and one expansion, with one host sync for all K
+output sizes.
 
 Null join keys never match (SQL semantics): ``row_ranks`` gives null
 rows singleton groups.
@@ -14,7 +16,7 @@ rows singleton groups.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -185,3 +187,101 @@ def left_anti_join(left_keys: Table, right_keys: Table) -> torch.Tensor:
     """Left rows with no match -> ascending left indices."""
     counts, _, _ = _match_by_left_row(left_keys, right_keys)
     return torch.nonzero(counts == 0).flatten().to(torch.int32)
+
+
+# --------------------------------------------------------------------------
+# Batched joins: K independent joins, each step launched once for all K
+# --------------------------------------------------------------------------
+
+def _batched_keys(tables: Sequence[Table], narrow: bool) -> torch.Tensor:
+    """(K, n) sort keys of K single-column key tables: int64 values, or,
+    ``narrow`` (every key shares its high 32 bits), their low words
+    shifted into int32 (the same order, half the sort's bytes)."""
+    k = torch.stack([t.columns[0].data.to(torch.int64) for t in tables])
+    if not narrow:
+        return k
+    base = (int(tables[0].columns[0].value_range[0]) >> 32) << 32
+    return (k - base - (1 << 31)).to(torch.int32)
+
+
+@traced("join.inner_join_batched")
+def inner_join_batched(lefts: Sequence[Table], rights: Sequence[Table]
+                       ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """K independent inner joins as one batched device program.
+
+    ``lefts``/``rights``: sequences of single-column key Tables, the
+    lefts of one row count and the rights of another, non-nullable
+    integral keys of one dtype. Returns a list of (left_indices,
+    right_indices) int32 pairs, each equal to ``inner_join`` of its pair
+    (the same pairs in the same order). All K sorts run as one (K, n)
+    row-wise stable sort and every scan, scatter and gather launches once
+    for all K joins; one host sync reads all K output sizes.
+
+    Keys are narrow (sorted as int32) when every key's ``value_range``
+    shares its high 32 bits, the reference's stats-driven narrowing; wide
+    otherwise (int64)."""
+    expects(len(lefts) == len(rights) and len(lefts) > 0,
+            "need equal, nonzero batch sizes")
+    n_l = lefts[0].num_rows
+    n_r = rights[0].num_rows
+    dt = lefts[0].columns[0].dtype
+    for t in list(lefts) + list(rights):
+        expects(t.num_columns == 1, "batched join takes single-key tables")
+        expects(t.columns[0].validity is None,
+                "batched join keys must be non-nullable")
+        expects(t.columns[0].dtype.id == dt.id, "batched keys share a dtype")
+    expects(dt.is_integral, "batched join keys must be integral")
+    for t in lefts:
+        expects(t.num_rows == n_l, "left tables share a row count")
+    for t in rights:
+        expects(t.num_rows == n_r, "right tables share a row count")
+    expects(n_l + n_r <= _INT_MAX,
+            "combined join input must stay under 2^31 rows")
+    his = set()
+    for t in list(lefts) + list(rights):
+        vr = t.columns[0].value_range
+        if vr is None:
+            his = None
+            break
+        his |= {int(vr[0]) >> 32, int(vr[1]) >> 32}
+    narrow = his is not None and len(his) == 1
+    count(f"rel.route.join.batched.{'narrow' if narrow else 'wide'}")
+    keys = torch.cat([_batched_keys(lefts, narrow),
+                      _batched_keys(rights, narrow)], dim=1)
+    kb, tot = keys.shape
+    dev = keys.device
+    sk, perm = torch.sort(keys, dim=1, stable=True)
+    s_side = (perm >= n_l).to(torch.int64)
+    s_lidx = perm - n_l * s_side
+    is_head = torch.ones_like(sk, dtype=torch.bool)
+    if tot:
+        is_head[:, 1:] = sk[:, 1:] != sk[:, :-1]
+    # _group_bounds row-wise
+    c = torch.cumsum(s_side, 1)
+    r_rank = c - s_side
+    low = torch.cummax(torch.where(is_head, r_rank, 0), 1).values
+    is_tail = torch.ones_like(is_head)
+    if tot:
+        is_tail[:, :-1] = is_head[:, 1:]
+    end = torch.flip(torch.cummin(
+        torch.flip(torch.where(is_tail, c, tot), [1]), 1).values, [1])
+    cnt = end - low
+    # _right_order row-wise: right rank -> original right row
+    order_r = torch.zeros((kb, n_r + 1), dtype=torch.int64, device=dev)
+    order_r.scatter_(1, torch.where(s_side == 1, r_rank, n_r), s_lidx)
+    order_r = order_r[:, :n_r]
+    cnt_left = torch.where(s_side == 0, cnt, 0)
+    totals = cnt_left.sum(dim=1).tolist()  # one host sync: all K sizes
+    grand = sum(totals)
+    expects(max(totals) <= _INT_MAX, "join result exceeds 2^31 rows")
+    flat = cnt_left.reshape(-1)
+    src = torch.repeat_interleave(
+        torch.arange(kb * tot, dtype=torch.int64, device=dev), flat,
+        output_size=grand)
+    excl = torch.cumsum(flat, 0) - flat
+    j = torch.arange(grand, dtype=torch.int64, device=dev) - excl[src]
+    li = s_lidx.reshape(-1)[src]
+    ri = (order_r[src // tot, low.reshape(-1)[src] + j] if grand
+          else src)
+    li, ri = li.to(torch.int32), ri.to(torch.int32)
+    return list(zip(torch.split(li, totals), torch.split(ri, totals)))

@@ -12,10 +12,17 @@ torch and CUDA versions and the digest of the hand-kernel library's
 sources and flags (``ops/cuda_kernels.library_path``), where the
 reference names jax, jaxlib and the device topology.
 
-The reference's XLA half (``lower_and_compile``, ``persistent_jit``, the
-disk tier's ``load_entry``/``store_entry``) serializes compiled
-executables; eager PyTorch compiles no plan, and its analog waits for a
-written decision with the fleet.
+**Graph capture.** The reference's XLA half lowers and compiles a plan
+into an executable (``lower_and_compile``) and keeps it in memory and
+on disk (``persistent_jit``, ``load_entry``/``store_entry``). The port's
+counterpart is ``capture_graph``: the batched runner's program (a plan
+run once a slot, ``tpcds/rel.run_fused_batched``) warmed up once on a
+side stream, then captured into a ``torch.cuda.CUDAGraph``, so that
+every later window of the same batch key launches every kernel of every
+slot with one CPU call (``CapturedGraph.replay``). The capture is
+recorded as a ``compile`` event at its site (``obs/recompile.py``). A
+graph has no serialized form, so there is no disk tier: a fresh process
+captures again.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import functools
 import hashlib
 import inspect
 import sys
+import time
 import types
 
 import torch
@@ -95,3 +103,82 @@ def result_token(plan, parts: tuple) -> str:
     keys through here, never through an object's identity."""
     return token_digest(("result", plan_code_digest(plan), parts,
                          environment_key()))
+
+
+class CapturedGraph:
+    """A captured CUDA graph: its static ``outputs`` (the tensors the
+    captured run returned, rewritten in place by every replay, in the
+    graph's private memory pool), the hand-kernel ``launches`` one
+    replay makes, and ``pool_bytes``, what the allocator reserved while
+    capturing: the private pool's size, an upper bound when other
+    threads allocate at the same time."""
+
+    __slots__ = ("graph", "outputs", "launches", "capture_s", "pool_bytes")
+
+    def __init__(self, graph, outputs, launches: dict, capture_s: float,
+                 pool_bytes: int = 0):
+        self.graph = graph
+        self.outputs = outputs
+        self.launches = launches
+        self.capture_s = capture_s
+        self.pool_bytes = pool_bytes
+
+    def replay(self) -> None:
+        """Launch the captured work on the current stream; the wrappers
+        counted nothing while capturing, so the replay adds their
+        launches to ``cuda_kernels.LAUNCHES``."""
+        from ..ops import cuda_kernels as K
+        self.graph.replay()
+        K.LAUNCHES.update(self.launches)
+
+    def release(self) -> None:
+        """Drop the graph and its outputs: the private pool goes back to
+        the allocator once nothing else holds its tensors."""
+        self.graph = None
+        self.outputs = None
+
+
+def capture_graph(fn, *, site: str, signature: tuple = (),
+                  device=None) -> CapturedGraph:
+    """Capture ``fn()`` (a function of static buffers, returning tensors)
+    into a CUDA graph on ``device``.
+
+    ``fn`` runs once eagerly on a side stream first (the warm-up: the
+    kernel library's first build, the allocator's blocks, the memoized
+    uploads and the host-side plan decisions all happen there), then once
+    under capture on the same stream. The capture uses
+    ``capture_error_mode="thread_local"``: other threads' eager queries
+    on the device (their allocations and host syncs, on the default
+    stream, which the non-blocking side stream does not wait on) neither
+    break this capture nor are refused by it, while a synchronising call
+    inside ``fn`` itself fails the capture. A failed capture raises the
+    error ``fn`` raised (or the capture's own) and leaves the stream out
+    of capture mode. Recorded as a ``compile`` event at ``site``."""
+    from ..obs.recompile import record_event
+    from ..ops import cuda_kernels as K
+    t0 = time.perf_counter_ns()
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    cur = torch.cuda.current_stream(dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(cur)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        fn()  # the warm-up: runs, counts its launches
+        with K.capture_launches() as launches:
+            reserved = torch.cuda.memory_reserved(dev)
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                outputs = fn()
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    pass  # an invalidated capture ends in its own error
+                raise
+            graph.capture_end()
+            pool_bytes = max(0, torch.cuda.memory_reserved(dev) - reserved)
+    cur.wait_stream(side)
+    capture_s = (time.perf_counter_ns() - t0) / 1e9
+    record_event(site, "compile", tuple(signature), duration_s=capture_s)
+    return CapturedGraph(graph, outputs, dict(launches), capture_s,
+                         pool_bytes)

@@ -30,8 +30,9 @@ Obs: ``serving.{submitted,completed,failed,rejected}`` counters,
 (``obs/slo.py``: the executor's name is the tenant, priority 0).
 
 The reference builds its SLO control plane here when
-``SRT_CONTROL_PLANE=1``; the control plane comes with the fleet, and
-until then construction raises under that switch rather than ignore it.
+``SRT_CONTROL_PLANE=1``; the control plane is not ported yet (ROADMAP
+Queue 1, item 13), and until then construction raises under that switch
+rather than ignore it.
 With ``mesh``, every rank runs its own executor and submits the same
 queries in the same order (each is one collective program).
 """
@@ -140,9 +141,9 @@ class QueryExecutor:
             pending = [ex.submit(plan, ingest(req)) for req in batch]
             frames = [p.to_df(timeout=60) for p in pending]
 
-    One instance owns the device pipeline: do not run ``run_fused``
-    concurrently with it from another thread (the planner's flags are
-    process-global)."""
+    Plan runs from other threads (another executor, a fleet scheduler's
+    workers) serialize with this worker's on the planner lock
+    (``tpcds/rel.py`` ``_PLAN_LOCK``)."""
 
     def __init__(self, max_queue: int = 8, max_in_flight: int = 16,
                  device=None, mesh=None, axis=None,
@@ -153,8 +154,8 @@ class QueryExecutor:
         if env_bool("SRT_CONTROL_PLANE", False):
             raise NotImplementedError(
                 "SRT_CONTROL_PLANE=1: the SLO control plane is not ported "
-                "yet (it comes with the fleet scheduler); unset it to serve "
-                "without one")
+                "yet (ROADMAP Queue 1, item 13); unset it to serve without "
+                "one")
         self.name = name
         self.device = (mesh.device if mesh is not None and device is None
                        else resolve_device(device))

@@ -20,14 +20,13 @@ single-process executor (``serving/executor.py``) retries nothing
 itself: it delivers the failure, and a caller or the fleet's scheduler
 consults this matrix.
 
-Nothing in the port reads :class:`RetryPolicy`, the backoff,
-:class:`QueryExpired` or :class:`QueryPoisoned` yet: their reader is the
-fleet scheduler, which is not ported. Until it is,
-``SRT_QUERY_RETRIES``, ``SRT_RETRY_BACKOFF_MS`` and
-``SRT_QUERY_DEADLINE_MS`` change no run, as ``SRT_QUERY_DEADLINE_MS``
-changes nothing in the reference's single-process executor without its
-control plane. ``retry_action`` and ``free_for_retry`` are what a
-caller of the executor uses today.
+The fleet scheduler (``serving/scheduler.py``) reads all of it: its
+workers route each failure through ``retry_action``, requeue under
+:class:`RetryPolicy`'s budget and backoff, shed expired queries at
+dequeue as :class:`QueryExpired` and quarantine a query present at two
+worker deaths as :class:`QueryPoisoned`. The single-process executor
+still delivers every failure; its callers use ``retry_action`` and
+``free_for_retry`` themselves.
 """
 
 from __future__ import annotations

@@ -397,7 +397,8 @@ def run_partitioned(plan, rels: "dict[str, Rel]", mesh, axis=None,
         info = {}
     dev = mesh.device if device is None else resolve_device(device)
     probe = agreed_scratch_probe(mesh, axis, dev)
-    with comm_plan.agreed_probe_scope(probe):
+    # the planner's flags are process-global: one plan run at a time
+    with _rel._PLAN_LOCK, comm_plan.agreed_probe_scope(probe):
         return _run_partitioned(plan, rels, mesh, axis, dev, info)
 
 

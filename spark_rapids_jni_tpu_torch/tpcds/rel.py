@@ -64,16 +64,41 @@ each route. With ``SRT_RESULT_CACHE_BYTES`` set, ``rel_from_df`` stamps
 each ingested column with a digest of its host bytes and ``run_fused``
 answers a content-equal repeat from the result cache
 (``serving/result_cache.py``, provenance ``result_cache``): no kernel,
-no host sync. Streamed inputs bypass the cache. The batched layer is not
-ported yet.
+no host sync. Streamed inputs bypass the cache.
+
+**Threads.** The planner's flags and channels above are module-global,
+so every plan run (in-core, over a mesh, streamed, batched) runs under
+``_PLAN_LOCK``: the fleet scheduler's workers run plans one at a time
+and overlap only what lies outside a plan run (the host sync, the
+materialization, decoding).
+
+**Micro-query batching.** ``run_fused_batched(plan, rels_list)`` runs
+the same plan over K submissions whose rels have equal fingerprints as
+one batched dispatch: the reference's ``jax.vmap`` of the plan at a
+static capacity (``fused_pipeline.batch_capacity``). Its eager analog
+is the batch program: the plan run once a slot over the capacity's
+slots (pad slots replicate slot 0), with no sync between slots, each
+slot giving its column leaves, its row mask and the vector [live count,
+runtime counters...]; one host read takes every slot's vector, then each
+live slot materializes. On the card the program is captured once per
+batch-cache key into a CUDA graph (``serving/aot_cache.capture_graph``)
+over static input buffers (the per-slot tables copied into ``cap``
+buffers a window; the shared ones read in place, their storage part of
+the key) and replayed for every later window: one CPU call launches
+every kernel of every slot. The cache is bounded by the card's headroom
+as well as by its entry count, and an out-of-memory error in a window
+empties it and reaches the batcher as ``SplitAndRetryOOM``. On the CPU,
+which only the tests ask for, the same program runs eagerly.
 """
 
 from __future__ import annotations
 
 import decimal
 import hashlib
+import threading
 import time
-from typing import Dict, Optional, Sequence
+import weakref
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -88,12 +113,13 @@ from ..obs import recompile as _obs_recompile
 from ..obs import report as _obs_report
 from ..obs import spans as _obs_spans
 from ..ops import gather, sorted_order
-from ..ops.fused_pipeline import MAX_DENSE_WIDTH
+from ..ops.fused_pipeline import MAX_DENSE_WIDTH, batch_capacity
 from ..serving import aot_cache as _aot
 from ..serving.result_cache import result_cache
 from ..types import INT8, DType, TypeId, decimal64
 from ..utils import faults as _faults
-from ..utils.device import resolve_device
+from ..utils import plan_cache as _plan_cache
+from ..utils.device import memoized_uploads, resolve_device
 from ..utils.errors import expects
 
 
@@ -102,6 +128,20 @@ class FusedFallback(Exception):
     data-dependent general kernel; run_fused catches it and re-runs the
     plan on the general paths."""
 
+
+class BatchIncompatible(Exception):
+    """Raised by ``run_fused_batched`` when the submissions cannot share
+    one batch program (table sets, fingerprints, streamed or masked
+    inputs, a window above the ladder, or a plan whose batch program
+    fails: a general kernel, or a body the capture refuses). The serving
+    batcher catches it and falls back, route-counted, to per-query
+    dispatch; it is never a query failure."""
+
+
+# Serializes every plan run across threads: the planner's flags and
+# channels below are module-global. The batched runner also takes it
+# around cache-entry creation and capture.
+_PLAN_LOCK = threading.RLock()
 
 _FUSED_TRACING = False  # True only while run_fused runs a plan fused
 
@@ -216,7 +256,8 @@ def _trusted_range(col: Column) -> "Optional[tuple[int, int]]":
         return None
     flags = getattr(col, "_stats_flags", None)
     if flags is None:
-        if _FUSED_TRACING:
+        # the flag is another thread's while this one holds no plan run
+        if _FUSED_TRACING and _PLAN_LOCK._is_owned():
             return None
         flags = _verify_ingest_stats(col)
     return col.value_range if flags[0] else None
@@ -771,28 +812,29 @@ def _run_fused_impl(plan, rels: "dict[str, Rel]", dev: torch.device,
         info = {}
     _check_device(rels, dev)
     pname = getattr(plan, "__name__", "plan").lstrip("_")
-    for name in sorted(rels):
-        if not _fusable_rel(rels[name]) or rels[name].mask is not None:
+    with _PLAN_LOCK:
+        for name in sorted(rels):
+            if not _fusable_rel(rels[name]) or rels[name].mask is not None:
+                count("rel.fused_fallbacks")
+                info["fused"] = False
+                return plan(rels).compact()
+            for c in rels[name].table.columns:
+                _trusted_range(c)  # verify advisory stats once (memoized)
+        _FUSED_TRACING = True
+        _TRACE_AUX = aux = []
+        try:
+            with span("rel.fused_program", query=pname):
+                out = plan(rels)
+        except FusedFallback:
+            out = None
+        finally:
+            _FUSED_TRACING = False
+            _TRACE_AUX = None
+        if out is None:
             count("rel.fused_fallbacks")
+            count(f"rel.fused_fallbacks.{pname}")
             info["fused"] = False
             return plan(rels).compact()
-        for c in rels[name].table.columns:
-            _trusted_range(c)  # verify advisory stats once (memoized)
-    _FUSED_TRACING = True
-    _TRACE_AUX = aux = []
-    try:
-        with span("rel.fused_program", query=pname):
-            out = plan(rels)
-    except FusedFallback:
-        out = None
-    finally:
-        _FUSED_TRACING = False
-        _TRACE_AUX = None
-    if out is None:
-        count("rel.fused_fallbacks")
-        count(f"rel.fused_fallbacks.{pname}")
-        info["fused"] = False
-        return plan(rels).compact()
     count_dispatch("rel.fused_program")
     info["fused"] = True
     return finish_fused(out, aux)
@@ -845,6 +887,487 @@ def finish_fused(out: Rel, aux: list, sync_site: "Optional[str]" = None
 
 
 # --------------------------------------------------------------------------
+# Micro-query batching: K compatible submissions -> one batched dispatch
+# --------------------------------------------------------------------------
+
+class PlanCacheLRU(_plan_cache.PlanCacheLRU):
+    """The shared LRU (``utils/plan_cache.py``) under the plan-cache
+    counter names: ``rel.plan_cache_evictions`` and a per-cache
+    sub-counter."""
+
+    def __init__(self, name: str):
+        super().__init__(name, ("rel.plan_cache_evictions",
+                                f"rel.plan_cache_evictions.{name}"))
+
+
+# guarded-by: _PLAN_LOCK -- entry get/create pairing; each entry's own
+# "lock" serializes its windows from the copy-in to the materialization.
+# Bounded by SRT_PLAN_CACHE_SIZE entries and, before each capture, by the
+# card's headroom (_make_room)
+_BATCH_CACHE = PlanCacheLRU("fused_batch")
+
+
+def clear_batch_cache() -> None:
+    """Drop every batch-cache entry, with its graph, its private memory
+    pool and its static buffers."""
+    _BATCH_CACHE.clear()
+
+
+def batch_cache_stats() -> list:
+    """One dict a batch-cache entry: its query, capacity, route, whether
+    it holds a graph, the hand-kernel launches one replay makes, its
+    static input bytes, the bytes it charges the cache (static buffers,
+    uploads and the graph's pool), the capture's seconds, and its
+    fallback reason."""
+    out = []
+    for e in _BATCH_CACHE.values():
+        g = e.get("graph")
+        out.append({"query": e["query"], "capacity": e["capacity"],
+                    "route": e["route"], "graph": g is not None,
+                    "replay_launches": dict(g.launches) if g else {},
+                    "static_bytes": e.get("static_bytes", 0),
+                    "bytes": e.get("bytes", 0),
+                    "capture_s": g.capture_s if g else None,
+                    "fallback": e.get("why")})
+    return out
+
+
+def run_fused_batched(plan, rels_list: "List[dict]", device=None, *,
+                      _graph: Optional[bool] = None) -> "List[Rel]":
+    """Execute the same plan over K compatible ingests as one batched
+    dispatch, plus one materialization a result: the micro-query half of
+    serving (``serving/batcher.py``).
+
+    The K submissions must share the plan and the rel fingerprints
+    (schema, verified stats, column sizes, dictionary content): the batch
+    program's structure is a function of those, so equality lets one
+    program serve every slot. The program is the plan run once a slot at
+    the static capacity (``fused_pipeline.batch_capacity``; the ragged
+    route sizes it by the page pool's lease); a partial window pads with
+    copies of slot 0, never demultiplexed. One host sync reads every
+    slot's live count and runtime counters. On the card the program is
+    captured into a CUDA graph on a key's first window and replayed on
+    every later one; on the CPU it runs eagerly (``_graph`` forces
+    either: the tests' stand-in capture, the smoke's recording pass).
+
+    ``device`` names where the rels live: ``cuda`` unless the caller
+    passes another. Raises :class:`BatchIncompatible` when the
+    submissions cannot share one program; the caller falls back,
+    route-counted, to per-query ``run_fused``."""
+    if len(rels_list) == 1:
+        return [run_fused(plan, rels_list[0], device=device)]
+    if not metrics_enabled():
+        return _run_fused_batched_impl(plan, rels_list, {}, device, _graph)
+    pname = getattr(plan, "__name__", "plan").lstrip("_")
+    info: dict = {}
+    before = kernel_stats()
+    smark = _obs_spans.mark()
+    rmark = _obs_recompile.mark()
+    t0 = time.perf_counter_ns()
+    with span(f"query.{pname}", batch=len(rels_list)):
+        outs = _run_fused_batched_impl(plan, rels_list, info, device,
+                                       _graph)
+    wall = time.perf_counter_ns() - t0
+    delta = stats_since(before)
+    disp, syncs = dispatch_counts(delta)
+    routes = {k: v for k, v in info.get("trace_counters", {}).items()
+              if k.startswith("rel.route.")}
+    for k, v in delta.items():
+        if k.startswith("rel.route."):
+            routes.setdefault(k, v)
+    _obs_report.emit(_obs_report.ExecutionReport(
+        query=pname, fused=info.get("fused", False),
+        cache_hit=info.get("cache_hit", False),
+        provenance=_obs_report.report_provenance(info),
+        dispatches=disp, host_syncs=syncs, wall_ns=wall, counters=delta,
+        routes=routes,
+        spans=[r.to_dict() for r in _obs_spans.records_since(smark)],
+        recompiles=[r.to_dict()
+                    for r in _obs_recompile.records_since(rmark)],
+        native_routes=_obs_report.native_route_sentinels(),
+        batch=len(rels_list),
+        reliability={k: v for k, v in delta.items()
+                     if k.startswith("serving.fault.")},
+        # one ingest a slot of the program (padded: the capacity rung;
+        # ragged: the page-bucketed capacity), the pad slots' bytes apart
+        memory=_obs_memory.query_memory_section(
+            _obs_memory.rel_ingest_bytes(rels_list[0]),
+            batch_multiplier=info.get("batch_capacity", len(rels_list)),
+            padded_waste_bytes=info.get("padded_waste_bytes", 0))))
+    return outs
+
+
+def _slot_stack_bytes(rels, shared: dict) -> int:
+    """Device bytes a batched window stacks for one submission: every
+    per-slot table's column data and validity. Shared (broadcast) tables
+    are read where they lie, whatever the capacity, so they are not part
+    of the per-slot footprint the page pool meters or the ragged
+    capacity divides by."""
+    total = 0
+    for name, r in rels.items():
+        if shared.get(name):
+            continue
+        for c in r.table.columns:
+            total += int(c.data.nbytes) if c.data is not None else 0
+            if c.validity is not None:
+                total += int(c.validity.nbytes)
+    return max(1, total)
+
+
+def _run_fused_batched_impl(plan, rels_list, info: dict, device,
+                            graph: Optional[bool]) -> "List[Rel]":
+    from ..ops.fused_pipeline import BATCH_CAPACITIES, batch_route
+    # runtime-lazy: exec/ imports tpcds/ at module scope
+    from ..exec.pages import page_pool, ragged_capacity
+
+    # chaos seams: batch faults and memory pressure fire before any cache
+    # bookkeeping, so an injected failure exercises the batcher's degrade
+    # ladder and never marks an entry as a fallback
+    _faults.maybe_inject(_faults.SEAM_BATCH)
+    _faults.maybe_inject(_faults.SEAM_ALLOC)
+    k = len(rels_list)
+    if k > BATCH_CAPACITIES[-1]:
+        raise BatchIncompatible(
+            f"batch of {k} exceeds the capacity ladder "
+            f"(max {BATCH_CAPACITIES[-1]})")
+    dev = resolve_device(device)
+    order = sorted(rels_list[0])
+    for rels in rels_list:
+        if sorted(rels) != order:
+            raise BatchIncompatible("table sets differ across submissions")
+        for name in order:
+            r = rels[name]
+            if getattr(r, "is_host_table", False):
+                raise BatchIncompatible(
+                    f"table {name!r} is streamed (morsel) — out-of-core "
+                    "runs do not batch")
+            if not _fusable_rel(r) or r.mask is not None:
+                raise BatchIncompatible(f"table {name!r} not fusable")
+        _check_device(rels, dev)
+    fps = tuple(_rel_fingerprint(rels_list[0][name]) for name in order)
+    for rels in rels_list[1:]:
+        if tuple(_rel_fingerprint(rels[name]) for name in order) != fps:
+            raise BatchIncompatible(
+                "rel fingerprints differ — the traced program would "
+                "differ per slot")
+    cap = batch_capacity(k)
+    # a table every slot submitted as the same Rel object is shared: read
+    # in place by every slot; identity is the proof of sharedness
+    shared = {name: all(rels[name] is rels_list[0][name]
+                        for rels in rels_list) for name in order}
+    slot_bytes = _slot_stack_bytes(rels_list[0], shared)
+    rtag, eff_cap, lease = "padded", cap, None
+    route = batch_route()
+    if route != "padded":
+        pool = page_pool()
+        if pool is None:
+            if route == "ragged":
+                # forced ragged with the pool off: serve padded, loudly
+                count("rel.batch.pool_degraded")
+        else:
+            lease = pool.lease(k * slot_bytes, tag="batch")
+            if lease is None:
+                count("rel.batch.pool_degraded")  # the padded twin works
+            else:
+                rtag = "ragged"
+                eff_cap = ragged_capacity(k, slot_bytes, cap)
+    info["batch_route"] = rtag
+    info["batch_capacity"] = eff_cap
+    info["padded_waste_bytes"] = (eff_cap - k) * slot_bytes
+    try:
+        return _run_batched_window(plan, rels_list, info, order, fps,
+                                   shared, eff_cap, rtag, dev, graph)
+    finally:
+        if lease is not None:
+            lease.release()
+
+
+def _slot_program(plan, rels: dict, entry: dict):
+    """One slot of the batch program: the plan under the planner flags
+    (no sync), then its column leaves, its row mask (all-True when the
+    plan left none, so every slot has one) and the vector [live count,
+    runtime counters...]. The first slot run fills the entry's meta;
+    later ones must agree with it."""
+    global _FUSED_TRACING, _TRACE_AUX
+    _FUSED_TRACING = True
+    _TRACE_AUX = aux = []
+    try:
+        out = plan(rels)
+    finally:
+        _FUSED_TRACING = False
+        _TRACE_AUX = None
+    if out.pending_sort is None:
+        sort = ((), ())
+    else:
+        by, desc = out.pending_sort
+        sort = (tuple(out.names.index(n) for n in by), tuple(desc))
+    meta = {"names": list(out.names), "dicts": dict(out.dicts),
+            "cols": [(c.dtype, c.size) for c in out.table.columns],
+            "sort": sort, "limit": out.limit,
+            "aux": [n for n, _ in aux]}
+    have = entry.setdefault("meta", meta)
+    if any(have[x] != meta[x] for x in ("names", "cols", "sort", "limit",
+                                         "aux")):
+        raise FusedFallback("batch slots planned different programs")
+    leaves = [(c.data, None if c.validity is None else c.valid_bool())
+              for c in out.table.columns]
+    mask = (torch.ones(out.num_rows, dtype=torch.bool, device=out.device)
+            if out.mask is None else out.mask)
+    vec = torch.stack([mask.sum(dtype=torch.int64)]
+                      + [v.to(out.device).reshape(()) for _, v in aux])
+    return leaves, mask, vec
+
+
+def _batch_program(plan, slots: list, entry: dict):
+    """The batch program over ``slots`` (one rels dict a slot): every
+    slot's leaves and mask, and the (slots, 1 + counters) block the one
+    host sync reads. The entry's first run keeps slot 0's route counters
+    (the reference's trace-time counters)."""
+    outs = []
+    for i, rels in enumerate(slots):
+        if i == 0 and "trace_counters" not in entry:
+            tb = kernel_stats()
+            outs.append(_slot_program(plan, rels, entry))
+            entry["trace_counters"] = stats_since(tb)
+        else:
+            outs.append(_slot_program(plan, rels, entry))
+    return ([o[0] for o in outs], [o[1] for o in outs],
+            torch.stack([o[2] for o in outs]))
+
+
+def _fill_static(entry: dict, padded: list, k: int) -> None:
+    """The window's first ``k`` slots into the entry's static buffers:
+    slot s of a per-slot table into its buffer s. Pad slots keep what
+    they last held: their outputs are never read, and any ingest of the
+    key's fingerprint is a valid input. A shared table has no buffer."""
+    for name, slots in entry["static"].items():
+        for s, bufs in enumerate(slots[:k]):
+            for c, (d, v) in zip(padded[s][name].table.columns, bufs):
+                d.copy_(c.data, non_blocking=True)
+                if v is not None:
+                    v.copy_(c.validity, non_blocking=True)
+
+
+def _static_slots(entry: dict, rels0: dict, order, shared: dict,
+                  cap: int) -> list:
+    """Allocate the entry's static buffers, ``cap`` for each per-slot
+    table, and build the rels the captured program reads: slot 0's
+    schema, dictionaries and verified stats over the buffers. A shared
+    table is read in place, at the storage the entry's key names."""
+    static, views, total = {}, {}, 0
+    for name in order:
+        r = rels0[name]
+        if shared[name]:
+            views[name] = [r] * cap
+            continue
+        static[name] = [[(torch.empty_like(c.data),
+                          None if c.validity is None
+                          else torch.empty_like(c.validity))
+                         for c in r.table.columns] for _ in range(cap)]
+        views[name] = []
+        for bufs in static[name]:
+            cols = []
+            for c, (d, v) in zip(r.table.columns, bufs):
+                total += d.nbytes + (0 if v is None else v.nbytes)
+                nc = Column(c.dtype, c.size, d, v,
+                            value_range=c.value_range, unique=c.unique)
+                flags = getattr(c, "_stats_flags", None)
+                if flags is not None:
+                    nc._stats_flags = flags
+                cols.append(nc)
+            views[name].append(Rel(Table(cols), r.names, dicts=r.dicts))
+    entry["static"] = static
+    entry["static_bytes"] = total
+    return [{name: views[name][s] for name in order} for s in range(cap)]
+
+
+def _shared_storage(rels0: dict, shared: dict) -> tuple:
+    """The addresses of the shared tables' columns: a graph reads them
+    in place, so they are part of its key. Equal addresses and an equal
+    fingerprint are all a replay needs, whichever tensors hold them."""
+    return tuple(
+        (name, tuple((c.data.data_ptr(), 0 if c.validity is None
+                      else c.validity.data_ptr())
+                     for c in rels0[name].table.columns))
+        for name in sorted(shared) if shared[name])
+
+
+def _make_room(entry: dict, need: int, dev) -> None:
+    """Before a capture: evict other entries, least recently used first,
+    while the bytes the cache charges plus ``need`` (the new entry's
+    static buffers) exceed the device's headroom (free memory and the
+    allocator's unallocated reserve, less the cached graphs' pools:
+    their free blocks serve only their own graph), so the cache holds at
+    most about half of the memory it competes for. A device that reports
+    no memory bounds the cache by its entry count alone."""
+    while True:
+        head = _obs_memory.hbm_headroom_bytes(dev)
+        if head is None:
+            return
+        pools = sum(e.get("pool_bytes", 0) for e in _BATCH_CACHE.values())
+        if _BATCH_CACHE.nbytes() + need <= head - pools:
+            return
+        if not _BATCH_CACHE.evict_oldest(keep=entry):
+            return
+        count("rel.batch.budget_evictions")
+
+
+def _graph_window(entry: dict, plan, padded: list, k: int, order,
+                  shared: dict, cap: int, dev, info: dict, site: str):
+    """One window through the entry's CUDA graph: on its first window
+    make room, allocate the static buffers, fill them, warm up and
+    capture (provenance ``cold_compile``); later, fill and replay
+    (``warm_memory``). Returns the graph's static outputs."""
+    g = entry.get("graph")
+    if g is None:
+        _make_room(entry, cap * _slot_stack_bytes(padded[0], shared), dev)
+        with _PLAN_LOCK:
+            slots = _static_slots(entry, padded[0], order, shared, cap)
+            _fill_static(entry, padded, cap)
+            uploads = entry.setdefault("uploads", {})
+
+            def program():
+                with memoized_uploads(uploads):
+                    return _batch_program(plan, slots, entry)
+
+            with span("rel.batch_capture", capacity=cap):
+                g = entry["graph"] = _aot.capture_graph(
+                    program, site=site, signature=(cap, entry["route"]),
+                    device=dev)
+        # the entry's charge: static buffers, uploads and the graph's pool
+        entry["pool_bytes"] = g.pool_bytes
+        entry["bytes"] = (entry["static_bytes"] + g.pool_bytes
+                          + sum(t.nbytes for t, _ in uploads.values()))
+        info["provenance"] = _obs_report.PROVENANCE_COLD_COMPILE
+    else:
+        _fill_static(entry, padded, k)
+        info["provenance"] = _obs_report.PROVENANCE_WARM_MEMORY
+    with span("rel.fused_batch_program", capacity=cap, graph=True):
+        g.replay()
+    return g.outputs
+
+
+def _release_entry(entry: dict) -> None:
+    """Drop an entry's graph (and with it its private pool), its static
+    buffers and its uploads: the batch cache's eviction and clear. An
+    entry a window holds is marked instead, and that window drops it at
+    its end (waiting here could deadlock on the plan lock)."""
+    if entry["lock"].acquire(blocking=False):
+        try:
+            _drop_state(entry)
+        finally:
+            entry["lock"].release()
+    else:
+        entry["evicted"] = True
+
+
+def _drop_state(entry: dict) -> None:
+    g = entry.pop("graph", None)
+    if g is not None:
+        g.release()
+    for name in ("static", "uploads", "done"):
+        entry.pop(name, None)
+    entry["bytes"] = entry["pool_bytes"] = 0
+
+
+def _run_batched_window(plan, rels_list, info: dict, order, fps,
+                        shared: dict, cap: int, rtag: str, dev,
+                        graph: Optional[bool]) -> "List[Rel]":
+    """One batched window at a decided route and slot count (``cap``:
+    the capacity rung, or the ragged route's page-bucketed capacity)."""
+    k = len(rels_list)
+    use_graph = dev.type == "cuda" if graph is None else bool(graph)
+    # pad slots replicate slot 0's inputs; their outputs are never read
+    padded = list(rels_list) + [rels_list[0]] * (cap - k)
+    key = (plan, tuple(order), fps, planner_env_key(), cap, rtag,
+           tuple(sorted(shared.items())), str(dev), use_graph,
+           _shared_storage(rels_list[0], shared) if use_graph else None)
+    pname = getattr(plan, "__name__", "plan").lstrip("_")
+    with _PLAN_LOCK:
+        entry = _BATCH_CACHE.get(key)
+        info["cache_hit"] = entry is not None
+        if entry is None:
+            entry = {"query": pname, "capacity": cap, "route": rtag,
+                     "lock": threading.Lock(), "bytes": 0}
+            entry["release"] = (lambda e=entry: _release_entry(e))
+            _BATCH_CACHE[key] = entry
+    with entry["lock"]:
+        if entry.get("fallback"):
+            raise BatchIncompatible(entry["why"])
+        done = entry.get("done")
+        if done is not None:  # the last window's reads of the outputs
+            torch.cuda.current_stream(dev).wait_event(done)
+        try:
+            if use_graph:
+                leaves, masks, nvals = _graph_window(
+                    entry, plan, padded, k, order, shared, cap, dev, info,
+                    f"rel.fused_batch.{pname}")
+            else:
+                with _PLAN_LOCK, span("rel.fused_batch_program",
+                                      capacity=cap, graph=False):
+                    leaves, masks, nvals = _batch_program(plan, padded,
+                                                          entry)
+        except torch.cuda.OutOfMemoryError as e:
+            # the card is full: free this entry's state and every other
+            # entry, and let the batcher split the window (no verdict)
+            _drop_state(entry)
+            while _BATCH_CACHE.evict_oldest(keep=entry):
+                pass
+            count("rel.batch.oom")
+            raise _faults.SplitAndRetryOOM(
+                f"batched window of {k} at capacity {cap}: {e}") from e
+        except MemoryError:
+            raise  # host memory pressure: no verdict on the program
+        except Exception as e:
+            if entry.get("ok"):
+                raise  # a runtime failure of a proven program
+            # a plan that needs a general kernel, or a body the capture
+            # refuses: later windows skip straight to per-query dispatch
+            entry["fallback"] = True
+            entry["why"] = f"{type(e).__name__}: {e}"
+            _drop_state(entry)
+            count("rel.batch.fallbacks")
+            count(f"rel.batch.fallbacks.{pname}")
+            raise BatchIncompatible(entry["why"]) from e
+        entry["ok"] = True
+        count_dispatch("rel.fused_batch_program")
+        count("rel.route.serving.batched", k)
+        count(f"rel.route.batch.{rtag}", k)
+        info["fused"] = True
+        info["trace_counters"] = entry.get("trace_counters", {})
+        meta = entry["meta"]
+        count_host_sync("rel.batch_mask_count")
+        ns = nvals.tolist()  # THE batch host sync: every slot's vector
+        # runtime counters: summed over the live slots only (pad slots
+        # replicate slot 0)
+        for j, aname in enumerate(meta["aux"]):
+            count(aname, int(sum(ns[i][1 + j] for i in range(k))))
+        sort_keys, descending = meta["sort"]
+        limit = meta["limit"]
+        dtypes = tuple(dt for dt, _ in meta["cols"])
+        outs = []
+        for i in range(k):  # pad slots [k:cap] are never demultiplexed
+            n = int(ns[i][0])
+            with span("rel.materialize", live_rows=n, slot=i):
+                # the mask is never None, so every output is a fresh
+                # gather: nothing aliases the graph's memory
+                out_d, out_v = _materialize_program(
+                    [d for d, _ in leaves[i]], [v for _, v in leaves[i]],
+                    masks[i], n, dtypes, sort_keys, descending, limit)
+            count_dispatch("rel.materialize")
+            nn = n if limit is None else min(limit, n)
+            outs.append(Rel(Table([Column(dt, nn, d, v) for (dt, _), d, v
+                                   in zip(meta["cols"], out_d, out_v)]),
+                            meta["names"], dicts=meta["dicts"]))
+        if dev.type == "cuda":
+            entry["done"] = torch.cuda.Event()
+            entry["done"].record(torch.cuda.current_stream(dev))
+        if entry.get("evicted"):
+            _drop_state(entry)
+    return outs
+
+
+# --------------------------------------------------------------------------
 # Result-cache keying: fingerprints and ingest content digests
 # --------------------------------------------------------------------------
 
@@ -861,7 +1384,20 @@ def planner_env_key() -> tuple:
     return tuple(env_str(k, "") for k in _ROUTE_KNOBS)
 
 
+# digests of the read-only dictionary arrays seen so far: id -> (weak
+# reference, digest). ``rel_from_df`` freezes the dictionaries it makes,
+# and every fingerprint (a batch key at each submit, every slot of every
+# window) would otherwise hash each one again; a writable array, or a
+# view whose base could be written, is hashed every time.
+_DICT_DIGESTS: dict = {}
+
+
 def _dict_digest(cats: np.ndarray) -> str:
+    frozen = not cats.flags.writeable and cats.flags.owndata
+    key = id(cats)
+    hit = _DICT_DIGESTS.get(key) if frozen else None
+    if hit is not None and hit[0]() is cats:
+        return hit[1]
     h = hashlib.sha1()
     h.update(str(cats.dtype).encode())
     h.update(str(cats.shape).encode())
@@ -869,7 +1405,11 @@ def _dict_digest(cats: np.ndarray) -> str:
         h.update("\x00".join(map(str, cats)).encode())
     else:
         h.update(cats.tobytes())
-    return h.hexdigest()
+    digest = h.hexdigest()
+    if frozen:
+        _DICT_DIGESTS[key] = (weakref.ref(
+            cats, lambda _, k=key: _DICT_DIGESTS.pop(k, None)), digest)
+    return digest
 
 
 def _rel_fingerprint(rel: Rel) -> tuple:
@@ -983,6 +1523,10 @@ def rel_from_df(df, decimals: "Optional[Dict[str, int]]" = None,
                     [None if pd.isna(v) else str(v) for v in s],
                     device=dev))
                 continue
+            # a private, read-only copy: the dictionary is part of every
+            # fingerprint, and its digest is memoized
+            cats = np.array(cats)
+            cats.flags.writeable = False
             dicts[name] = cats
             arr = codes
             col = Column.from_numpy(codes, device=dev)

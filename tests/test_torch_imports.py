@@ -63,7 +63,9 @@ def test_sources_exist():
                 "obs/slo.py", "obs/server.py", "obs/recompile.py",
                 "obs/spans.py", "utils/tracing.py", "serving/__init__.py",
                 "serving/executor.py", "serving/reliability.py",
-                "serving/result_cache.py", "serving/aot_cache.py"):
+                "serving/result_cache.py", "serving/aot_cache.py",
+                "serving/batcher.py", "serving/scheduler.py",
+                "utils/batching.py", "utils/plan_cache.py"):
         assert rel in names
     for src in ("hash_join_probe.cu", "ragged_groupby.cu",
                 "bitmask_pack.cu", "murmur3.cu", "pack_rows.cu"):
