@@ -262,6 +262,28 @@ In order, it:
    after each round it prints the memory allocated and reserved, the
    cache's entries and the bytes they charge, and the evictions (by the
    card's headroom, by an out-of-memory error, by count);
+10d. the fleet-control step (it runs between 10b and 10c, while step
+   10's process group is open), on step 3's tables, with
+   ``SRT_CONTROL_PLANE=1`` (``SRT_CONTROL_MIN_SAMPLES=4``),
+   ``SRT_METRICS``, threshold 8192 and the ``exchange`` join route: a
+   ``FleetScheduler`` with tenants ``gold`` (priority 10, weight 3) and
+   ``bronze`` (0, 1) over ``make_mesh_2d(n_part=1, n_replica=1)`` (one
+   replica slice on the one NCCL rank) serves q1-q20, the tenants
+   alternating, each with a deadline, the launch counts set to 0 just
+   before and read just after, then q1-q20 once more recording every
+   kernel call (held against its plain version, exact). It requires
+   every result to equal the oracle and step 10b's serial result, K1,
+   K2, K3 and K5 launched; a burst of 8 gold q9 with 1 ms deadlines must
+   shed at admission, each counted ``serving.shed.predicted``; with the
+   ``control`` fault seam armed once, the next such q9 must be admitted
+   (the shed loop latched, ``serving.control.telemetry_errors`` and
+   ``serving.control.fallback.shed`` 1) and served equal to the oracle.
+   Then a ``FleetRollup`` over this process's scrape endpoint and a
+   child process's (tenant ``child``, two samples) scrapes 4 times: both
+   members up, ``/fleet/healthz`` 200, the merged ``/slo.json`` holding
+   both processes' keys, a history snapshot a scrape under
+   ``target/fleet-history-<pid>`` read back, and the regression watch
+   over the ring printed;
 11. the morsel step (out-of-core execution, ``exec/``): the four fact
    tables of step 3's frames (1,346,648,000 bytes) become host tables
    and the dimensions stay on the card. It prints one plain copy of
@@ -295,6 +317,28 @@ In order, it:
    ``exec.morsel.overlap_ns``, the peak memory allocated above the
    step's base beside ``exec.morsel.peak_model_bytes``, and under
    ``--profile`` the device's idle share over the warm query;
+11b. the warm-disk restart: two child processes at sf=10 sharing
+   ``SRT_AOT_CACHE_DIR`` under ``target/``. The cold one builds the
+   kernel library into the disk tier and runs one
+   window of three of q3 and of q9, each captured (provenance
+   ``cold_compile``, noted in the capture manifest); the warm one, whose
+   ``nvcc`` lookup raises, binds the library from the disk tier, calls
+   ``warm_disk`` and runs
+   the same windows: each must report ``warm_disk`` with no build; every
+   slot equal to the serial run. It prints each first window's time in
+   both processes;
+11c. the tune step: the tuner (``tune/runner.py``) over the ``pipeline``
+   workload on step 3's tables (q3 at sf=1000, the main path's scale)
+   with the candidates of ``SRT_JOIN_METHOD`` and ``SRT_DENSE_GROUPBY``:
+   one oracle run each under deterministic algorithms, held byte for
+   byte against the default's, then one warm-up and five timed samples
+   with the mode off, as production runs; a candidate replaces the
+   default only when it beats it by more than the larger of their
+   spreads. It prints every candidate's best time and spread (or its
+   oracle reject), stores the winners under ``target/``, requires a
+   fresh process to read them with one disk read and no measurement,
+   and runs q3 under the winners once counted and once recorded (each
+   kernel call held against its plain version), equal to the oracle;
 12. row conversion (BASELINE config 2, the 32-column ``TestTables.java``
    schema, 200-byte rows): 1,000,000 rows all valid; 1,000,000 rows with
    1% nulls per column; 12,000,000 rows with nulls (two batches below
@@ -313,10 +357,10 @@ In order, it:
    host work, other kernels and idle card);
 13. prints the ``kernels`` JSON line (K1-K6, each with its launches on
     its paths: K1-K3 on q1-q10, q11-q20, the served path, the batched
-    path and the morsel step, the kernels launched serving over the
-    mesh, K3 also on the roster, the strings step, roster II and, in its
-    table form, on the row conversions and nested rows, and K1-K6 on the
-    mesh), the card
+    path, the morsel step, the fleet-control step (K5 too) and the tuned
+    q3, the kernels launched serving over the mesh, K3 also on the
+    roster, the strings step, roster II and, in its table form, on the
+    row conversions and nested rows, and K1-K6 on the mesh), the card
     again, and as the last line ``{"ok": true, "device": {...}}``.
 
 Every kernel time is device time from CUDA events, the median of 10 runs
@@ -329,12 +373,14 @@ the updates of its busiest slot at one shared-memory atomic per SM
 clock. The ``kernels`` line sums each kernel over its calls on its
 paths: K1-K3 over q1-q10, q11-q20, the served path's counted pass, the
 batched path (launches: the replayed windows of step 10c (a); calls and
-times: its recording pass (b)) and the morsel step's,
-K4 and K5 over the hashing step, K3 over the roster, the strings step
-and roster II, K6 and K3's table form over the row-conversion step, and
-all of them over the mesh step and the mesh-served pass (the mesh,
-serving, batched and morsel steps time 3 runs a call, to keep them
-short). The
+times: its recording pass (b)), the morsel step's and the tuned q3
+(step 11c), K4 and K5 over the hashing step, K3 over the roster, the
+strings step and roster II, K6 and K3's table form over the
+row-conversion step, all of them over the mesh step and the mesh-served
+pass, and K1, K2, K3 and K5 over the fleet-control step's counted pass
+(its launches) and its recording pass (calls and times) (the mesh,
+serving, batched, morsel, fleet-control and tune steps time 3 runs a
+call, to keep them short). The
 morsel step's first warm run of each query and its Parquet runs turn
 ``SRT_METRICS`` on, so the overlap and io histograms record; its timed
 medians run with it off.
@@ -415,12 +461,18 @@ from spark_rapids_jni_tpu_torch.ops import (
 from spark_rapids_jni_tpu_torch.ops.get_json_object import (_eval_py,
                                                              _parse_path)
 from spark_rapids_jni_tpu_torch.ops.sort import gather_column
+from spark_rapids_jni_tpu_torch.obs import history as obs_history
+from spark_rapids_jni_tpu_torch.obs import rollup as obs_rollup
+from spark_rapids_jni_tpu_torch.obs import slo as obs_slo
 from spark_rapids_jni_tpu_torch.parallel import (distributed, make_mesh,
-                                                 shuffle_table)
+                                                 make_mesh_2d, shuffle_table)
 from spark_rapids_jni_tpu_torch.serving import (FleetScheduler,
                                                 QueryExecutor, QueryExpired,
-                                                TenantConfig, reliability,
-                                                result_cache)
+                                                QueryShed, TenantConfig,
+                                                aot_cache, control_plane,
+                                                reliability, result_cache)
+from spark_rapids_jni_tpu_torch.tune import store as tune_store
+from spark_rapids_jni_tpu_torch.tune.runner import tune
 from spark_rapids_jni_tpu_torch.tpcds import PLANS, QUERIES, dist, generate
 from spark_rapids_jni_tpu_torch.tpcds.rel import (BatchIncompatible,
                                                   batch_cache_stats,
@@ -447,7 +499,9 @@ KERNELS = (("hash_join_probe", (("q1-q10", "hash_join_probe"),
                                  ("serving", "hash_join_probe"),
                                  ("serving mesh", "hash_join_probe"),
                                  ("batched", "hash_join_probe"),
-                                 ("morsel", "hash_join_probe"))),
+                                 ("morsel", "hash_join_probe"),
+                                 ("fleet control", "hash_join_probe"),
+                                 ("tune", "hash_join_probe"))),
            ("ragged_groupby_sum_count",
             (("q1-q10", "ragged_groupby_sum_count"),
              ("q11-q20", "ragged_groupby_sum_count"),
@@ -455,7 +509,9 @@ KERNELS = (("hash_join_probe", (("q1-q10", "hash_join_probe"),
              ("serving", "ragged_groupby_sum_count"),
              ("serving mesh", "ragged_groupby_sum_count"),
              ("batched", "ragged_groupby_sum_count"),
-             ("morsel", "ragged_groupby_sum_count"))),
+             ("morsel", "ragged_groupby_sum_count"),
+             ("fleet control", "ragged_groupby_sum_count"),
+             ("tune", "ragged_groupby_sum_count"))),
            ("bitmask_pack", (("q1-q10", "bitmask_pack"),
                              ("q11-q20", "bitmask_pack"),
                              ("serving", "bitmask_pack"),
@@ -470,13 +526,16 @@ KERNELS = (("hash_join_probe", (("q1-q10", "hash_join_probe"),
                              ("roster II", "bitmask_pack"),
                              ("mesh", "bitmask_pack"),
                              ("mesh", "bitmask_pack_fields"),
-                             ("serving mesh", "bitmask_pack_fields"))),
+                             ("serving mesh", "bitmask_pack_fields"),
+                             ("fleet control", "bitmask_pack"),
+                             ("tune", "bitmask_pack"))),
            ("murmur3_int32", (("hashing", "murmur3_int32"),
                               ("mesh", "murmur3_int32"),
                               ("serving mesh", "murmur3_int32"))),
            ("murmur3_int64", (("hashing", "murmur3_int64"),
                               ("mesh", "murmur3_int64"),
-                              ("serving mesh", "murmur3_int64"))),
+                              ("serving mesh", "murmur3_int64"),
+                              ("fleet control", "murmur3_int64"))),
            ("pack_rows", (("row conversion", "pack_rows"),
                           ("mesh", "pack_rows"),
                           ("serving mesh", "pack_rows"))))
@@ -3951,6 +4010,7 @@ def run_serving(dev, rels: dict, data: dict, oracles: dict, mesh, log,
         out["mesh"], mesh_calls = serving_mesh(dev, mesh, rels, oracles,
                                                serial, log)
     out["step_s"] = time.perf_counter() - t_step
+    out["serial"] = serial  # the fleet-control step's baseline
     return out, calls, mesh_calls
 
 
@@ -4360,6 +4420,373 @@ def run_batching(dev, rels: dict, data: dict, oracles: dict, log,
 # The morsel step: q1-q20 with the fact tables streamed from host memory
 # and from Parquet through pinned, double-buffered staging
 # --------------------------------------------------------------------------
+
+# --------------------------------------------------------------------------
+# The fleet-control step: q1-q20 through FleetScheduler over a replica
+# slice with the control plane on, its rollup and history
+# --------------------------------------------------------------------------
+
+FLEET_NAMES = Q_NAMES + ("murmur3_int64",)  # K5 on the exchange route
+FLEET_TENANTS = (TenantConfig("gold", weight=3, priority=10),
+                 TenantConfig("bronze", weight=1, priority=0))
+FLEET_DEADLINE_MS = 600_000  # the served pass: every deadline met
+FLEET_BURST = 8              # gold submissions a predicted shed answers
+FLEET_BURST_MS = 1           # their deadline: below any execute window
+FLEET_SNAPSHOTS = 4          # rollup scrapes, one history snapshot each
+ROLLUP_CHILD_SAMPLES = (2_000_000, 40_000_000)  # the child's e2e, ns
+
+
+def fleet_pass(sched, rels: dict, queries: tuple) -> dict:
+    """Each query once, the tenants alternating, every submission with a
+    deadline; results decoded after all are queued: {q: (frame, pq)}."""
+    pending = [(q, sched.submit(PLANS[q], rels,
+                                tenant=FLEET_TENANTS[i % 2].name,
+                                deadline_ms=FLEET_DEADLINE_MS))
+               for i, q in enumerate(queries)]
+    return {q: (p.to_df(timeout=SERVE_TIMEOUT), p) for q, p in pending}
+
+
+def child_json(args: list, env: dict, timeout: float) -> dict:
+    """Run ``chip_smoke.py`` in a child process with ``args`` and ``env``
+    over this one's; its last stdout line is a JSON object."""
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), *args],
+        env={**os.environ, **env}, capture_output=True, text=True,
+        timeout=timeout)
+    _require(proc.returncode == 0,
+             f"child {args}: rc {proc.returncode}\n{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def rollup_child() -> int:
+    """The rollup's second member: a scrape endpoint over this process's
+    own SLO sketches (tenant ``child``), its port printed, open until
+    stdin closes."""
+    obs.count("serving.submitted", len(ROLLUP_CHILD_SAMPLES))
+    for d in ROLLUP_CHILD_SAMPLES:
+        obs_slo.record(obs_slo.KIND_E2E, "child", 0, d)
+    srv = obs_server.start(0)
+    print(json.dumps({"port": srv.port}), flush=True)
+    sys.stdin.read()
+    obs_server.stop()
+    return 0
+
+
+def fleet_rollup(log) -> dict:
+    """A ``FleetRollup`` over this process's scrape endpoint and a child
+    process's: ``FLEET_SNAPSHOTS`` scrapes merging /metrics and
+    /slo.json, each offering a history snapshot, then the regression
+    watch over the ring read back."""
+    child = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rollup-child"],
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": "",
+             "SRT_METRICS": "1"},
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+    try:
+        port = json.loads(child.stdout.readline())["port"]
+        mine = obs_server.start(0)
+        members = [f"127.0.0.1:{mine.port}", f"127.0.0.1:{port}"]
+        r = obs_rollup.FleetRollup(members)
+        try:
+            snaps = [r.collect() for _ in range(FLEET_SNAPSHOTS)]
+            h_status, h_body = _http_get(r, "/fleet/healthz")
+            m_status, text = _http_get(r, "/fleet/metrics")
+        finally:
+            r.stop()
+            obs_server.stop()
+    finally:
+        child.stdin.close()
+        child.wait(timeout=60)
+    last = snaps[-1]
+    hists = last["slo"]["hists"]
+    _require(last["up"] == 2 and h_status == 200 and m_status == 200,
+             f"rollup: up {last['up']}, /fleet/healthz {h_status}, "
+             f"/fleet/metrics {m_status}")
+    _require("child|0|e2e" in hists and any(
+        k.startswith(("gold|", "bronze|")) for k in hists),
+             f"rollup: merged sketches {sorted(hists)}")
+    child_n = hists["child|0|e2e"][obs_slo.N_BUCKETS]
+    _require(child_n == len(ROLLUP_CHILD_SAMPLES),
+             f"rollup: child e2e count {child_n}")
+    samples = obs.parse_prometheus(text)
+    merged_gold = {k: obs_slo.sketch_quantiles(h) for k, h in hists.items()}
+    ring = obs_history.load_snapshots()
+    fleet_snaps = [x for x in ring if x.get("source") == "fleet"]
+    _require(len(fleet_snaps) >= FLEET_SNAPSHOTS,
+             f"history: {len(fleet_snaps)} fleet snapshots")
+    findings = obs_history.regression_watch(snapshots=ring)
+    log(f"fleet rollup: members {members} up {last['up']}; /fleet/healthz "
+        f"200; merged /slo.json keys {sorted(hists)}; fleet quantiles "
+        + json.dumps({k: {f: q[f] for f in ("count", "p50_ns", "p99_ns")}
+                      for k, q in sorted(merged_gold.items())})
+        + f"; /fleet/metrics {len(samples)} samples; history ring "
+        f"{len(ring)} snapshots ({len(fleet_snaps)} from the fleet) under "
+        f"{obs_history.history_dir()}; "
+        + obs_history.render_watch(findings).replace("\n", "; "))
+    return {"members": members, "up": last["up"],
+            "slo_keys": sorted(hists), "history_snapshots": len(ring),
+            "regressions": findings}
+
+
+def run_fleet_control(dev, rels: dict, oracles: dict, serial: dict, log,
+                      card: str):
+    """The fleet-control step (module docstring). Returns the step's
+    report and the kernel calls of its recording pass."""
+    t_step = time.perf_counter()
+    queries = Q1_10 + Q11_20
+    hist_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "target", f"fleet-history-{os.getpid()}")
+    env = {"SRT_METRICS": "1", "SRT_CONTROL_PLANE": "1",
+           "SRT_CONTROL_MIN_SAMPLES": "4",
+           "SRT_BROADCAST_THRESHOLD": MESH_THRESHOLD,
+           "SRT_SHUFFLE_JOIN_ROUTE": "exchange", "SRT_OBS_HISTORY": "1",
+           "SRT_OBS_HISTORY_DIR": hist_dir,
+           "SRT_OBS_HISTORY_MIN_INTERVAL_S": "0"}
+    out: dict = {}
+    calls: list = []
+    with env_set(env):
+        mesh2d = make_mesh_2d(n_part=1, n_replica=1, device_type=dev.type)
+        sched = FleetScheduler(tenants=FLEET_TENANTS, mesh=mesh2d,
+                               name="fleet-control")
+        try:
+            _require(sched._control is not None and sched._fleet is not None,
+                     "no control plane or replica slice")
+            before = kernel_stats()
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            served = fleet_pass(sched, rels, queries)
+            pass_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            launches = {n: K.LAUNCHES[n] for n in FLEET_NAMES}
+            query = [None]
+            with recording(calls, query):
+                for q in queries:
+                    query[0] = f"fleet {q}"
+                    sched.submit(PLANS[q], rels, tenant="gold",
+                                 deadline_ms=FLEET_DEADLINE_MS).result(
+                                     timeout=SERVE_TIMEOUT)
+            torch.cuda.synchronize()
+            for q, (frame, pq) in served.items():
+                frames_match(frame, oracles[q], f"{q} (fleet control)")
+                frames_match(frame, serial[q], f"{q} (fleet vs serial)")
+                _require(type(pq.result()).__name__ == "Rel",
+                         f"{q}: served by another slice on one rank")
+            for name in FLEET_NAMES:
+                _require(launches.get(name, 0) > 0,
+                         f"kernel {name} was not launched on the fleet path")
+            gold = obs_slo.TRACKER.latency_stats(obs_slo.KIND_EXECUTE,
+                                                 "gold", 10)
+            # (c) a burst the gold window says cannot meet its deadline
+            shed_before = kernel_stats().get("serving.shed.predicted", 0)
+            sheds = 0
+            for _ in range(FLEET_BURST):
+                try:
+                    sched.submit(PLANS["q9"], rels, tenant="gold",
+                                 deadline_ms=FLEET_BURST_MS)
+                except QueryShed as e:
+                    _require("serving.shed.predicted" in e.reason, e.reason)
+                    sheds += 1
+            predicted = (kernel_stats().get("serving.shed.predicted", 0)
+                         - shed_before)
+            _require(sheds == FLEET_BURST and predicted == sheds,
+                     f"burst: {sheds} sheds, {predicted} predicted")
+            # (d) the control seam: a garbage read latches the loop, and
+            # the same doomed submission is admitted and served
+            faults.configure("control:raise:1")
+            try:
+                pq = sched.submit(PLANS["q9"], rels, tenant="gold",
+                                  deadline_ms=FLEET_BURST_MS)
+                latched = sched._control.latched(control_plane.LOOP_SHED)
+                frames_match(pq.to_df(timeout=SERVE_TIMEOUT),
+                             oracles["q9"], "q9 (served while latched)")
+            finally:
+                faults.reset()
+            delta = stats_since(before)
+            _require(latched and delta.get(
+                "serving.control.telemetry_errors") == 1 and delta.get(
+                "serving.control.fallback.shed") == 1,
+                f"control seam: latched {latched}, "
+                f"{ {k: v for k, v in delta.items() if 'control' in k} }")
+            tenants = {t.name: {k.rsplit('.', 1)[1]: v for k, v in
+                                delta.items()
+                                if k.startswith(f"serving.tenant.{t.name}.")}
+                       for t in FLEET_TENANTS}
+        finally:
+            sched.close()
+        out["rollup"] = fleet_rollup(log)
+    control = {k: v for k, v in delta.items()
+               if k.startswith(("serving.control.", "serving.shed"))}
+    log(f"fleet control: q1-q20 served by FleetScheduler over {mesh2d!r} "
+        f"(one replica slice, one NCCL rank) with the control plane on, "
+        f"equal to the oracle and the serial run; pass {pass_s:.3f} s; "
+        f"launches {json.dumps(launches, sort_keys=True)}; gold's execute "
+        f"window {json.dumps(gold)}; a burst of {FLEET_BURST} gold q9 with "
+        f"{FLEET_BURST_MS} ms deadlines: {sheds} predicted sheds; the "
+        f"control seam latched the shed loop and the next doomed q9 was "
+        f"served; tenants {json.dumps(tenants, sort_keys=True)}; control "
+        f"counters {json.dumps(control, sort_keys=True)} [{card}]")
+    out |= {"launches": launches, "pass_s": pass_s, "sheds": sheds,
+            "latched": latched, "tenants": tenants, "control": control,
+            "gold_execute": gold,
+            "step_s": time.perf_counter() - t_step}
+    return out, calls
+
+
+# --------------------------------------------------------------------------
+# The warm-disk restart and the tune step (after the morsel step: the
+# children need little of the card)
+# --------------------------------------------------------------------------
+
+WARM_SF = 10                  # the children's data: 100,000 store_sales rows
+WARM_QUERIES = ("q3", "q9")   # both capture on the card
+WARM_K = 3                    # a window of three, capacity 4
+TUNE_KNOBS = ("SRT_JOIN_METHOD", "SRT_DENSE_GROUPBY")
+TUNE_NAMES = Q_NAMES
+
+
+def warm_child(mode: str) -> int:
+    """One process of the warm-disk restart: ingest at ``WARM_SF``, then
+    (``warm``) ``warm_disk``, then each query's first batched window,
+    timed; prints one JSON line."""
+    dev = torch.device("cuda")
+    if mode == "warm":  # a build would fail: the library must be bound
+        def _no_nvcc():
+            raise RuntimeError("the warm process has no nvcc")
+        K._nvcc = _no_nvcc
+    t0 = time.perf_counter()
+    K.kernels()
+    lib_s = time.perf_counter() - t0
+    data = generate(sf=WARM_SF, seed=SEED)
+    rels = {n: rel_from_df(df, device=dev) for n, df in data.items()}
+    serial = {q: run_fused(PLANS[q], rels, device=dev).to_df()
+              for q in WARM_QUERIES}
+    res = {"mode": mode, "library_s": lib_s, "first": {}}
+    with env_set({"SRT_METRICS": "1"}):
+        t0 = time.perf_counter()
+        res["warmed"] = (aot_cache.warm_disk(rels, device=dev)
+                         if mode == "warm" else [])
+        torch.cuda.synchronize()
+        res["warm_disk_s"] = time.perf_counter() - t0
+        for q in WARM_QUERIES:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = run_fused_batched(PLANS[q], [rels] * WARM_K, device=dev)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            for i, o in enumerate(outs):
+                frames_match(o.to_df(), serial[q], f"{q} slot {i} ({mode})")
+            res["first"][q] = {"ms": ms,
+                               "provenance": obs.last_report(q).provenance}
+    res["aot"] = {k: v for k, v in kernel_stats().items()
+                  if k.startswith("aot.")}
+    res["builds"] = [r.site for r in obs.recompile_records()
+                     if r.site == "ops.cuda_kernels.build"]
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+def run_warm_disk(log, card: str) -> dict:
+    """The warm-disk restart (module docstring)."""
+    t_step = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "target", f"aot-{os.getpid()}")
+    torch.cuda.empty_cache()
+    cold = child_json(["--warm-child", "cold"],
+                      {"SRT_AOT_CACHE_DIR": os.path.join(root, "cache")}, 600)
+    warm = child_json(["--warm-child", "warm"],
+                      {"SRT_AOT_CACHE_DIR": os.path.join(root, "cache")}, 600)
+    for q in WARM_QUERIES:
+        _require(cold["first"][q]["provenance"] == "cold_compile",
+                 f"{q}: the cold process's first window {cold['first'][q]}")
+        _require(warm["first"][q]["provenance"] == "warm_disk",
+                 f"{q}: the warm process's first window {warm['first'][q]}")
+    _require(sorted(warm["warmed"]) == sorted(WARM_QUERIES),
+             f"warm_disk warmed {warm['warmed']}")
+    _require(not warm["builds"] and warm["aot"].get("aot.disk_hits", 0)
+             >= 1 + len(WARM_QUERIES) and not warm["aot"].get("aot.fallback"),
+             f"warm process: builds {warm['builds']}, aot {warm['aot']}")
+    _require(cold["aot"].get("aot.saves", 0) >= 2,
+             f"cold process: aot {cold['aot']}")
+    for q in WARM_QUERIES:
+        log(f"warm-disk restart {q}: first window of {WARM_K} at "
+            f"sf={WARM_SF}: cold process {cold['first'][q]['ms']:.3f} ms "
+            f"({cold['first'][q]['provenance']}), warm process "
+            f"{warm['first'][q]['ms']:.3f} ms "
+            f"({warm['first'][q]['provenance']}) [{card}]")
+    log(f"warm-disk restart: the warm process loaded the kernel library "
+        f"from the disk tier in {warm['library_s']:.3f} s with no nvcc "
+        f"(the cold one built it in {cold['library_s']:.3f}"
+        f" s) and captured the manifest's {len(warm['warmed'])} entries "
+        f"in {warm['warm_disk_s']:.3f} s before its first window; aot "
+        f"counters cold {json.dumps(cold['aot'], sort_keys=True)}, warm "
+        f"{json.dumps(warm['aot'], sort_keys=True)} [{card}]")
+    return {"cold": cold, "warm": warm,
+            "step_s": time.perf_counter() - t_step}
+
+
+def tune_child() -> int:
+    """A fresh process reads the tuned table: printed with the counters
+    that show it measured nothing."""
+    table = tune_store.active_table()
+    from spark_rapids_jni_tpu_torch.config import dense_groupby_mode, \
+        join_method
+    res = {"table": table, "join_method": join_method(),
+           "dense_groupby": dense_groupby_mode(),
+           "revision": repr(tune_store.revision_key()),
+           "stats": {k: v for k, v in kernel_stats().items()
+                     if k.startswith("tune.")}}
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+def run_tune(dev, rels: dict, oracles: dict, log, card: str):
+    """The tune step (module docstring) on the main path's tables.
+    Returns its report, the kernel calls of its recorded q3 and that
+    path's launches."""
+    t_step = time.perf_counter()
+    cache = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "target", f"aot-tune-{os.getpid()}")
+    env = {"SRT_AOT_CACHE_DIR": cache, "SRT_TUNE_WARMUP": "1",
+           "SRT_TUNE_SAMPLES": "5"}
+    calls: list = []
+    with env_set(env):
+        tune_store.reset_active_table_for_testing()
+        before = kernel_stats()
+        report = tune(knobs=TUNE_KNOBS, save=True, device=dev, rels=rels,
+                      log=lambda line: log(f"tune: {line} [{card}]"))
+        delta = stats_since(before)
+        winners = {k: r["winner"] for k, r in report.items()}
+        _require(all(winners.values()), f"tune: winners {winners}")
+        _require(tune_store.load_table() == winners,
+                 f"tune: stored {tune_store.load_table()} != {winners}")
+        # the tuned path: q3 once under the winners, counted, then recorded
+        K.reset_launch_counts()
+        got = run_fused(PLANS["q3"], rels, device=dev).to_df()
+        torch.cuda.synchronize()
+        launches = {n: K.LAUNCHES[n] for n in TUNE_NAMES}
+        with recording(calls, ["tune q3"]):
+            again = run_fused(PLANS["q3"], rels, device=dev).to_df()
+        torch.cuda.synchronize()
+        frames_match(again, got, "q3 (tuned, recorded)")
+        frames_match(got, oracles["q3"], "q3 (tuned) vs oracle")
+        fresh = child_json(["--tune-child"], {}, 300)
+        tune_store.reset_active_table_for_testing()
+    _require(fresh["table"] == winners and fresh["stats"].get(
+        "tune.store.loads") == 1 and not fresh["stats"].get(
+        "tune.measurements"), f"tune: the fresh process read {fresh}")
+    log(f"tune: winners {json.dumps(winners, sort_keys=True)} at sf="
+        f"{SF} (candidate times above; oracle rejects "
+        f"{delta.get('tune.oracle_rejects', 0)}, defaults kept within the "
+        f"spread {delta.get('tune.kept_incumbent', 0)}, measurements "
+        f"{delta.get('tune.measurements', 0)}); stored under {cache}, "
+        f"revision {fresh['revision']}; a fresh process reloaded them with "
+        f"one disk read and no measurement; q3 under the winners launches "
+        f"{json.dumps(launches, sort_keys=True)} [{card}]")
+    return ({"report": report, "winners": winners, "fresh": fresh,
+             "launches": launches, "counters": {
+                 k: v for k, v in delta.items() if k.startswith("tune.")},
+             "step_s": time.perf_counter() - t_step}, calls, launches)
+
 
 MORSEL_NAMES = Q_NAMES  # K1 and K2 on each morsel, K3 in the merge run
 MORSEL_FACTS = ("store_sales", "web_sales", "catalog_sales", "store_returns")
@@ -4848,7 +5275,15 @@ def main(argv=None) -> int:
                     "then each query's warm median of 3), without the "
                     "oracles, kernel checks and later steps; print the "
                     "times as the last line, and no result")
+    ap.add_argument("--rollup-child", action="store_true",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--warm-child", choices=("cold", "warm"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--tune-child", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.rollup_child:
+        return rollup_child()
     # one card: the device count printed at the end is the one used
     os.environ["CUDA_VISIBLE_DEVICES"] = \
         os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
@@ -4856,6 +5291,10 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     _require(torch.cuda.device_count() == 1, "more than one card visible")
+    if args.warm_child:
+        return warm_child(args.warm_child)
+    if args.tune_child:
+        return tune_child()
     dev = torch.device("cuda")
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -4975,6 +5414,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     serving, calls, mesh_calls = run_serving(dev, rels, data, oracles,
                                              group[0], log, card)
+    fleet, fleet_calls = run_fleet_control(dev, rels, oracles,
+                                           serving.pop("serial"), log, card)
     distributed.shutdown()
     os.remove(group[1])
     log("served kernel calls, each equal to its plain version on the "
@@ -4986,8 +5427,14 @@ def main(argv=None) -> int:
     totals["serving mesh"] = path_kernels(
         mesh_calls, serving["mesh"]["launches"], MESH_NAMES, log, reps=3)
     del calls, mesh_calls
-    serving["step_s"] = time.perf_counter() - t0
+    serving["step_s"] = time.perf_counter() - t0 - fleet["step_s"]
     log(f"serving step: {serving['step_s']:.3f} s [{card}]")
+    log("fleet-control kernel calls, each equal to its plain version on "
+        "the inputs q1-q20 gave it through the scheduler:")
+    totals["fleet control"] = path_kernels(fleet_calls, fleet["launches"],
+                                           FLEET_NAMES, log, reps=3)
+    del fleet_calls
+    log(f"fleet-control step: {fleet['step_s']:.3f} s [{card}]")
 
     batching, calls, batch_rec = run_batching(dev, rels, data, oracles, log,
                                               card)
@@ -5000,7 +5447,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     morsel, calls = run_morsel(dev, data, rels, oracles, log, card,
                                args.profile)
-    del data, rels, oracles
+    del data
     log("morsel kernel calls, each equal to its plain version on the "
         "inputs the streamed q1-q10 gave it:")
     totals["morsel"] = path_kernels(calls, morsel["launches"], MORSEL_NAMES,
@@ -5008,6 +5455,16 @@ def main(argv=None) -> int:
     del calls
     morsel["step_s"] = time.perf_counter() - t0
     log(f"morsel step: {morsel['step_s']:.3f} s [{card}]")
+
+    warm_disk = run_warm_disk(log, card)
+    log(f"warm-disk step: {warm_disk['step_s']:.3f} s [{card}]")
+    tuned, calls, tune_launches = run_tune(dev, rels, oracles, log, card)
+    del rels, oracles
+    log("tuned q3 kernel calls, each equal to its plain version:")
+    totals["tune"] = path_kernels(calls, tune_launches, TUNE_NAMES, log,
+                                  reps=3)
+    del calls
+    log(f"tune step: {tuned['step_s']:.3f} s [{card}]")
 
     t0 = time.perf_counter()
     rows, calls = run_row_conversion(dev, gen, log, args.profile)
@@ -5031,6 +5488,8 @@ def main(argv=None) -> int:
                  "serving mesh": serving["mesh"]["launches"],
                  "batched": batching["launches"],
                  "morsel": morsel["launches"],
+                 "fleet control": fleet["launches"],
+                 "tune": tuned["launches"],
                  "row conversion": rows["launches"]}, card, stress, log)
     if args.out:
         with open(os.path.join(args.out, "chip_smoke_report.json"),
@@ -5043,7 +5502,8 @@ def main(argv=None) -> int:
                        "strings": strings, "roster_ii": roster2,
                        "mesh": mesh, "serving": serving,
                        "batching": batching, "morsel": morsel,
-                       "row_conversion": rows,
+                       "fleet_control": fleet, "warm_disk": warm_disk,
+                       "tune": tuned, "row_conversion": rows,
                        "sf": SF, "seed": SEED}, f, indent=1, sort_keys=True,
                       default=str)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,8 +1,19 @@
-"""Environment knobs this slice reads.
+"""Environment knobs and the tuned tier.
 
-The reference resolves knobs in three tiers (env > tuned winner > code
-default); the tuning tier is not ported yet, so every knob here is an
-environment read with a code default. The route knobs keep the
+A knob resolves in three tiers, as in the reference: an explicit
+``SRT_*`` environment value, then the tuned winner (the revision-keyed
+table ``tune/store.py`` resolves for this torch, CUDA, card and kernel
+library), then the code default (``tuned_str``, ``tuned_int``,
+``tuned_float``). An operator's environment value always wins over a
+measurement; a malformed one falls through to the tuned tier. The tuned
+reads: the join route and K1's capacity cap (``ops/join.py``), the
+dense groupby route and the batch ceiling
+(``ops/fused_pipeline.py``), the exchange scratch budget, the intra
+route and the neighbourhood size (``parallel/comm_plan.py``), the
+morsel headroom fraction (``exec/morsel.py``) and the Parquet prefetch
+depth (``exec/disk_table.py``); the ones that shape a plan ride
+``tpcds/rel.planner_env_key`` through ``tune.tuned_planner_key``. Every
+other knob is an environment read with a code default. The route knobs keep the
 reference's names: ``SRT_JOIN_METHOD`` (``auto``/``xla``/``cuda``) and
 ``SRT_DENSE_GROUPBY`` (``auto``/``scatter``/``onehot``/``cuda``), with
 ``cuda`` in place of the reference's ``pallas``, and
@@ -21,8 +32,13 @@ cache's cap; unset or 0 = off), ``SRT_SHUFFLE_SCRATCH_HEADROOM_FRACTION``
 (the probed headroom's share granted to exchange scratch, default 1/4),
 ``SRT_QUERY_RETRIES``, ``SRT_RETRY_BACKOFF_MS``, ``SRT_QUERY_DEADLINE_MS``
 (``serving/reliability.RetryPolicy.from_env``, read by the fleet
-scheduler) and ``SRT_CONTROL_PLANE`` (refused until the control plane is
-ported). The micro-batching knobs (``ops/fused_pipeline.py``,
+scheduler), ``SRT_CONTROL_PLANE`` and its per-loop knobs
+(``serving/control_plane.ControlPolicy.from_env``), the history's
+``SRT_OBS_HISTORY*`` and the rollup's ``SRT_FLEET_*``, and
+``SRT_AOT_CACHE_DIR`` (the disk tier: the kernel library, the capture
+manifest and, under ``tuned/``, the tuner's winners; unset = off) with
+``SRT_TUNE_DISABLE``, ``SRT_TUNE_WARMUP`` and ``SRT_TUNE_SAMPLES``.
+The micro-batching knobs (``ops/fused_pipeline.py``,
 ``serving/``): ``SRT_BATCH_MAX`` (queries a batched dispatch coalesces,
 clamped to the capacity ladder 2/4/8/16), ``SRT_BATCH_ROUTE``
 (``auto``/``padded``/``ragged``), ``SRT_BATCH_WINDOW_MS`` (a fixed
@@ -95,12 +111,68 @@ def env_bool(name: str, default: bool) -> bool:
     return default
 
 
+def env_is_set(name: str) -> bool:
+    """True when ``name`` is in the environment at all (even empty): the
+    condition under which it outranks a tuned winner."""
+    return os.environ.get(name) is not None
+
+
+def _tuned_winner(name: str):
+    # imported here: tune.store imports this module
+    from .tune.store import active_winner
+    return active_winner(name)
+
+
+def tuned_str(name: str, default: str) -> str:
+    """String knob with the tuned tier: env > tuned winner > default."""
+    v = os.environ.get(name)
+    if v is not None:
+        return v
+    w = _tuned_winner(name)
+    return default if w is None else w
+
+
+def tuned_int(name: str, default):
+    """Int knob with the tuned tier; a malformed value at either tier
+    falls through to the next."""
+    v = os.environ.get(name, "").strip()
+    if v:
+        try:
+            return int(v)
+        except ValueError:
+            pass
+    w = _tuned_winner(name)
+    if w is not None:
+        try:
+            return int(str(w).strip())
+        except ValueError:
+            pass
+    return default
+
+
+def tuned_float(name: str, default):
+    """Float knob with the tuned tier (tolerant like ``tuned_int``)."""
+    v = os.environ.get(name, "").strip()
+    if v:
+        try:
+            return float(v)
+        except ValueError:
+            pass
+    w = _tuned_winner(name)
+    if w is not None:
+        try:
+            return float(str(w).strip())
+        except ValueError:
+            pass
+    return default
+
+
 def join_method() -> str:
-    return env_str("SRT_JOIN_METHOD", "auto")
+    return tuned_str("SRT_JOIN_METHOD", "auto")
 
 
 def dense_groupby_mode() -> str:
-    return env_str("SRT_DENSE_GROUPBY", "auto")
+    return tuned_str("SRT_DENSE_GROUPBY", "auto")
 
 
 def string_route() -> str:

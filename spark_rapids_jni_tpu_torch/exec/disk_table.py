@@ -60,7 +60,7 @@ import numpy as np
 
 from ..columnar import Column, Table
 from ..columnar.column import np_to_dtype
-from ..config import env_bool, env_int
+from ..config import env_bool, tuned_int
 from ..io.parquet import open_parquet, read_row_group, row_group_stats
 from ..obs import REGISTRY, count
 from ..types import decimal64
@@ -514,7 +514,7 @@ class ParquetHostTable:
         self._install_state(0, groups, dicts, paths, count_zone_from=0,
                             rebuild_batches=True)
         depth = (int(prefetch_depth) if prefetch_depth
-                 else max(1, env_int("SRT_DISK_PREFETCH_DEPTH", 2)))
+                 else max(1, tuned_int("SRT_DISK_PREFETCH_DEPTH", 2)))
         self._prefetch = _Prefetcher(self, depth)
 
     # -- footer scan / state build ----------------------------------------

@@ -27,7 +27,7 @@ import threading
 from dataclasses import dataclass, field
 from typing import Dict, Optional
 
-from ..config import env_float, env_int
+from ..config import env_int, tuned_float
 from ..obs import count, gauge
 
 # Share of the probed free device memory granted to the streamed window
@@ -88,7 +88,7 @@ def morsel_bytes_budget(device=None) -> Optional[int]:
     headroom = hbm_headroom_bytes(device)
     budget: Optional[int] = None
     if headroom is not None and headroom > 0:
-        f = env_float("SRT_MORSEL_HEADROOM_FRACTION",
+        f = tuned_float("SRT_MORSEL_HEADROOM_FRACTION",
                       DEFAULT_HEADROOM_FRACTION)
         if not (0.0 < f <= 1.0):
             f = DEFAULT_HEADROOM_FRACTION

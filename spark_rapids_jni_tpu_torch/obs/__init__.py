@@ -23,12 +23,14 @@ Port of ``spark_rapids_jni_tpu/obs/``, one import:
   headroom probe behind the morsel and exchange-scratch budgets, the
   report's ``memory`` section.
 - **slo**: sliding-window latency sketches (``SLO_TRACKER``), exported
-  as ``serving.slo.*`` gauges.
+  as ``serving.slo.*`` gauges and, raw, as ``/slo.json`` for the fleet.
 - **flight**: the always-on flight-recorder ring.
 - **server**: the stdlib scrape endpoint (``/metrics``,
-  ``/metrics.json``, ``/healthz``, ``/reports``).
-
-The fleet layers (``history``, ``rollup``) come with the fleet.
+  ``/metrics.json``, ``/slo.json``, ``/healthz``, ``/reports``).
+- **rollup** (``fleet_rollup``): the scrape-and-merge tier over N
+  scrape endpoints (``/fleet/*``).
+- **history** (``obs_history``): the bounded on-disk snapshot ring and
+  the regression watch over it.
 """
 
 from .metrics import (  # noqa: F401
@@ -59,18 +61,23 @@ from .flight import dump as flight_dump  # noqa: F401
 from .flight import note as flight_note  # noqa: F401
 from .flight import snapshot as flight_snapshot  # noqa: F401
 from . import server as obs_server  # noqa: F401
+from . import rollup as fleet_rollup  # noqa: F401
+from . import history as obs_history  # noqa: F401
+from .history import reset_history  # noqa: F401
 
 
 def reset_all() -> None:
     """Clear every obs buffer: the registry, the span ring, the compile
-    records, the report ring, the SLO windows and the flight ring. Not
-    the memory-probe memo (``memory.reset_memory_probe``)."""
+    records, the report ring, the SLO windows, the flight ring and the
+    history's rate-limit latch. Not the memory-probe memo
+    (``memory.reset_memory_probe``)."""
     reset_kernel_stats()
     reset_spans()
     reset_recompiles()
     reset_reports()
     reset_slo()
     reset_flight()
+    reset_history()
 
 
 __all__ = [
@@ -92,5 +99,6 @@ __all__ = [
     "native_arena_snapshot", "reset_memory_probe",
     "SloTracker", "SLO_TRACKER", "reset_slo",
     "flight_note", "flight_dump", "flight_snapshot", "reset_flight",
-    "obs_server", "reset_all",
+    "obs_server", "fleet_rollup", "obs_history", "reset_history",
+    "reset_all",
 ]

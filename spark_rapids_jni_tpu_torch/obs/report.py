@@ -54,6 +54,7 @@ PROVENANCE_RESULT_CACHE = "result_cache"
 PROVENANCE_DELTA = "delta"
 PROVENANCE_COLD_COMPILE = "cold_compile"
 PROVENANCE_WARM_MEMORY = "warm_memory"
+PROVENANCE_WARM_DISK = "warm_disk"
 
 _QID_SALT = os.urandom(2).hex()
 _qid_seq = 0  # guarded-by: _lock
@@ -123,7 +124,7 @@ class ExecutionReport:
     dispatches: int                # counted device programs this run
     host_syncs: int                # data-dependent host syncs this run
     wall_ns: int                   # end-to-end wall time
-    provenance: str = ""  # eager|result_cache|delta|cold_compile|warm_memory
+    provenance: str = ""  # eager|result_cache|delta|cold_compile|warm_memory|warm_disk
     batch: int = 0                 # queries one batch dispatch served
     counters: dict = field(default_factory=dict)   # counter deltas
     routes: dict = field(default_factory=dict)     # planner decisions
@@ -242,7 +243,8 @@ def report_provenance(info: dict) -> str:
     batched window's capture and replay keep theirs."""
     p = info.get("provenance", "")
     return p if p in (PROVENANCE_RESULT_CACHE, PROVENANCE_DELTA,
-                      PROVENANCE_COLD_COMPILE, PROVENANCE_WARM_MEMORY) \
+                      PROVENANCE_COLD_COMPILE, PROVENANCE_WARM_MEMORY,
+                      PROVENANCE_WARM_DISK) \
         else PROVENANCE_EAGER
 
 

@@ -8,6 +8,9 @@ only, bound to loopback (``SRT_OBS_HTTP_HOST`` widens it deliberately).
   memory sampled (``memory.sample_device_memory()``), so a scrape always
   carries fresh ``serving.slo.*`` and ``mem.*`` families.
 - ``GET /metrics.json``: the same registry as JSON.
+- ``GET /slo.json``: the SLO windows' raw merged sketch vectors
+  (``slo.TRACKER.export_sketches()``), the form the fleet rollup merges
+  across processes (``obs/rollup.py``).
 - ``GET /healthz``: 200 when every registered health source reports
   ``ok`` (vacuously with none), else 503; the body also carries the
   device-memory probe's status.
@@ -16,8 +19,7 @@ only, bound to loopback (``SRT_OBS_HTTP_HOST`` widens it deliberately).
 
 ``start(port)`` binds (port 0 = ephemeral; read ``.port``),
 ``maybe_start_from_env()`` starts the process's server when
-``SRT_OBS_HTTP_PORT`` is set, ``stop()`` shuts it down. The reference's
-``/slo.json`` (raw sketches for the fleet rollup) comes with the fleet.
+``SRT_OBS_HTTP_PORT`` is set, ``stop()`` shuts it down.
 """
 
 from __future__ import annotations
@@ -132,6 +134,9 @@ class ObsServer:
         elif url.path == "/metrics.json":
             self._refresh_exports()
             self._send_json(handler, 200, REGISTRY.to_json())
+        elif url.path == "/slo.json":
+            from . import slo as _slo
+            self._send_json(handler, 200, _slo.TRACKER.export_sketches())
         elif url.path == "/healthz":
             ok, body = self._health()
             self._send_json(handler, 200 if ok else 503, body)
@@ -149,8 +154,8 @@ class ObsServer:
         else:
             self._send_json(handler, 404, {
                 "error": f"unknown path {url.path!r}",
-                "paths": ["/metrics", "/metrics.json", "/healthz",
-                          "/reports"]})
+                "paths": ["/metrics", "/metrics.json", "/slo.json",
+                          "/healthz", "/reports"]})
 
     @staticmethod
     def _send(handler, status: int, body: str, ctype: str) -> None:

@@ -19,9 +19,18 @@ quantiles equal the reference's exactly).
   and ``...<event>_per_s`` gauges; the scrape endpoint
   (``obs/server.py``) calls it before every ``/metrics``.
 
-Quantiles are bucket upper bounds (conservative by at most 2x). The
-reference's fleet exports (``export_sketches``, ``merge_sketches``) and
-the control plane's ``latency_stats`` come with the fleet.
+Quantiles are bucket upper bounds (conservative by at most 2x).
+
+- **Fleet exports.** ``export_sketches`` hands out the merged raw
+  bucket vectors (served at ``/slo.json``); ``merge_sketches`` adds N
+  such exports bucket by bucket (the fleet rollup, ``obs/rollup.py``),
+  and ``sketch_quantiles`` reads quantiles off a merged vector: a p99 of
+  p99s is not a fleet p99, a sum of buckets is.
+- **Control reads.** ``latency_stats`` merges one kind's live windows,
+  optionally for one tenant and priority, for the control plane
+  (``serving/control_plane.py``); a cold window reads None, never zero.
+  With ``SRT_CONTROL_PLANE=1`` latency samples record whatever
+  ``SRT_METRICS`` says: the control plane's loops read them.
 """
 
 from __future__ import annotations
@@ -30,7 +39,7 @@ import threading
 import time
 from typing import Dict, Optional, Tuple
 
-from ..config import env_float, env_int
+from ..config import env_bool, env_float, env_int
 from .metrics import enabled, gauge
 
 KIND_QUEUE_WAIT = "queue_wait"
@@ -130,8 +139,9 @@ class SloTracker:
 
     def record(self, kind: str, tenant: str, priority: int,
                dur_ns: int) -> None:
-        """Record one latency sample; a no-op when metrics are off."""
-        if not enabled():
+        """Record one latency sample; a no-op when metrics are off and the
+        control plane (which reads these windows) is off too."""
+        if not enabled() and not env_bool("SRT_CONTROL_PLANE", False):
             return
         b = _bucket(dur_ns)
         key = (kind, tenant, int(priority))
@@ -164,8 +174,7 @@ class SloTracker:
         denominator is the span covered (epoch distance plus the elapsed
         part of the newest window)."""
         with self._lock:
-            windows = [(w.epoch, {k: list(h) for k, h in w.hists.items()},
-                        dict(w.events))
+            windows = [self._concat_locked(w)
                        for w in self._live_windows_locked()]
             now = self._clock()
         merged_h: Dict[Tuple[str, str, int], list] = {}
@@ -194,6 +203,35 @@ class SloTracker:
             ent.setdefault("counts", {})[event] = n
         return out
 
+    @staticmethod
+    def _concat_locked(w: _Window) -> tuple:
+        return (w.epoch, {k: list(h) for k, h in w.hists.items()},
+                dict(w.events))
+
+    def latency_stats(self, kind: str, tenant: Optional[str] = None,
+                      priority: Optional[int] = None) -> Optional[dict]:
+        """Merged quantiles of one latency kind over the live windows; a
+        ``tenant``/``priority`` of None merges across that dimension.
+        Returns ``{p50_ns, p90_ns, p99_ns, count, mean_ns}``, or None when
+        the live windows hold no sample for the key (a cold window is no
+        signal, never a zero). Only the matching histograms are summed,
+        under the lock: this runs on the admission path."""
+        want_prio = None if priority is None else int(priority)
+        acc = [0] * (N_BUCKETS + 2)
+        hit = False
+        with self._lock:
+            for w in self._live_windows_locked():
+                for (k, t, p), h in w.hists.items():
+                    if k != kind or (tenant is not None and t != tenant) \
+                            or (want_prio is not None and p != want_prio):
+                        continue
+                    hit = True
+                    for i, v in enumerate(h):
+                        acc[i] += v
+        if not hit or not acc[N_BUCKETS]:
+            return None
+        return _quantiles(acc)
+
     def publish(self) -> dict:
         """Flush the merged windows into ``serving.slo.*`` gauges; gauges
         of a previous publish whose key aged out are zeroed. Returns the
@@ -220,11 +258,63 @@ class SloTracker:
             gauge("serving.slo.windows").set(self.n_windows)
             return snap
 
+    def export_sketches(self) -> dict:
+        """The live windows' merged raw sketch vectors, JSON-shaped for
+        ``/slo.json``: keys ``"tenant|priority|kind"`` (histograms) and
+        ``"tenant|priority|event"`` (outcome counts)."""
+        with self._lock:
+            windows = [self._concat_locked(w)
+                       for w in self._live_windows_locked()]
+        hists: "dict[str, list]" = {}
+        events: "dict[str, int]" = {}
+        for _epoch, whists, wevents in windows:
+            for (kind, tenant, prio), h in whists.items():
+                acc = hists.setdefault(f"{tenant}|{prio}|{kind}",
+                                       [0] * (N_BUCKETS + 2))
+                for i, v in enumerate(h):
+                    acc[i] += v
+            for (tenant, prio, event), n in wevents.items():
+                key = f"{tenant}|{prio}|{event}"
+                events[key] = events.get(key, 0) + n
+        return {"n_buckets": N_BUCKETS, "window_s": self.window_s,
+                "windows": self.n_windows, "hists": hists,
+                "events": events}
+
     def reset(self) -> None:
         with self._lock:
             self._ring = [None] * self.n_windows
         with self._publish_lock:
             self._published = set()
+
+
+def merge_sketches(exports) -> dict:
+    """Merge N ``export_sketches()`` payloads by bucket addition. An
+    export (or one of its vectors) whose length disagrees with this
+    build's ``N_BUCKETS`` grid is skipped, counted in ``skipped``: a
+    mixed-version fleet must not corrupt the sum."""
+    hists: "dict[str, list]" = {}
+    events: "dict[str, int]" = {}
+    skipped = 0
+    for exp in exports:
+        if not isinstance(exp, dict) or exp.get("n_buckets") != N_BUCKETS:
+            skipped += 1
+            continue
+        for key, h in (exp.get("hists") or {}).items():
+            if not isinstance(h, list) or len(h) != N_BUCKETS + 2:
+                skipped += 1
+                continue
+            acc = hists.setdefault(key, [0] * (N_BUCKETS + 2))
+            for i, v in enumerate(h):
+                acc[i] += int(v)
+        for key, n in (exp.get("events") or {}).items():
+            events[key] = events.get(key, 0) + int(n)
+    return {"n_buckets": N_BUCKETS, "hists": hists, "events": events,
+            "skipped": skipped}
+
+
+def sketch_quantiles(h: list) -> dict:
+    """Quantiles of one raw sketch vector (a merged one included)."""
+    return _quantiles(h)
 
 
 TRACKER = SloTracker()

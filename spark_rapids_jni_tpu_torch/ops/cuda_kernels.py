@@ -19,9 +19,15 @@ pallas_kernels.py``) become CUDA C++ under ``csrc/``:
 
 The sources compile with ``nvcc`` for ``sm_90a`` into one shared library
 with a plain C interface, at first use, into ``target/torch_kernels/``
-(git-ignored), keyed by a digest of the sources and flags; ``ctypes``
-binds it. Each source is compiled by its own ``nvcc`` process, all
-started together, then linked.
+(git-ignored), or into ``<SRT_AOT_CACHE_DIR>/kernels/`` when the disk
+tier is on, keyed by a digest of the sources and flags; ``ctypes`` binds
+it. Each source is compiled by its own ``nvcc`` process, all started
+together, then linked. A ``.json`` header beside the library holds its
+format and sha256; a library whose header is missing or does not match
+(or the ``aot_load`` fault seam) counts ``aot.fallback``, is dropped and
+built anew, so a fresh process binds an intact library without ``nvcc``
+or builds it. With the disk tier on, a bound library counts
+``aot.disk_hits`` and a built one ``aot.saves``.
 
 Each wrapper takes its plain PyTorch version for CPU tensors only. For a
 CUDA tensor it launches the kernel on the current stream or raises:
@@ -47,6 +53,7 @@ import ctypes
 import functools
 import hashlib
 import itertools
+import json
 import math
 import os
 import shutil
@@ -60,6 +67,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..columnar import bitmask
+from ..config import env_str
+from ..obs import count
 from ..utils.errors import CudfLikeError, expects
 from .join import hash_table_capacity
 from .row_layout import fixed_width_layout
@@ -117,6 +126,20 @@ def capture_launches():
         _capture_tls.launches = prev
 
 
+# bump when the library's header changes: older headers read as stale
+LIBRARY_FORMAT = 1
+
+
+def _disk_tier() -> Optional[str]:
+    d = env_str("SRT_AOT_CACHE_DIR", "").strip()
+    return d or None
+
+
+def _build_dir() -> Path:
+    d = _disk_tier()
+    return Path(d) / "kernels" if d else BUILD_DIR
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -134,15 +157,15 @@ def library_path() -> Path:
     for name in SOURCES:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
-    return BUILD_DIR / f"libsrt_torch_kernels-{h.hexdigest()[:16]}.so"
+    return _build_dir() / f"libsrt_torch_kernels-{h.hexdigest()[:16]}.so"
 
 
 def _build(out: Path) -> None:
     """Compile every source with its own ``nvcc``, all started together,
     link them into ``out`` and write the compilers' output beside it."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
         objs = [Path(tmp) / f"{Path(name).stem}.o" for name in SOURCES]
         procs = [subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)],
@@ -164,12 +187,53 @@ def _build(out: Path) -> None:
         os.replace(f"{tmp}/lib.so", out)
 
 
+def _sha256(path: Path) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def _intact(out: Path) -> bool:
+    """Whether ``out`` exists and matches its header. A library that
+    does not (corrupt bytes, a stale or missing header, or the
+    ``aot_load`` fault seam) counts ``aot.fallback`` and is dropped."""
+    if not out.exists():
+        return False
+    head = out.with_suffix(".json")
+    try:
+        from ..utils import faults
+        faults.maybe_inject(faults.SEAM_AOT_LOAD)
+        meta = json.loads(head.read_text(encoding="utf-8"))
+        if (meta.get("format") != LIBRARY_FORMAT
+                or meta.get("name") != out.name):
+            raise ValueError("stale library header")
+        if meta.get("sha256") != _sha256(out):
+            raise ValueError("library bytes do not match their header")
+    except Exception:
+        count("aot.fallback")
+        for p in (out, head):
+            try:
+                p.unlink()
+            except OSError:
+                pass
+        return False
+    return True
+
+
 @functools.lru_cache(maxsize=None)
 def kernels() -> ctypes.CDLL:
-    """The kernel library, built at first use (or reused when one built
-    from identical sources and flags exists) and bound once per process."""
+    """The kernel library, built at first use (or reused when an intact
+    one built from identical sources and flags exists) and bound once
+    per process."""
     out = library_path()
-    if not out.exists():
+    tier = _disk_tier() is not None
+    if _intact(out):
+        if tier:
+            count("aot.disk_hits")
+            count("aot.bytes_read", out.stat().st_size)
+    else:
         t0 = time.perf_counter_ns()
         _build(out)
         # the port's one run-time compile: a cold process's first report
@@ -177,6 +241,15 @@ def kernels() -> ctypes.CDLL:
         from ..obs.recompile import record_event
         record_event("ops.cuda_kernels.build", "compile", (out.name,),
                      duration_s=(time.perf_counter_ns() - t0) / 1e9)
+        head = out.with_suffix(".json")
+        tmp = head.with_name(f"{head.name}.tmp.{os.getpid()}")
+        tmp.write_text(json.dumps({"format": LIBRARY_FORMAT,
+                                   "name": out.name,
+                                   "sha256": _sha256(out)}))
+        os.replace(tmp, head)
+        if tier:
+            count("aot.saves")
+            count("aot.bytes_written", out.stat().st_size)
     lib = ctypes.CDLL(str(out))
     vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.srt_hash_join_probe.argtypes = [

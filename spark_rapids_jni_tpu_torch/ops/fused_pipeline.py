@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from ..columnar import Column, Table
-from ..config import dense_groupby_mode, env_int, env_str
+from ..config import dense_groupby_mode, env_str, tuned_int
 from ..utils.errors import expects
 from ..obs import count, flight_note, traced
 
@@ -72,7 +72,7 @@ def max_batch_queries() -> int:
     reads <=1 as batching off). A value above the ladder's top still
     clamps, but loudly: ``serving.batch.max_clamped`` per clamped read
     and one flight note."""
-    k = env_int("SRT_BATCH_MAX", BATCH_CAPACITIES[-1])
+    k = tuned_int("SRT_BATCH_MAX", BATCH_CAPACITIES[-1])
     if k > BATCH_CAPACITIES[-1]:
         count("serving.batch.max_clamped")
         global _max_clamp_noted

@@ -21,7 +21,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from ..columnar import Table
-from ..config import join_method
+from ..config import join_method, tuned_int
 from ..utils.errors import expects
 from .keys import row_ranks
 from ..obs import count, traced
@@ -35,6 +35,13 @@ _INT_MAX = 2**31 - 1
 # dedicated launch).
 CUDA_JOIN_MAX_CAPACITY = 1 << 19
 CUDA_JOIN_MIN_PROBE_ROWS = 1 << 14
+
+
+def join_cuda_max_capacity() -> int:
+    """K1's table-capacity cap: ``SRT_JOIN_CUDA_MAX_CAPACITY`` > the
+    tuned winner > ``CUDA_JOIN_MAX_CAPACITY`` (the reference's
+    ``SRT_JOIN_PALLAS_MAX_CAPACITY``). Rides ``planner_env_key``."""
+    return tuned_int("SRT_JOIN_CUDA_MAX_CAPACITY", CUDA_JOIN_MAX_CAPACITY)
 
 
 @traced("join.hash_table_capacity")
@@ -59,7 +66,7 @@ def join_probe_method(n_build: int, n_probe: int,
     reference takes Pallas on a TPU. ``backend`` is the device type of
     the tensors (``"cuda"`` or ``"cpu"``)."""
     mode = join_method()
-    fits = hash_table_capacity(n_build) <= CUDA_JOIN_MAX_CAPACITY
+    fits = hash_table_capacity(n_build) <= join_cuda_max_capacity()
     if mode == "xla":
         return "xla"
     if mode == "cuda":

@@ -38,9 +38,10 @@ at its entry and holds on its thread for the run
 (``agreed_probe_scope``). With the knob unset and no agreed probe held
 (outside a partitioned run, or on a device with no memory stats such as
 the CPU) the budget is unlimited: no rank ever plans from its own
-un-agreed probe. The reference's tuned tier
-is not ported. The port runs eagerly, so there is no plan cache for a
-budget to re-key.
+un-agreed probe. The budget, the intra route and the neighbourhood
+size read the tuned tier (``config.tuned_*``): env > tuned winner >
+default; on a mesh the tuned table is agreed across ranks
+(``tune.store.agree_active_table``).
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ import threading
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
-from ..config import env_int, env_str
+from ..config import env_str, tuned_int, tuned_str
 
 # Hard ceiling on staging depth: each round is (n_columns + 1)
 # collectives, so unbounded staging would trade the memory cliff for a
@@ -91,7 +92,7 @@ def _configured_budget() -> "tuple[bool, Optional[int]]":
     if _scratch_override is not None:
         return True, _scratch_override
     try:
-        b = int(env_str("SRT_SHUFFLE_SCRATCH_BYTES", "").strip())
+        b = int(tuned_str("SRT_SHUFFLE_SCRATCH_BYTES", "").strip())
     except ValueError:
         return False, None
     return True, (b if b > 0 else None)
@@ -189,7 +190,7 @@ def intra_exchange_route() -> str:
     ``auto`` (default — shard data over intra x part and run the
     hierarchical two-stage exchange) or ``flat`` (ignore the intra axis
     for data; shard over part only, the 2-D behavior)."""
-    v = env_str("SRT_SHUFFLE_INTRA", "auto").strip()
+    v = tuned_str("SRT_SHUFFLE_INTRA", "auto").strip()
     return v if v in ("auto", "flat") else "auto"
 
 
@@ -199,7 +200,7 @@ def neighborhood_size() -> int:
     process subgroups of ``g`` adjacent shards (two group-scoped stages
     instead of one mesh-wide collective). A value that does not divide
     the shard count is ignored at plan time (the flat route runs)."""
-    g = env_int("SRT_SHUFFLE_NEIGHBORHOOD", 0)
+    g = tuned_int("SRT_SHUFFLE_NEIGHBORHOOD", 0)
     return g if g >= 2 else 0
 
 

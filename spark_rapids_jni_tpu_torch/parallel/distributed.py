@@ -25,6 +25,9 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+# the collective timeout ``initialize`` was given (None: torch's default)
+_timeout: Optional[datetime.timedelta] = None
+
 
 def initialize(coordinator: Optional[str] = None,
                num_processes: Optional[int] = None,
@@ -36,7 +39,10 @@ def initialize(coordinator: Optional[str] = None,
     ``coordinator`` is ``host:port`` (TCP rendezvous) or a URL such as
     ``file:///path`` or ``tcp://host:port``; None reads the environment
     (``env://``). ``backend`` defaults to NCCL when CUDA is available,
-    else gloo. A second call is a no-op."""
+    else gloo. A second call is a no-op. ``timeout_s`` bounds every
+    collective of the default group and of the groups the fleet adds
+    (``group_timeout``)."""
+    global _timeout
     if dist.is_initialized():
         return
     if backend is None:
@@ -51,11 +57,17 @@ def initialize(coordinator: Optional[str] = None,
         kwargs["rank"] = int(process_id)
     if timeout_s is not None:
         kwargs["timeout"] = datetime.timedelta(seconds=float(timeout_s))
+        _timeout = kwargs["timeout"]
     if backend == "nccl":
         # one card a rank: the rank's card is its local rank's
         local = int(process_id or 0) % max(1, torch.cuda.device_count())
         torch.cuda.set_device(local)
     dist.init_process_group(**kwargs)
+
+
+def group_timeout() -> Optional[datetime.timedelta]:
+    """The collective timeout ``initialize`` was given, or None."""
+    return _timeout
 
 
 def process_info() -> dict:

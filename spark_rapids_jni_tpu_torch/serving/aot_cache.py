@@ -20,9 +20,31 @@ run once a slot, ``tpcds/rel.run_fused_batched``) warmed up once on a
 side stream, then captured into a ``torch.cuda.CUDAGraph``, so that
 every later window of the same batch key launches every kernel of every
 slot with one CPU call (``CapturedGraph.replay``). The capture is
-recorded as a ``compile`` event at its site (``obs/recompile.py``). A
-graph has no serialized form, so there is no disk tier: a fresh process
-captures again.
+recorded as a ``compile`` event at its site (``obs/recompile.py``).
+
+**The disk tier** (``SRT_AOT_CACHE_DIR``; unset = off). The reference
+serializes its compiled executables; a CUDA graph has no serialized
+form. What a fresh process can reuse is kept instead:
+
+- the kernel library: with the tier on, ``ops/cuda_kernels`` builds it
+  into ``<dir>/kernels/`` (its name carrying the digest of the sources
+  and flags, a ``.json`` header beside it holding its format and
+  sha256), so a fresh process binds it there without ``nvcc``;
+- a manifest of the batch-cache keys that captured
+  (``<dir>/graphs/manifest.json``: the plan's module, name and code
+  digest, the environment key, the digest of the rels' fingerprints and
+  planner knobs, the capacity rung and the slot count):
+  ``note_capture`` adds one after each capture, and ``warm_disk(rels)``
+  captures every entry that matches ``rels`` before the first window, so
+  that window replays and reports provenance ``warm_disk``.
+
+Writes are atomic (tmp file, then ``os.replace``). A corrupt entry (a
+header or sha256 that does not match, an unreadable manifest) or a
+stale one (another format, environment or plan digest) counts
+``aot.fallback``, is dropped, and the process builds or captures as if
+it were cold; nothing raises. ``aot.disk_hits`` counts libraries loaded
+and entries warmed, ``aot.disk_misses`` manifest entries whose rels are
+not at hand, ``aot.saves`` what was written.
 """
 
 from __future__ import annotations
@@ -30,13 +52,22 @@ from __future__ import annotations
 import functools
 import hashlib
 import inspect
+import json
+import os
 import sys
+import threading
 import time
 import types
+from pathlib import Path
+from typing import Optional
 
 import torch
 
+from ..config import env_str
 from ..obs import count
+
+# bump when the disk tier's layout changes: older entries read as stale
+AOT_FORMAT_VERSION = 1
 
 
 @functools.lru_cache(maxsize=1)
@@ -182,3 +213,154 @@ def capture_graph(fn, *, site: str, signature: tuple = (),
     record_event(site, "compile", tuple(signature), duration_s=capture_s)
     return CapturedGraph(graph, outputs, dict(launches), capture_s,
                          pool_bytes)
+
+
+# --------------------------------------------------------------------------
+# The disk tier
+# --------------------------------------------------------------------------
+
+_manifest_lock = threading.Lock()
+
+
+def cache_dir() -> Optional[str]:
+    """The disk tier's directory, or None when it is off."""
+    d = env_str("SRT_AOT_CACHE_DIR", "").strip()
+    return d or None
+
+
+def _atomic_write(path: str, data: bytes) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.tmp.{os.getpid()}.{threading.get_ident()}"
+    try:
+        with open(tmp, "wb") as f:
+            f.write(data)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def _drop(*paths) -> None:
+    for p in paths:
+        try:
+            os.unlink(p)
+        except OSError:
+            pass
+
+
+def _manifest_path() -> Optional[str]:
+    d = cache_dir()
+    return None if d is None else os.path.join(d, "graphs", "manifest.json")
+
+
+def _read_manifest(path: str) -> list:
+    """The manifest's entries; an unreadable one counts ``aot.fallback``
+    and is dropped."""
+    if not os.path.exists(path):
+        return []
+    try:
+        with open(path, "r", encoding="utf-8") as f:
+            doc = json.load(f)
+        if doc.get("format") != AOT_FORMAT_VERSION:
+            raise ValueError("stale manifest format")
+        entries = doc["entries"]
+        if not isinstance(entries, list):
+            raise ValueError("malformed manifest")
+        return entries
+    except Exception:
+        count("aot.fallback")
+        _drop(path)
+        return []
+
+
+def _write_manifest(path: str, entries: list) -> None:
+    try:
+        _atomic_write(path, json.dumps(
+            {"format": AOT_FORMAT_VERSION, "entries": entries},
+            indent=1, sort_keys=True).encode())
+        count("aot.saves")
+    except OSError:
+        count("aot.save_errors")
+
+
+def _env_repr() -> str:
+    return repr(environment_key())
+
+
+def batch_key_digest(parts: tuple) -> str:
+    """Process-stable digest of a batch key's content (rel fingerprints,
+    planner knobs, the capacity and route): the manifest's match key."""
+    return token_digest(("batch", parts))
+
+
+def note_capture(plan, key_digest: str, cap: int, k: int,
+                 rtag: str) -> None:
+    """Add one captured batch key to the manifest (a no-op when the tier
+    is off or it is there already)."""
+    path = _manifest_path()
+    if path is None:
+        return
+    ent = {"module": getattr(plan, "__module__", ""),
+           "plan": getattr(plan, "__qualname__", ""),
+           "plan_digest": plan_code_digest(plan), "env": _env_repr(),
+           "key": key_digest, "cap": int(cap), "k": int(k), "route": rtag}
+    with _manifest_lock:
+        entries = _read_manifest(path)
+        if any(e.get("key") == key_digest and e.get("env") == ent["env"]
+               for e in entries):
+            return
+        entries.append(ent)
+        _write_manifest(path, entries)
+
+
+def _resolve_plan(ent: dict):
+    mod = sys.modules.get(ent.get("module", ""))
+    if mod is None:
+        import importlib
+        mod = importlib.import_module(ent["module"])
+    obj = mod
+    for part in ent["plan"].split("."):
+        obj = getattr(obj, part)
+    return obj
+
+
+def warm_disk(rels: dict, device=None, _graph: Optional[bool] = None
+              ) -> list:
+    """Capture, before the first window, every manifest entry whose key
+    ``rels`` matches: the entry's plan runs one batched window of its
+    slot count over ``rels`` (the capture and one replay), and the first
+    real window of that key replays, reporting provenance ``warm_disk``.
+    Stale entries (another environment or plan digest) count
+    ``aot.fallback`` and leave the manifest; entries ``rels`` does not
+    match count ``aot.disk_misses``. Returns the names of the plans
+    warmed."""
+    path = _manifest_path()
+    if path is None:
+        return []
+    from ..tpcds import rel as relmod
+    with _manifest_lock:
+        entries = _read_manifest(path)
+    env = _env_repr()
+    keep, warmed = [], []
+    for ent in entries:
+        try:
+            plan = _resolve_plan(ent)
+            stale = (ent.get("env") != env
+                     or ent.get("plan_digest") != plan_code_digest(plan))
+        except Exception:
+            plan, stale = None, True
+        if stale:
+            count("aot.fallback")
+            continue
+        keep.append(ent)
+        k = max(2, int(ent.get("k", 2)))
+        if not relmod.warm_batch_entry(plan, [rels] * k, device,
+                                       ent.get("key", ""), graph=_graph):
+            count("aot.disk_misses")
+            continue
+        count("aot.disk_hits")
+        warmed.append(getattr(plan, "__name__", "plan").lstrip("_"))
+    if len(keep) != len(entries):
+        with _manifest_lock:
+            _write_manifest(path, keep)
+    return warmed

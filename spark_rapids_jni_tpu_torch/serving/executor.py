@@ -29,12 +29,16 @@ Obs: ``serving.{submitted,completed,failed,rejected}`` counters,
 ``serving.execute`` span (with ``SRT_METRICS``), and the SLO windows
 (``obs/slo.py``: the executor's name is the tenant, priority 0).
 
-The reference builds its SLO control plane here when
-``SRT_CONTROL_PLANE=1``; the control plane is not ported yet (ROADMAP
-Queue 1, item 13), and until then construction raises under that switch
-rather than ignore it.
+With ``SRT_CONTROL_PLANE=1`` the executor builds a control plane
+(``serving/control_plane.py``): with a deadline (``deadline_ms``, else
+``SRT_QUERY_DEADLINE_MS``), a submission whose predicted queue wait and
+execute time, from this executor's own windows, already exceed it sheds
+at once as ``queue.Full``, counted ``serving.shed.predicted``.
 With ``mesh``, every rank runs its own executor and submits the same
-queries in the same order (each is one collective program).
+queries in the same order (each is one collective program); the
+predicted-shed verdict is then the mesh's first rank's, broadcast to
+every rank over a gloo group of the mesh's ranks
+(``control_plane.RankAgreement``), so every rank admits alike.
 """
 
 from __future__ import annotations
@@ -49,12 +53,12 @@ from typing import Optional
 
 import torch
 
-from ..config import env_bool
 from ..obs import count, gauge, histogram, span
 from ..obs import flight as _flight
 from ..obs import report as _obs_report
 from ..obs import slo as _slo
 from ..utils.device import resolve_device
+from . import control_plane as _control_plane
 
 _STOP = object()
 
@@ -147,16 +151,25 @@ class QueryExecutor:
 
     def __init__(self, max_queue: int = 8, max_in_flight: int = 16,
                  device=None, mesh=None, axis=None,
+                 deadline_ms: Optional[float] = None,
                  name: str = "serving"):
         if max_in_flight < max_queue:
             raise ValueError("max_in_flight must be >= max_queue "
                              "(queued queries count as in flight)")
-        if env_bool("SRT_CONTROL_PLANE", False):
-            raise NotImplementedError(
-                "SRT_CONTROL_PLANE=1: the SLO control plane is not ported "
-                "yet (ROADMAP Queue 1, item 13); unset it to serve without "
-                "one")
         self.name = name
+        # the predictive-shed deadline (control plane only: without it the
+        # single worker enforces no deadline)
+        if deadline_ms is None:
+            from .reliability import RetryPolicy
+            deadline_ms = RetryPolicy.from_env().deadline_ms
+        if deadline_ms is not None and deadline_ms <= 0:
+            deadline_ms = None
+        self._deadline_ms = deadline_ms
+        self._control = _control_plane.maybe_control_plane(
+            name=name, n_workers=1)
+        self._agree = (_control_plane.RankAgreement(mesh)
+                       if self._control is not None and mesh is not None
+                       else None)
         self.device = (mesh.device if mesh is not None and device is None
                        else resolve_device(device))
         self._mesh = mesh
@@ -189,6 +202,27 @@ class QueryExecutor:
         if self._closed:
             raise RuntimeError(f"{self.name}: executor is closed")
         qname = getattr(plan, "__name__", "plan").lstrip("_")
+        if self._control is not None and self._deadline_ms is not None:
+            # predictive shedding: this executor's own execute window,
+            # before any admission cost; cold windows and faulted
+            # telemetry never shed
+            pred = None
+            if self._agree is None or self._agree.leader:
+                with self._lock:
+                    depth = self._depth
+                pred = self._control.shed_verdict(
+                    self.name, 0, self._deadline_ms / 1e3, depth, 1)
+            if self._agree is not None:
+                pred = self._agree.decide(pred)
+            if pred is not None:
+                count("serving.rejected")
+                count("serving.shed.predicted")
+                _slo.note(_slo.EVENT_SHED, self.name, 0)
+                raise queue.Full(
+                    f"{self.name}: {qname} shed — predicted "
+                    f"{pred / 1e6:.0f} ms exceeds the "
+                    f"{self._deadline_ms:.0f} ms deadline "
+                    f"(serving.shed.predicted)")
         deadline = (time.monotonic() + timeout
                     if block and timeout is not None else None)
         if not self._inflight.acquire(blocking=block,

@@ -1239,12 +1239,42 @@ def _graph_window(entry: dict, plan, padded: list, k: int, order,
         entry["bytes"] = (entry["static_bytes"] + g.pool_bytes
                           + sum(t.nbytes for t, _ in uploads.values()))
         info["provenance"] = _obs_report.PROVENANCE_COLD_COMPILE
+        _aot.note_capture(plan, entry["key_digest"], cap, k, entry["route"])
+        if getattr(_WARM, "want", None) is not None:
+            entry["warm_disk"] = True
     else:
         _fill_static(entry, padded, k)
-        info["provenance"] = _obs_report.PROVENANCE_WARM_MEMORY
+        info["provenance"] = (_obs_report.PROVENANCE_WARM_DISK
+                              if entry.pop("warm_disk", False)
+                              else _obs_report.PROVENANCE_WARM_MEMORY)
     with span("rel.fused_batch_program", capacity=cap, graph=True):
         g.replay()
     return g.outputs
+
+
+# the manifest key a warm_disk window must match (serving/aot_cache.py);
+# None outside one
+_WARM = threading.local()
+
+
+class _WarmMismatch(Exception):
+    """A warm_disk window whose rels do not give the manifest's key."""
+
+
+def warm_batch_entry(plan, rels_list, device, key_digest: str,
+                     graph: Optional[bool] = None) -> bool:
+    """Capture the batch-cache entry of ``plan`` over ``rels_list`` ahead
+    of its first window (``aot_cache.warm_disk``), iff they give the
+    manifest's ``key_digest``; the entry's next window reports provenance
+    ``warm_disk``. False when they do not, or the batch cannot form."""
+    _WARM.want = key_digest
+    try:
+        run_fused_batched(plan, rels_list, device=device, _graph=graph)
+        return True
+    except (_WarmMismatch, BatchIncompatible):
+        return False
+    finally:
+        _WARM.want = None
 
 
 def _release_entry(entry: dict) -> None:
@@ -1279,16 +1309,24 @@ def _run_batched_window(plan, rels_list, info: dict, order, fps,
     use_graph = dev.type == "cuda" if graph is None else bool(graph)
     # pad slots replicate slot 0's inputs; their outputs are never read
     padded = list(rels_list) + [rels_list[0]] * (cap - k)
-    key = (plan, tuple(order), fps, planner_env_key(), cap, rtag,
-           tuple(sorted(shared.items())), str(dev), use_graph,
-           _shared_storage(rels_list[0], shared) if use_graph else None)
+    content = (tuple(order), fps, planner_env_key(), cap, rtag,
+               tuple(sorted(shared.items())), str(dev), use_graph)
+    key = (plan,) + content + (
+        _shared_storage(rels_list[0], shared) if use_graph else None,)
     pname = getattr(plan, "__name__", "plan").lstrip("_")
+    # the key's content without the plan object or addresses: stable
+    # across processes, the disk tier's manifest key
+    kdigest = _aot.batch_key_digest((pname,) + content)
+    want = getattr(_WARM, "want", None)
+    if want is not None and want != kdigest:
+        raise _WarmMismatch(pname)
     with _PLAN_LOCK:
         entry = _BATCH_CACHE.get(key)
         info["cache_hit"] = entry is not None
         if entry is None:
             entry = {"query": pname, "capacity": cap, "route": rtag,
-                     "lock": threading.Lock(), "bytes": 0}
+                     "lock": threading.Lock(), "bytes": 0,
+                     "key_digest": kdigest}
             entry["release"] = (lambda e=entry: _release_entry(e))
             _BATCH_CACHE[key] = entry
     with entry["lock"]:
@@ -1381,7 +1419,12 @@ _ROUTE_KNOBS = ("SRT_JOIN_METHOD", "SRT_DENSE_GROUPBY", "SRT_STRING_ROUTE",
 
 
 def planner_env_key() -> tuple:
-    return tuple(env_str(k, "") for k in _ROUTE_KNOBS)
+    """The planner knobs' environment values and the tuned tier's part
+    (``tune.tuned_planner_key``: the winner table's digest and every
+    resolved tuned planner knob), so two tuning tables never share a
+    batch-cache entry or a result-cache token."""
+    from ..tune.space import tuned_planner_key
+    return tuple(env_str(k, "") for k in _ROUTE_KNOBS) + tuned_planner_key()
 
 
 # digests of the read-only dictionary arrays seen so far: id -> (weak

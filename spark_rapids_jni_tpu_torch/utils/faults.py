@@ -1,15 +1,10 @@
 """Deterministic fault injection: the chaos seams.
 
-Port of ``spark_rapids_jni_tpu/utils/faults.py``, pure Python. The port
-reaches three seams: ``dispatch`` and ``alloc`` once a query in
-``run_fused`` (in-core and mesh, after the result cache's consult and
-before any device work) and ``dispatch`` once a streamed morsel in the
-out-of-core pump (``exec/runner.py``), and ``disk`` in a Parquet
-table's row-group read (``exec/disk_table.py``). The fleet's seams keep
-their names for the fleet, which is not ported yet; the memory-pressure
-kinds raise this module's ``RetryOOM`` and ``SplitAndRetryOOM`` (the
-reference's come from its native bridge), which the serving layer's
-retry matrix classifies (``serving/reliability.py``).
+Port of ``spark_rapids_jni_tpu/utils/faults.py``, pure Python. The
+memory-pressure kinds raise this module's ``RetryOOM`` and
+``SplitAndRetryOOM`` (the reference's come from its native bridge),
+which the serving layer's retry matrix classifies
+(``serving/reliability.py``).
 
 **Spec grammar** (``SRT_FAULTS``, or :func:`configure`)::
 
@@ -25,9 +20,19 @@ Seams, where a fault fires (one ``maybe_inject`` call each):
 - ``alloc``: once a query before its run (``tpcds/rel.py``);
 - ``disk``: a Parquet row group's read (``exec/disk_table.py``
   ``_decode_group``), retried in place (``io.disk.retries``);
-- ``worker``, ``aot_load``, ``shuffle``, ``batch``, ``respawn``,
-  ``control``: the reference's fleet seams, reached by nothing here
-  yet.
+- ``batch``: once a batched window, before its batch-cache lookup
+  (``tpcds/rel.run_fused_batched``);
+- ``worker``: once a fleet worker's loop turn (``serving/scheduler.py``;
+  on a mesh before the slice's pick, so a crash holds no query), and
+  ``respawn`` before a crashed worker's replacement;
+- ``control``: every telemetry read of the control plane
+  (``serving/control_plane.ControlPlane._signal``); a fault latches
+  that loop to static policy;
+- ``aot_load``: the kernel library's header check before it is bound
+  (``ops/cuda_kernels.kernels``); a fault is a corrupt library, built
+  anew;
+- ``shuffle``: the reference's exchange seam, reached by nothing in the
+  port.
 
 Kinds, what fires: ``raise`` and ``corrupt`` raise
 :class:`InjectedFault` (transient), ``crash`` :class:`WorkerCrash`,

@@ -9,7 +9,8 @@ cases that need no mesh), on the CPU, with the reference's counters.
    per-tenant budgets released at collection and at GC; ``close()``
    under load resolves every handle; the result cache answers at submit
    with no dispatch (q1-q20); the default worker count and the probe
-   counter; ``mesh=`` and ``SRT_CONTROL_PLANE=1`` refused.
+   counter; ``mesh=`` and ``SRT_CONTROL_PLANE=1`` construct (their
+   cases are in ``test_torch_control_plane.py`` and below).
 2. **Batcher**: the route-counted per-query fallback, the compatibility
    key, the scheduler coalescing queued submissions into one window
    (fixed and adaptive windows), the arrival estimator, a burst of
@@ -20,13 +21,27 @@ cases that need no mesh), on the CPU, with the reference's counters.
    dequeue, the scratch-budget shrink and its holders, the batch
    split-on-OOM ladder, handle timeouts, and injected faults on the real
    run path (``batch:raise``, ``batch:split_oom``, ``worker:crash``).
+4. **Replica slices** (``mesh=``) over 2 gloo ranks (2 x 1) and 4 (2 x
+   2): every query's result equals the serial run on every rank; a query
+   whose first attempt fails on slice 0 moves to slice 1 on every rank;
+   the control plane's predicted shed (primed on the fleet leader only)
+   and its memory shrink (signalled to the slice leaders only) are
+   agreed by every rank. The reference serves its slices from threads
+   of one process (``test_scheduler_replica_slices_on_2d_mesh``,
+   ``test_requeued_query_follows_new_worker_slice``).
 
 Every wait has a timeout.
 """
 
 import gc
+import os
+import pickle
+import subprocess
+import sys
+import textwrap
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -395,12 +410,17 @@ def test_default_workers_and_probe_counter(monkeypatch):
     assert sched_mod.default_workers(torch.device("cuda")) == 4
 
 
-def test_mesh_and_control_plane_refused(monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 13"):
+def test_mesh_and_control_plane_construct(monkeypatch):
+    # the switch builds a control plane, and mesh= refuses only what is
+    # not a mesh
+    with pytest.raises(AttributeError):
         _sched(mesh=object())
     monkeypatch.setenv("SRT_CONTROL_PLANE", "1")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        _sched()
+    s = _sched()
+    try:
+        assert s._control is not None and s._target_workers == 1
+    finally:
+        s.close()
 
 
 def test_health_source_follows_the_workers():
@@ -1237,3 +1257,290 @@ def test_stress_many_workers_short_switch_interval(rels):
             + st.get("serving.tenant.b.completed", 0)) == 72
     assert st.get("serving.batch.queries", 0) <= 72
 
+
+
+# --------------------------------------------------------------------------
+# 4. replica slices over gloo ranks
+# --------------------------------------------------------------------------
+
+ROOT = Path(__file__).resolve().parents[1]
+MESH_QS = ["q3", "q1", "q6", "q7", "q11", "q16"]
+
+SLICE_WORKER = textwrap.dedent("""
+    import os, pickle, sys
+    sys.path.insert(0, sys.argv[1])
+    import torch
+    torch.set_num_threads(1)
+    from spark_rapids_jni_tpu_torch import obs
+    from spark_rapids_jni_tpu_torch.obs import slo
+    from spark_rapids_jni_tpu_torch.parallel import (comm_plan, distributed,
+                                                     make_mesh_2d)
+    from spark_rapids_jni_tpu_torch.serving import (FleetScheduler,
+                                                    QueryShed, TenantConfig)
+    from spark_rapids_jni_tpu_torch.tpcds import PLANS, generate
+    from spark_rapids_jni_tpu_torch.tpcds.rel import rel_from_df, run_fused
+    from spark_rapids_jni_tpu_torch.utils import faults
+
+    rank, world, init, out, n_part = (int(sys.argv[2]), int(sys.argv[3]),
+                                      sys.argv[4], sys.argv[5],
+                                      int(sys.argv[6]))
+    qs = sys.argv[7].split(",")
+    distributed.initialize(init, world, rank, backend="gloo", timeout_s=60)
+    mesh = make_mesh_2d(n_part=n_part, n_replica=world // n_part,
+                        device_type="cpu")
+    data = generate(sf=0.3, seed=11)
+    rels = {n: rel_from_df(df, device="cpu") for n, df in data.items()}
+    serial = {q: run_fused(PLANS[q], rels, device="cpu").to_df() for q in qs}
+    slice0 = set(range(n_part))  # replica 0 holds ranks 0 .. n_part - 1
+    ran = []
+
+    def seam(plan, rels_, mesh=None, axis=None):
+        q = plan.__name__.lstrip("_")
+        ran.append((q, sorted(int(r) for r in mesh.ranks.reshape(-1))))
+        if q == "q3" and rank in slice0 and ran.count(ran[-1]) == 1:
+            raise faults.InjectedFault("dispatch", "raise")
+        return run_fused(plan, rels_, mesh=mesh, axis=axis,
+                         skip_result_cache=True)
+
+    # the fleet leader alone holds execute samples: a decision from any
+    # other rank's (cold) window would admit
+    if rank == 0:
+        for _ in range(20):
+            slo.TRACKER.record(slo.KIND_EXECUTE, "gold", 5, 10 ** 10)
+    # the slice leaders alone see memory pressure
+    mem = (faults.FakeDeviceMemory(limit_bytes=100).install()
+           if rank % n_part == 0 else None)
+    if mem is not None:
+        mem.set_used_fraction(0.95)
+    before = obs.kernel_stats()
+    res = {}
+    sched = FleetScheduler(
+        tenants=[TenantConfig("gold", priority=5),
+                 TenantConfig("bronze", priority=0)],
+        mesh=mesh, retry_backoff_ms=1, name=f"fleet{rank}", _run=seam)
+    try:
+        assert sched._fleet.my_slice == rank // n_part
+        try:
+            sched.submit(PLANS["q1"], rels, tenant="gold", deadline_ms=100)
+            res["gold_shed"] = None
+        except QueryShed as e:
+            res["gold_shed"] = e.reason
+        pend = [sched.submit(PLANS[q], rels, tenant="bronze") for q in qs]
+        res["frames"] = {q: p.to_df(timeout=120) for q, p in zip(qs, pend)}
+        res["kinds"] = {q: type(p.result()).__name__
+                        for q, p in zip(qs, pend)}
+        res["budget"] = comm_plan.scratch_budget()
+    finally:
+        sched.close()
+    res["budget_after"] = comm_plan.scratch_budget()
+    stats = obs.stats_since(before)
+    res["stats"] = {k: v for k, v in stats.items()
+                    if k.startswith(("serving.", "tune."))}
+    res["serial"] = serial
+    res["ran"] = ran
+    with open(os.path.join(out, f"r{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+    distributed.shutdown()
+""")
+
+
+IDLE_FAIL_WORKER = textwrap.dedent("""
+    import os, pickle, sys, time
+    sys.path.insert(0, sys.argv[1])
+    import torch
+    torch.set_num_threads(1)
+    from spark_rapids_jni_tpu_torch import obs
+    from spark_rapids_jni_tpu_torch.parallel import distributed, make_mesh_2d
+    from spark_rapids_jni_tpu_torch.serving import FleetScheduler, TenantConfig
+    from spark_rapids_jni_tpu_torch.serving.control_plane import RankAgreement
+    from spark_rapids_jni_tpu_torch.tpcds import PLANS, generate
+    from spark_rapids_jni_tpu_torch.tpcds.rel import rel_from_df, run_fused
+
+    rank, world, init, out, n_part = (int(sys.argv[2]), int(sys.argv[3]),
+                                      sys.argv[4], sys.argv[5],
+                                      int(sys.argv[6]))
+    qs, mode = sys.argv[7].split(","), sys.argv[8]
+    data = generate(sf=0.3, seed=11)
+    rels = {n: rel_from_df(df, device="cpu") for n, df in data.items()}
+    serial = {q: run_fused(PLANS[q], rels, device="cpu").to_df() for q in qs}
+    # start together: the groups' short timeout must not meet start-up skew
+    open(os.path.join(out, f"ready{rank}"), "w").close()
+    while not all(os.path.exists(os.path.join(out, f"ready{r}"))
+                  for r in range(world)):
+        time.sleep(0.01)
+    distributed.initialize(init, world, rank, backend="gloo",
+                           timeout_s=3 if mode == "idle" else 60)
+    mesh = make_mesh_2d(n_part=n_part, n_replica=world // n_part,
+                        device_type="cpu")
+    ran = []
+
+    def seam(plan, rels_, mesh=None, axis=None):
+        ran.append(plan.__name__.lstrip("_"))
+        return run_fused(plan, rels_, mesh=mesh, axis=axis,
+                         skip_result_cache=True)
+
+    if mode == "fail" and rank < n_part:
+        # slice 0's agreement raises once its first pick is agreed, on
+        # the leader (which holds the pick) and the follower alike; set
+        # before the workers start (a pick is (seq, expired, action),
+        # an admission verdict starts with its kind)
+        agree = RankAgreement.decide
+
+        def decide(self, verdict):
+            got = agree(self, verdict)
+            if got is not None and isinstance(got[0], int):
+                raise RuntimeError("injected: slice agreement failed")
+            return got
+
+        RankAgreement.decide = decide
+    before = obs.kernel_stats()
+    res = {"frames": {}}
+    sched = FleetScheduler(tenants=[TenantConfig("bronze")], mesh=mesh,
+                           retry_backoff_ms=1, name=f"fleet{rank}",
+                           _run=seam)
+    res["idle_s"] = sched._fleet.idle_s
+    try:
+        bursts = [qs[:1], qs[1:]] if mode == "idle" else [qs]
+        for i, burst in enumerate(bursts):
+            if i:
+                time.sleep(8)  # idle well past the groups' timeout
+            pend = [sched.submit(PLANS[q], rels, tenant="bronze")
+                    for q in burst]
+            for q, p in zip(burst, pend):
+                res["frames"][q] = p.to_df(timeout=120)
+    finally:
+        sched.close()
+    stats = obs.stats_since(before)
+    res["stats"] = {k: v for k, v in stats.items()
+                    if k.startswith("serving.")}
+    res["serial"] = serial
+    res["ran"] = ran
+    with open(os.path.join(out, f"r{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+    distributed.shutdown()
+""")
+
+
+def _run_ranks(tmp_path, world, n_part, limit_s, worker=SLICE_WORKER,
+               extra=()):
+    script = tmp_path / "worker.py"
+    script.write_text(worker)
+    env = dict(os.environ, SRT_BROADCAST_THRESHOLD="8192",
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               GLOO_SOCKET_IFNAME="lo", SRT_CONTROL_PLANE="1",
+               SRT_SHUFFLE_SCRATCH_BYTES="1048576",
+               SRT_CONTROL_MEM_INTERVAL_S="0")
+    for k in ("SRT_FAULTS", "SRT_METRICS", "SRT_BATCH_MAX",
+              "SRT_RESULT_CACHE_BYTES"):
+        env.pop(k, None)
+    procs = []
+    for rank in range(world):
+        log = open(tmp_path / f"rank{rank}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, str(script), str(ROOT), str(rank), str(world),
+             f"file://{tmp_path / 'init'}", str(tmp_path), str(n_part),
+             ",".join(MESH_QS), *extra], cwd=ROOT, env=env, stdout=log,
+            stderr=subprocess.STDOUT), log))
+    deadline = time.monotonic() + limit_s
+    rcs = []
+    try:
+        for p, _ in procs:
+            try:
+                rcs.append(p.wait(timeout=max(1.0,
+                                              deadline - time.monotonic())))
+            except subprocess.TimeoutExpired:
+                rcs.append("timeout")
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+            log.close()
+    logs = "\n".join((tmp_path / f"rank{r}.log").read_text()[-3000:]
+                     for r in range(world))
+    assert rcs == [0] * world, logs
+    return [pickle.loads((tmp_path / f"r{r}.pkl").read_bytes())
+            for r in range(world)]
+
+
+@pytest.mark.parametrize("world,n_part", [(2, 1), (4, 2)],
+                         ids=["2x1", "2x2"])
+def test_replica_slices_over_gloo_ranks(tmp_path, world, n_part):
+    limit = 240 if world == 2 else 360
+    res = _run_ranks(tmp_path, world, n_part, limit)
+    slice_of = {r: r // n_part for r in range(world)}
+    for r, got in enumerate(res):
+        # every rank gets every result, equal to the serial run
+        assert set(got["frames"]) == set(MESH_QS)
+        for q in MESH_QS:
+            _frames_equal(got["frames"][q], got["serial"][q], f"{q}@{r}")
+        # the predicted shed is the fleet leader's, on every rank
+        assert got["gold_shed"] is not None, r
+        assert "serving.shed.predicted" in got["gold_shed"]
+        assert got["stats"].get("serving.shed.predicted") == 1, r
+        # q3's first attempt fails on slice 0 and moves to slice 1
+        assert got["stats"].get("serving.fault.retries") == 1, r
+        assert got["stats"].get("serving.completed") == len(MESH_QS), r
+        ranks_q3 = [rk for q, rk in got["ran"] if q == "q3"]
+        if slice_of[r] == 0:
+            assert ranks_q3 == [list(range(n_part))], ranks_q3
+        else:
+            assert ranks_q3 == [list(range(n_part, 2 * n_part))], ranks_q3
+        # a result served by the other slice arrives as its frame
+        served_here = {q for q, _ in got["ran"]}
+        for q in MESH_QS:
+            want = ("Rel" if q in served_here and not (
+                q == "q3" and slice_of[r] == 0) else "DeliveredResult")
+            assert got["kinds"][q] == want, (q, r, got["kinds"])
+        # the memory verdict is the slice leader's: followers shrink too,
+        # and closing releases the scheduler's hold
+        assert got["budget"] is not None and got["budget"] < 1048576, r
+        assert got["stats"].get("serving.control.mem.scratch_shrunk"), r
+        assert got["budget_after"] == 1048576, r
+    for sl in range(2):
+        assert len({res[r]["budget"] for r in range(world)
+                    if slice_of[r] == sl}) == 1
+    # each query ran on exactly one slice (two for the retried q3)
+    runs = {q: sum(1 for g in res for qq, _ in g["ran"] if qq == q)
+            for q in MESH_QS}
+    assert runs["q3"] == 2 * n_part
+    assert all(n == n_part for q, n in runs.items() if q != "q3")
+
+
+def test_replica_slices_idle_past_the_group_timeout(tmp_path):
+    """Four ranks (2 x 2) whose groups time out after 3 s idle 8 s
+    between two bursts: the leaders' no-op heartbeats keep every
+    follower and delivery thread out of a collective that would time
+    out, and the second burst is served."""
+    res = _run_ranks(tmp_path, 4, 2, 360, IDLE_FAIL_WORKER, ("idle",))
+    for r, got in enumerate(res):
+        assert got["idle_s"] == 0.75, r
+        assert set(got["frames"]) == set(MESH_QS), r
+        for q in MESH_QS:
+            _frames_equal(got["frames"][q], got["serial"][q], f"{q}@{r}")
+        assert got["stats"].get("serving.completed") == len(MESH_QS), r
+        assert not got["stats"].get("serving.fault.slice_failed"), r
+        assert not got["stats"].get("serving.fault.delivery_failed"), r
+
+
+def test_replica_slice_failure_after_the_pick_moves_on(tmp_path):
+    """Slice 0's agreement raises after its first pick on both of its
+    ranks: the picked query records a ``SliceFailed`` outcome instead
+    of being lost, delivery agrees it and retries it on slice 1, and
+    every later query placed on slice 0 moves on too, so every rank
+    gets every result, served by slice 1 alone."""
+    res = _run_ranks(tmp_path, 4, 2, 360, IDLE_FAIL_WORKER, ("fail",))
+    for r, got in enumerate(res):
+        assert set(got["frames"]) == set(MESH_QS), r
+        for q in MESH_QS:
+            _frames_equal(got["frames"][q], got["serial"][q], f"{q}@{r}")
+        st = got["stats"]
+        assert st.get("serving.completed") == len(MESH_QS), r
+        # the queries admitted to slice 0 (every other one) each retried
+        assert st.get("serving.fault.retries") == len(MESH_QS) // 2, r
+        if r < 2:
+            assert st.get("serving.fault.slice_failed") == 1, r
+            assert got["ran"] == [], r
+        else:
+            assert not st.get("serving.fault.slice_failed"), r
+            assert sorted(got["ran"]) == sorted(MESH_QS), r

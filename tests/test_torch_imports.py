@@ -65,7 +65,10 @@ def test_sources_exist():
                 "serving/executor.py", "serving/reliability.py",
                 "serving/result_cache.py", "serving/aot_cache.py",
                 "serving/batcher.py", "serving/scheduler.py",
-                "utils/batching.py", "utils/plan_cache.py"):
+                "utils/batching.py", "utils/plan_cache.py",
+                "obs/history.py", "obs/rollup.py",
+                "serving/control_plane.py", "tune/__init__.py",
+                "tune/space.py", "tune/store.py", "tune/runner.py"):
         assert rel in names
     for src in ("hash_join_probe.cu", "ragged_groupby.cu",
                 "bitmask_pack.cu", "murmur3.cu", "pack_rows.cu"):

@@ -14,8 +14,8 @@ undigested inputs are uncacheable.
   is on: page-rounded charging, the pool's lease, released when an
   entry is evicted; a refused lease still caches the result, counted;
 - ``result_cache()`` re-reads ``SRT_RESULT_CACHE_BYTES`` each call;
-- the executor in front of the cache refuses ``SRT_CONTROL_PLANE=1``
-  (the control plane is not ported) instead of ignoring it.
+- the executor in front of the cache builds a control plane under
+  ``SRT_CONTROL_PLANE=1`` and none without it.
 """
 
 import numpy as np
@@ -338,9 +338,15 @@ def test_reference_tiers_share_the_accounting(monkeypatch):
     assert result_cache.rel_nbytes(mine) == ref_rc.rel_nbytes(ref)
 
 
-def test_executor_refuses_the_control_plane_switch(monkeypatch):
+def test_executor_builds_the_control_plane(monkeypatch):
+    # the switch builds a control plane, off builds none
     monkeypatch.setenv("SRT_CONTROL_PLANE", "1")
-    with pytest.raises(NotImplementedError, match="control plane"):
-        QueryExecutor(device=CPU)
+    ex = QueryExecutor(device=CPU)
+    try:
+        assert ex._control is not None
+    finally:
+        ex.close(timeout=60)
     monkeypatch.setenv("SRT_CONTROL_PLANE", "0")
-    QueryExecutor(device=CPU).close(timeout=60)
+    ex = QueryExecutor(device=CPU)
+    assert ex._control is None
+    ex.close(timeout=60)
