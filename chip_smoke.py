@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (spark_rapids_jni_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--out DIR] [--profile] [--queries-only]
+                          [--native-only]
 
 In order, it:
 
@@ -355,13 +356,40 @@ In order, it:
    of row bytes both ways, and each conversion's wall time beside the
    device time of its K6 (to rows) or K3 (from rows) calls (the rest is
    host work, other kernels and idle card);
-13. prints the ``kernels`` JSON line (K1-K6, each with its launches on
+13. the native bridge (``native.py`` and its library; ``--native-only``
+    runs this step alone): the library builds with ``nvcc`` (every source
+    at once) on a thread beside steps 1-3, which then runs a CPU child
+    (``--native-child``) that binds it with no engine
+    (``native.load(device="cpu")``) and computes the host route of every
+    entry point on seeded tables: 10M rows of int32, int64, timestamp,
+    decimal64, float32 and float64 (floats with +-0.0, +-inf and NaN
+    payloads) for the hashes, the ``TestTables`` schema x 4 at 1M and 12M
+    rows with no validity (12M crosses the host route's 2 GB batch
+    split), a 10M-row sort on an int32 key descending and an int64 key,
+    a 10M-left x 1M-unique-right int64 join (80% hits), and 10M-row
+    groupbys with 6,324 groups (two keys) and 1M groups, four value
+    columns each. Here, with the engine started on the card and the
+    launch counts set to 0 just before and read just after, every route
+    runs once both ways, as host tables and as resident handles
+    (``DeviceTable``/``DeviceBuffer``, ``then`` and ``from_rows`` on
+    resident buffers): each must read sentinel 1 and equal the child's
+    result (hashes, permutations, pairs, group reps, sizes and integral
+    aggregates exactly, row bytes and decoded columns by sha256, float
+    aggregates within rtol=1e-9), and the engine must have launched K4
+    5 times, K5 8 times and K6 5 times. It prints each route's ms both
+    ways (host clock, each call draining the engine's stream; median of
+    10, of 3 for the 12M-row host-table row routes), rows/s, the byte
+    bound and the child's host-route ms (one run), requires every native
+    and engine handle freed, and holds the engine's K4/K5/K6 launches,
+    as wrapper calls on the same inputs, against their plain versions;
+14. prints the ``kernels`` JSON line (K1-K6, each with its launches on
     its paths: K1-K3 on q1-q10, q11-q20, the served path, the batched
     path, the morsel step, the fleet-control step (K5 too) and the tuned
     q3, the kernels launched serving over the mesh, K3 also on the
     roster, the strings step, roster II and, in its table form, on the
-    row conversions and nested rows, and K1-K6 on the mesh), the card
-    again, and as the last line ``{"ok": true, "device": {...}}``.
+    row conversions and nested rows, K1-K6 on the mesh, and K4-K6 on the
+    native path), the card again, and as
+    the last line ``{"ok": true, "device": {...}}``.
 
 Every kernel time is device time from CUDA events, the median of 10 runs
 after two warm-ups, with the queue held by a device-side sleep so that
@@ -405,16 +433,19 @@ their query times without the rest of the smoke around them.
 from __future__ import annotations
 
 import argparse
+import atexit
 import collections
 import contextlib
 import datetime as pydt
 import decimal
+import hashlib
 import inspect
 import json
 import math
 import os
 import queue
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -423,6 +454,7 @@ import time
 import urllib.error
 import urllib.request
 import warnings
+from pathlib import Path
 from zoneinfo import ZoneInfo
 
 import numpy as np
@@ -531,14 +563,17 @@ KERNELS = (("hash_join_probe", (("q1-q10", "hash_join_probe"),
                              ("tune", "bitmask_pack"))),
            ("murmur3_int32", (("hashing", "murmur3_int32"),
                               ("mesh", "murmur3_int32"),
-                              ("serving mesh", "murmur3_int32"))),
+                              ("serving mesh", "murmur3_int32"),
+                              ("native", "murmur3_int32"))),
            ("murmur3_int64", (("hashing", "murmur3_int64"),
                               ("mesh", "murmur3_int64"),
                               ("serving mesh", "murmur3_int64"),
-                              ("fleet control", "murmur3_int64"))),
+                              ("fleet control", "murmur3_int64"),
+                              ("native", "murmur3_int64"))),
            ("pack_rows", (("row conversion", "pack_rows"),
                           ("mesh", "pack_rows"),
-                          ("serving mesh", "pack_rows"))))
+                          ("serving mesh", "pack_rows"),
+                          ("native", "pack_rows"))))
 HASH_ROWS, HASH_CPU_ROWS = 10_000_000, 1_000_000
 # the wrappers as the port defines them (the recording pass swaps the
 # module's names for recorders that call these)
@@ -5197,6 +5232,535 @@ def run_morsel_mesh(dev, host: dict, oracles: dict, log) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# The native bridge: native.py's library, its CUDA engine and the seven
+# device routes, against the host route of the same C ABI in a CPU child
+# --------------------------------------------------------------------------
+
+NATIVE_ROWS = 10_000_000        # the hash, sort, join-left, groupby tables
+NATIVE_RIGHT = 1_000_000        # the join's unique right keys
+NATIVE_ROW_TABLES = (1_000_000, 12_000_000)  # TestTables x 4, no validity
+NATIVE_GROUPS = ((62, 102), (1_000_000,))    # 6,324 groups (two keys), 1M
+NATIVE_SEED = 14
+NATIVE_DIR = Path(__file__).resolve().parent / "target" / "native_smoke"
+NATIVE_NAMES = HASH_NAMES + ("pack_rows",)
+# the engine's K4/K5/K6 launches in one pass of every route both ways:
+# murmur3 of the hash table's two 4-byte and four 8-byte columns twice,
+# the chained murmur3 of a hash (K4), to_rows of 1M rows (one batch) and
+# 12M rows (two batches as host tables, one launch resident)
+NATIVE_LAUNCHES = {"murmur3_int32": 5, "murmur3_int64": 8, "pack_rows": 5}
+
+
+def _specials(x: np.ndarray, bits, every: int) -> np.ndarray:
+    ints = x.view(np.int64 if x.dtype == np.float64 else np.int32)
+    at = np.arange(0, x.size, every)
+    ints[at] = np.resize(np.array(bits, ints.dtype), at.size)
+    return x
+
+
+def native_tables(seed: int = NATIVE_SEED) -> dict:
+    """The native step's seeded host tables, (DType, numpy values) a
+    column, none with validity (the device routes' contract)."""
+    rng = np.random.default_rng(seed)
+    n = NATIVE_ROWS
+
+    def full(dtype, m):
+        info = np.iinfo(dtype)
+        return rng.integers(info.min, info.max, m, dtype=dtype,
+                            endpoint=True)
+
+    def f64(m):
+        return _specials(rng.standard_normal(m) * 1e6, F64_SPECIALS, 97)
+
+    def f32(m):
+        return _specials((rng.standard_normal(m) * 1e3).astype(np.float32),
+                         F32_SPECIALS, 89)
+
+    def row_data(dt, m):
+        if dt.id == T.TypeId.FLOAT64:
+            return f64(m)
+        if dt.id == T.TypeId.FLOAT32:
+            return f32(m)
+        if dt.id == T.TypeId.BOOL8:
+            return rng.integers(0, 2, m, dtype=np.int8)
+        return full(dt.storage_dtype, m)
+
+    tabs = {"hash": [(T.INT32, full(np.int32, n)), (T.INT64, full(np.int64, n)),
+                     (T.TIMESTAMP_MICROSECONDS,
+                      rng.integers(-2**60, 2**60, n)),
+                     (T.decimal64(-2), rng.integers(-10**15, 10**15, n)),
+                     (T.FLOAT32, f32(n)), (T.FLOAT64, f64(n))]}
+    for m in NATIVE_ROW_TABLES:
+        tabs[f"rows {m}"] = [(dt, row_data(dt, m)) for dt in ROW_TYPES * 4]
+    tabs["sort"] = [(T.INT32, rng.integers(0, 1000, n, dtype=np.int32)),
+                    (T.INT64, full(np.int64, n))]
+    right = (rng.permutation(8 * NATIVE_RIGHT)[:NATIVE_RIGHT].astype(np.int64)
+             * 7919 - 2**40)
+    tabs["join right"] = [(T.INT64, right)]
+    tabs["join left"] = [(T.INT64, np.where(
+        rng.random(n) < 0.8, right[rng.integers(0, NATIVE_RIGHT, n)],
+        rng.integers(-2**62, 2**62, n)))]
+    for dims in NATIVE_GROUPS:
+        g = math.prod(dims)
+        idx = rng.integers(0, g, n)
+        idx[:g] = rng.permutation(g)  # every group present
+        if len(dims) == 2:
+            keys = [(T.INT32, (idx // dims[1]).astype(np.int32)),
+                    (T.INT64, idx % dims[1] * 1_000_003 - 500)]
+        else:
+            keys = [(T.INT64, idx * 2_654_435_761 - 2**50)]
+        tabs[f"groupby {g} keys"] = keys
+        tabs[f"groupby {g} values"] = [
+            (T.INT64, rng.integers(-2**62, 2**62, n)),
+            (T.FLOAT64, rng.standard_normal(n)),
+            (T.INT32, full(np.int32, n)),
+            (T.FLOAT32, rng.standard_normal(n).astype(np.float32))]
+    return tabs
+
+
+def _native_table(nat, cols):
+    return nat.NativeTable([(dt, v, None) for dt, v in cols])
+
+
+class _Digest:
+    """Streaming sha256 of a route's output, one a part (column)."""
+
+    def __init__(self):
+        self.h = collections.defaultdict(hashlib.sha256)
+
+    def add(self, key: str, arr: np.ndarray) -> None:
+        self.h[key].update(np.ascontiguousarray(arr).view(np.uint8).data)
+
+    def hex(self) -> dict:
+        return {k: v.hexdigest() for k, v in sorted(self.h.items())}
+
+
+def _decoded(d: _Digest, cols) -> None:
+    """A from_rows result ((values, valid bool) a column) into ``d``."""
+    for c, (vals, ok) in enumerate(cols):
+        d.add(f"{c} data", vals)
+        d.add(f"{c} valid", np.packbits(ok, bitorder="little"))
+
+
+def native_child(out_dir: str) -> int:
+    """``--native-child``: the host route of every native entry point on
+    the native step's tables, in a process whose library has no engine
+    (``native.load(device="cpu")``): results under ``out_dir``, digests
+    and the host route's ms (one run each) as the last stdout line."""
+    from spark_rapids_jni_tpu_torch import native as nat
+    nat.load(device="cpu")
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    tabs = native_tables()
+    times, digests = {}, {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        r = fn()
+        times[name] = (time.perf_counter() - t0) * 1e3
+        _require(nat.kernel_was_device(name.split()[0]) == 0,
+                 f"{name} left the host route in the CPU child")
+        return r
+
+    with _native_table(nat, tabs["hash"]) as t:
+        m3 = timed("murmur3", lambda: nat.murmur3_table(t))
+        xx = timed("xxhash64", lambda: nat.xxhash64_table(t))
+    with _native_table(nat, [(T.INT32, m3)]) as t:
+        np.save(out / "murmur3_then.npy", nat.murmur3_table(t))
+    with _native_table(nat, [(T.INT64, xx)]) as t:
+        np.save(out / "xxhash64_then.npy", nat.xxhash64_table(t))
+    np.save(out / "murmur3.npy", m3)
+    np.save(out / "xxhash64.npy", xx)
+    for m in NATIVE_ROW_TABLES:
+        cols = tabs[f"rows {m}"]
+        with _native_table(nat, cols) as t:
+            batches = timed(f"to_rows {m}", lambda: nat.convert_to_rows(t))
+        rows, dec = _Digest(), _Digest()
+        for i, b in enumerate(batches):
+            rows.add(f"batch {i}", b)
+            rows.add("all", b)
+        t0 = time.perf_counter()
+        for b in batches:
+            _decoded(dec, nat.convert_from_rows(b, [dt for dt, _ in cols]))
+        times[f"from_rows {m}"] = (time.perf_counter() - t0) * 1e3
+        _require(nat.kernel_was_device("from_rows") == 0, "from_rows host")
+        digests[f"to_rows {m}"] = rows.hex() | {
+            "batches": [int(b.shape[0]) for b in batches]}
+        digests[f"from_rows {m}"] = dec.hex()
+        del batches
+    with _native_table(nat, tabs["sort"]) as t:
+        np.save(out / "sort.npy", timed(
+            "sort_order", lambda: nat.sort_order(t, [True, False])))
+    with _native_table(nat, tabs["join left"]) as lt, \
+            _native_table(nat, tabs["join right"]) as rt:
+        li, ri = timed("inner_join", lambda: nat.inner_join(lt, rt))
+    np.save(out / "join_left.npy", li)
+    np.save(out / "join_right.npy", ri)
+    for dims in NATIVE_GROUPS:
+        g = math.prod(dims)
+        with _native_table(nat, tabs[f"groupby {g} keys"]) as kt, \
+                _native_table(nat, tabs[f"groupby {g} values"]) as vt:
+            res = timed(f"groupby {g}", lambda: nat.groupby_sum_count(kt, vt))
+        np.savez(out / f"groupby_{g}.npz", **_flat_groupby(res))
+    _require(nat.live_handles() == 0, "the CPU child leaked native handles")
+    print(json.dumps({"host_ms": times, "digests": digests}), flush=True)
+    return 0
+
+
+def _flat_groupby(res: dict) -> dict:
+    out = {"rep_rows": res["rep_rows"], "sizes": res["sizes"]}
+    for k in ("sums", "mins", "maxs", "means", "counts"):
+        for i, a in enumerate(res[k]):
+            out[f"{k} {i}"] = a
+    return out
+
+
+class NativePrep(threading.Thread):
+    """Builds the native library (``nvcc``, every source at once) and then
+    runs the CPU child, beside the rest of the smoke."""
+
+    def __init__(self):
+        super().__init__(daemon=True)
+        self.build_s = None
+        self.child = None
+        self.error = None
+        self.proc = None
+        self.stopped = False
+
+    def run(self):
+        try:
+            from spark_rapids_jni_tpu_torch import native as nat
+            t0 = time.perf_counter()
+            nat.build()
+            self.build_s = time.perf_counter() - t0
+            shutil.rmtree(NATIVE_DIR, ignore_errors=True)
+            t0 = time.perf_counter()
+            if self.stopped:
+                return
+            self.proc = subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--native-child", str(NATIVE_DIR)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            out, err = self.proc.communicate(timeout=900)
+            if self.proc.returncode != 0:
+                raise RuntimeError(f"native child failed: {err[-4000:]}")
+            self.child = json.loads(out.strip().splitlines()[-1])
+            self.child["seconds"] = time.perf_counter() - t0
+        except Exception as e:  # reported by the step, which fails
+            self.error = e
+
+    def stop(self):
+        """Ends the child if it still runs (at the smoke's exit)."""
+        self.stopped = True
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+
+
+def _route_bytes(tabs: dict) -> dict:
+    """Bytes each route must move in device memory: inputs read once,
+    outputs written once."""
+    def data(name):
+        return sum(v.nbytes for _, v in tabs[name])
+    n, out = NATIVE_ROWS, {}
+    out["murmur3"] = data("hash") + 4 * n
+    out["xxhash64"] = data("hash") + 8 * n
+    for m in NATIVE_ROW_TABLES:
+        spr = K.pack_plan(tuple(dt.size_bytes for dt, _ in
+                                tabs[f"rows {m}"])).size_per_row
+        cols = len(tabs[f"rows {m}"])
+        out[f"to_rows {m}"] = data(f"rows {m}") + spr * m
+        out[f"from_rows {m}"] = (spr * m + data(f"rows {m}")
+                                 + 4 * cols * ((m + 31) // 32))
+    out["sort_order"] = data("sort") + 4 * n
+    for dims in NATIVE_GROUPS:
+        g = math.prod(dims)
+        # outputs: rep row, size, and sum, min, max, mean a value column
+        out[f"groupby {g}"] = (data(f"groupby {g} keys")
+                               + data(f"groupby {g} values")
+                               + g * (12 + 32 * len(tabs[f"groupby {g} "
+                                                         "values"])))
+    return out
+
+
+def _native_timed(fn, reps: int) -> float:
+    """Median host ms of ``fn()`` (each native call drains the engine's
+    stream before it returns), its results released after each run."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+        for x in (r if isinstance(r, (list, tuple)) else (r,)):
+            if hasattr(x, "free"):
+                x.free()
+        del r
+    return statistics.median(times)
+
+
+def _same_groupby(got: dict, want, what: str) -> None:
+    for k in ("rep_rows", "sizes"):
+        _require(np.array_equal(got[k], want[k]), f"{what}: {k} differ")
+    for k in ("sums", "mins", "maxs", "means", "counts"):
+        for i, a in enumerate(got[k]):
+            w = want[f"{k} {i}"]
+            ok = (np.allclose(a, w, rtol=1e-9, atol=0, equal_nan=True)
+                  if a.dtype == np.float64 else np.array_equal(a, w))
+            _require(ok and a.dtype == w.dtype, f"{what}: {k} {i} differ")
+
+
+def native_kernel_calls(dev, tabs: dict, m3: np.ndarray) -> list:
+    """The engine's K4/K5/K6 launches of one pass as wrapper calls on the
+    card, on the same inputs: the murmur3 chain of the hash table (floats
+    normalised as the engine does; its end must equal the engine's
+    hash), the chained hash of a hash, K6 over each row table and batch."""
+    calls = []
+    n = NATIVE_ROWS
+    seeds = torch.full((n,), 42, dtype=torch.int32, device=dev)
+    chain = []
+    for dt, v in tabs["hash"]:
+        t = torch.from_numpy(v).to(dev)
+        if dt.id == T.TypeId.FLOAT32:
+            bits = t.view(torch.int32)
+            t = torch.where(t.isnan(), 0x7FC00000, torch.where(t == 0, 0,
+                                                               bits))
+        elif dt.id == T.TypeId.FLOAT64:
+            bits = t.view(torch.int64)
+            t = torch.where(t.isnan(), 0x7FF8000000000000,
+                            torch.where(t == 0, 0, bits))
+        name = "murmur3_int32" if t.element_size() == 4 else "murmur3_int64"
+        chain.append((name, (t, seeds)))
+        seeds = getattr(K, name)(t, seeds)
+    _require(np.array_equal(seeds.cpu().numpy(), m3),
+             "the wrappers' K4/K5 chain differs from the engine's murmur3")
+    calls += [("native", nm, a) for nm, a in chain] * 2  # both ways
+    calls.append(("native", "murmur3_int32", (
+        seeds, torch.full((n,), 42, dtype=torch.int32, device=dev))))
+    per_batch = rc.max_rows_per_batch(200)
+    for m in NATIVE_ROW_TABLES:
+        cols = [torch.from_numpy(v).to(dev) for _, v in tabs[f"rows {m}"]]
+        widths = [c.element_size() for c in cols]
+        none = [None] * len(cols)
+        for a in range(0, m, per_batch):  # host tables: the host's batches
+            calls.append(("native", "pack_rows", (
+                [c[a:a + per_batch] for c in cols], widths, none)))
+        calls.append(("native", "pack_rows", (cols, widths, none)))
+    return calls
+
+
+def run_native(dev, prep: NativePrep, log, card: str, out_dir=None):
+    """The native step: every route both ways with sentinel 1, equal to
+    the CPU child's host route; K4/K5/K6 launches counted from the
+    engine; ms per route; live handles back to 0."""
+    from spark_rapids_jni_tpu_torch import native as nat
+    t_step = time.perf_counter()
+    prep.join()
+    if prep.error is not None:
+        raise prep.error
+    log(f"native library built: {nat.library_path()} build_s="
+        f"{prep.build_s:.3f} (nvcc, every source at once, beside steps "
+        f"1-3); CPU child (host routes) {prep.child['seconds']:.1f} s "
+        f"[{card}]")
+    if out_dir:
+        shutil.copyfile(nat.library_path().with_suffix(".log"),
+                        os.path.join(out_dir, "chip_smoke_native_build.log"))
+    torch.cuda.empty_cache()  # the engine allocates outside torch's cache
+    nat.load()
+    _require(nat.cuda_available(), "the CUDA engine did not start")
+    log(f"native engine: {nat.cuda_platform_name()}, "
+        f"{nat.cuda_device_count()} device(s)")
+    tabs = native_tables()
+    want = prep.child
+    d = NATIVE_DIR
+    n = NATIVE_ROWS
+    sentinels = {}
+
+    def check(route, way):
+        s = nat.kernel_was_device(route)
+        sentinels[f"{route} {way}"] = s
+        _require(s == 1, f"{route} ({way}) read sentinel {s}, not 1")
+
+    host = {k: _native_table(nat, v) for k, v in tabs.items()}
+    nat.reset_kernel_launches()
+    t0 = time.perf_counter()
+    # -- one pass of every route both ways, counted --------------------------
+    m3 = nat.murmur3_table(host["hash"])
+    check("murmur3", "host table")
+    xx = nat.xxhash64_table(host["hash"])
+    check("xxhash64", "host table")
+    _require(np.array_equal(m3, np.load(d / "murmur3.npy")), "murmur3")
+    _require(np.array_equal(xx, np.load(d / "xxhash64.npy")), "xxhash64")
+    dev_tabs = {k: t.to_device() for k, t in host.items()}
+    with dev_tabs["hash"].murmur3() as b:
+        check("murmur3", "resident")
+        _require(np.array_equal(b.fetch(np.int32), m3), "murmur3 resident")
+        with b.then(f"murmur3:i:{n}") as c:
+            check("murmur3", "resident then")
+            _require(np.array_equal(c.fetch(np.int32),
+                                    np.load(d / "murmur3_then.npy")),
+                     "murmur3 of a resident hash")
+    with dev_tabs["hash"].xxhash64() as b:
+        check("xxhash64", "resident")
+        _require(np.array_equal(b.fetch(np.int64), xx), "xxhash64 resident")
+        with b.then(f"xxhash64:l:{n}") as c:
+            _require(np.array_equal(c.fetch(np.int64),
+                                    np.load(d / "xxhash64_then.npy")),
+                     "xxhash64 of a resident hash")
+    for m in NATIVE_ROW_TABLES:
+        schema = [dt for dt, _ in tabs[f"rows {m}"]]
+        w_rows, w_dec = want["digests"][f"to_rows {m}"], \
+            want["digests"][f"from_rows {m}"]
+        batches = nat.convert_to_rows(host[f"rows {m}"])
+        check("to_rows", "host table")
+        got = _Digest()
+        for i, b in enumerate(batches):
+            got.add(f"batch {i}", b)
+            got.add("all", b)
+        _require([int(b.shape[0]) for b in batches] == w_rows["batches"]
+                 and got.hex() == {k: v for k, v in w_rows.items()
+                                   if k != "batches"},
+                 f"to_rows {m}: the batches differ from the host route's")
+        dec = _Digest()
+        for b in batches:
+            _decoded(dec, nat.convert_from_rows(b, schema))
+            check("from_rows", "host table")
+        _require(dec.hex() == w_dec, f"from_rows {m} differs")
+        del batches
+        with dev_tabs[f"rows {m}"].to_rows() as b:
+            check("to_rows", "resident")
+            got = _Digest()
+            got.add("all", b.fetch(np.uint8))
+            _require(got.hex()["all"] == w_rows["all"],
+                     f"resident to_rows {m} differs")
+            dec = _Digest()
+            parts = b.from_rows(m, schema)
+            check("from_rows", "resident")
+            for c, (data, words) in enumerate(parts):
+                vals = data.fetch(schema[c].storage_dtype)
+                ok = nat._unpack_valid(words.fetch(np.uint32), m)
+                _require(ok.all() and np.array_equal(
+                    vals.view(np.uint8),
+                    tabs[f"rows {m}"][c][1].view(np.uint8)),
+                    f"resident from_rows {m} column {c} lost a value")
+                dec.add(f"{c} data", vals)
+                dec.add(f"{c} valid", np.packbits(ok, bitorder="little"))
+                data.free()
+                words.free()
+            del parts
+            _require(dec.hex() == w_dec, f"resident from_rows {m} differs "
+                     "from the host route's")
+    sort_want = np.load(d / "sort.npy")
+    _require(np.array_equal(nat.sort_order(host["sort"], [True, False]),
+                            sort_want), "sort_order")
+    check("sort_order", "host table")
+    with dev_tabs["sort"].sort_order([True, False]) as b:
+        check("sort_order", "resident")
+        _require(np.array_equal(b.fetch(np.int32), sort_want),
+                 "resident sort_order")
+    jl, jr = np.load(d / "join_left.npy"), np.load(d / "join_right.npy")
+    for way, pairs in (("host table", lambda: nat.inner_join(
+            host["join left"], host["join right"])),
+            ("resident", lambda: dev_tabs["join left"].inner_join(
+                dev_tabs["join right"]))):
+        li, ri = pairs()
+        check("inner_join", way)
+        _require(np.array_equal(li, jl) and np.array_equal(ri, jr),
+                 f"inner_join ({way}) differs")
+    for dims in NATIVE_GROUPS:
+        g = math.prod(dims)
+        gw = np.load(d / f"groupby_{g}.npz")
+        k, v = f"groupby {g} keys", f"groupby {g} values"
+        _same_groupby(nat.groupby_sum_count(host[k], host[v]), gw,
+                      f"groupby {g}")
+        check("groupby", "host table")
+        _same_groupby(dev_tabs[k].groupby_sum_count(dev_tabs[v]), gw,
+                      f"resident groupby {g}")
+        check("groupby", "resident")
+        _require(len(gw["rep_rows"]) == g, f"{len(gw['rep_rows'])} groups")
+    pass_s = time.perf_counter() - t0
+    launches = {name: nat.kernel_launches().get(name, 0)
+                for name in NATIVE_NAMES}
+    engine = nat.kernel_launches()
+    log(f"native pass: every route both ways equal to the host route, "
+        f"sentinel 1, {pass_s:.3f} s; engine launches {json.dumps(engine)}")
+    _require(launches == NATIVE_LAUNCHES,
+             f"engine launches of K4/K5/K6 {launches} != {NATIVE_LAUNCHES}")
+    # -- ms per route ---------------------------------------------------------
+    nbytes = _route_bytes(tabs)
+    # the join reads both key columns and writes its pairs
+    nbytes["inner_join"] = (tabs["join left"][0][1].nbytes
+                            + tabs["join right"][0][1].nbytes + 8 * jl.size)
+    routes = []
+
+    def route(name, way, rows, fn, key=None, reps=REPS):
+        ms = _native_timed(fn, reps)
+        b_ms = nbytes[key or name] / HBM_BYTES_PER_S * 1e3
+        r = {"route": name, "way": way, "rows": rows, "ms": ms,
+             "rows_per_s": rows / ms * 1e3, "bound_ms": b_ms,
+             "host_ms": want["host_ms"].get(key or name)}
+        routes.append(r)
+        log(f"native {name} ({way}): {ms:.3f} ms, {r['rows_per_s']:.4g} "
+            f"rows/s, byte bound {b_ms:.4f} ms, host route "
+            f"{r['host_ms']:.1f} ms (one run, CPU child) [{card}]")
+
+    route("murmur3", "host table", n, lambda: nat.murmur3_table(host["hash"]))
+    route("murmur3", "resident", n, lambda: dev_tabs["hash"].murmur3())
+    route("xxhash64", "host table", n,
+          lambda: nat.xxhash64_table(host["hash"]))
+    route("xxhash64", "resident", n, lambda: dev_tabs["hash"].xxhash64())
+    for m in NATIVE_ROW_TABLES:
+        schema = [dt for dt, _ in tabs[f"rows {m}"]]
+        # 12M rows cross the host link both ways, seconds a run: 3 runs
+        big = 3 if m > 2 ** 31 // 200 else REPS
+        route("to_rows", "host table", m,
+              lambda: nat.convert_to_rows(host[f"rows {m}"]), f"to_rows {m}",
+              big)
+        route("to_rows", "resident", m,
+              lambda: dev_tabs[f"rows {m}"].to_rows(), f"to_rows {m}")
+        batches = nat.convert_to_rows(host[f"rows {m}"])
+        route("from_rows", "host table", m,
+              lambda: [nat.convert_from_rows(b, schema) for b in batches],
+              f"from_rows {m}", big)
+        del batches
+        with dev_tabs[f"rows {m}"].to_rows() as b:
+            route("from_rows", "resident", m,
+                  lambda: [x for pair in b.from_rows(m, schema)
+                           for x in pair], f"from_rows {m}")
+    route("sort_order", "host table", n,
+          lambda: nat.sort_order(host["sort"], [True, False]))
+    route("sort_order", "resident", n,
+          lambda: dev_tabs["sort"].sort_order([True, False]))
+    route("inner_join", "host table", n, lambda: nat.inner_join(
+        host["join left"], host["join right"]))
+    route("inner_join", "resident", n, lambda: dev_tabs["join left"]
+          .inner_join(dev_tabs["join right"]))
+    for dims in NATIVE_GROUPS:
+        g = math.prod(dims)
+        k, v = f"groupby {g} keys", f"groupby {g} values"
+        route("groupby", "host table", n, lambda: nat.groupby_sum_count(
+            host[k], host[v]), f"groupby {g}")
+        route("groupby", "resident", n, lambda: dev_tabs[k]
+              .groupby_sum_count(dev_tabs[v]), f"groupby {g}")
+    for t in dev_tabs.values():
+        t.free()
+    for t in host.values():
+        t.close()
+    live = {"live_handles": nat.live_handles(),
+            "live_device_handles": nat.live_device_handles(),
+            "engine_buffers": nat.cuda_live_buffers()}
+    _require(not any(live.values()), f"native handles left: {live}")
+    calls = native_kernel_calls(dev, tabs, m3)
+    step_s = time.perf_counter() - t_step
+    log(f"native step: {step_s:.3f} s, live handles {json.dumps(live)} "
+        f"[{card}]")
+    log(json.dumps({"native_routes": routes}))
+    return {"build_s": prep.build_s, "child_s": prep.child["seconds"],
+            "pass_s": pass_s, "step_s": step_s, "routes": routes,
+            "sentinels": sentinels, "engine_launches": engine,
+            "launches": launches, "live": live}, calls
+
+
 def k3_beside_wall(step: str, phases: list, totals: dict, names: tuple,
                    card: str, log) -> None:
     """Each phase's warm wall time beside the device time of its K3
@@ -5281,6 +5845,11 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--tune-child", action="store_true",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--native-child", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--native-only", action="store_true",
+                    help="build the kernels and the native library, run "
+                    "only the native step (step 13) and print its routes "
+                    "and K4/K5/K6 entries, and no result")
     args = ap.parse_args(argv)
     if args.rollup_child:
         return rollup_child()
@@ -5295,6 +5864,8 @@ def main(argv=None) -> int:
         return warm_child(args.warm_child)
     if args.tune_child:
         return tune_child()
+    if args.native_child:
+        return native_child(args.native_child)
     dev = torch.device("cuda")
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -5311,6 +5882,10 @@ def main(argv=None) -> int:
             logfile.write(line + "\n")
             logfile.flush()
 
+    prep = NativePrep()  # the native library's build, then its CPU child
+    if not args.queries_only:
+        atexit.register(prep.stop)
+        prep.start()
     t0 = time.perf_counter()
     with env_set({"SRT_METRICS": "1"}):  # the build's compile event
         K.kernels()
@@ -5325,6 +5900,16 @@ def main(argv=None) -> int:
         return 0
     Card.read()
     log(f"card: {Card.sms} SMs, max SM clock {Card.sm_hz / 1e6:.0f} MHz")
+    if args.native_only:
+        native_res, calls = run_native(dev, prep, log, card, args.out)
+        totals = {"native": path_kernels(calls, native_res["launches"],
+                                         NATIVE_NAMES, log, reps=3)}
+        for name, t in totals["native"].items():
+            log(f"kernel {name}: native calls={t['calls']} "
+                f"launches={native_res['launches'][name]} "
+                f"kernel_ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} "
+                f"bound_ms={t['bound_ms']:.4g} ({t['bound_by']}) [{card}]")
+        return 0
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -5476,6 +6061,13 @@ def main(argv=None) -> int:
     rows["step_s"] = time.perf_counter() - t0
     log(f"row-conversion step: {rows['step_s']:.3f} s")
 
+    native_res, calls = run_native(dev, prep, log, card, args.out)
+    log("native K4/K5/K6 launches as wrapper calls, each equal to its "
+        "plain version on the engine's inputs:")
+    totals["native"] = path_kernels(calls, native_res["launches"],
+                                    NATIVE_NAMES, log, reps=3)
+    del calls
+
     kernels = kernel_entries(
         totals, {"q1-q10": main_path["launches"],
                  "q11-q20": oplib["launches"],
@@ -5490,7 +6082,8 @@ def main(argv=None) -> int:
                  "morsel": morsel["launches"],
                  "fleet control": fleet["launches"],
                  "tune": tuned["launches"],
-                 "row conversion": rows["launches"]}, card, stress, log)
+                 "row conversion": rows["launches"],
+                 "native": native_res["launches"]}, card, stress, log)
     if args.out:
         with open(os.path.join(args.out, "chip_smoke_report.json"),
                   "w") as f:
@@ -5504,6 +6097,7 @@ def main(argv=None) -> int:
                        "batching": batching, "morsel": morsel,
                        "fleet_control": fleet, "warm_disk": warm_disk,
                        "tune": tuned, "row_conversion": rows,
+                       "native": native_res,
                        "sf": SF, "seed": SEED}, f, indent=1, sort_keys=True,
                       default=str)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -29,8 +29,8 @@ Port of ``spark_rapids_jni_tpu/obs/memory.py``, with three jobs:
   ExecutionReport's ``memory`` section: ingest bytes + the widest
   exchange round's modeled scratch, and the measured device watermarks.
 
-``native_arena_snapshot`` reads the native bridge (``native.py``), not
-ported yet: it returns ``{}``.
+``native_arena_snapshot`` reads the native bridge's host arena
+(``native.py``) once the library is loaded in the process; ``{}`` before.
 """
 
 from __future__ import annotations
@@ -235,9 +235,24 @@ def agreed_scratch_budget(key, agree: "Callable[[int], int]",
 
 
 def native_arena_snapshot(publish: bool = True) -> dict:
-    """The native host arena's counters: ``{}`` until ``native.py`` is
-    ported."""
-    return {}
+    """The native host arena's live counters (``native.arena_stats``:
+    bytes_in_use, peak_bytes, outstanding_allocations, live_handles),
+    published as ``mem.native.arena.*`` gauges beside the device
+    watermarks. {} when the library is not loaded; a broken read is
+    counted (``obs.native_ra_errors``), never silent."""
+    try:
+        from .. import native
+        if not native.available():
+            return {}
+        stats = native.arena_stats()
+    except Exception:
+        count("obs.native_ra_errors")
+        return {}
+    out = {k: int(v) for k, v in stats.items()}
+    if publish:
+        for k, v in out.items():
+            gauge(f"mem.native.arena.{k}").set(v)
+    return out
 
 
 def column_bytes(col) -> int:
@@ -289,6 +304,9 @@ def query_memory_section(ingest_bytes: int, comm_scratch_bytes: int = 0,
                    if s is not None}
         if devices:
             section["devices"] = {str(i): s for i, s in devices.items()}
+    arena = native_arena_snapshot()
+    if arena:
+        section["native_arena"] = arena
     return section
 
 
@@ -319,4 +337,8 @@ def render_watermarks() -> str:
                      f"  exchange scratch budget: {budget} bytes (probed "
                      f"from the device's headroom; a partitioned run "
                      f"plans under the minimum over its ranks)")
+    arena = native_arena_snapshot()
+    if arena:
+        lines.append(f"  native arena: {arena.get('bytes_in_use', 0)} "
+                     f"bytes in use, peak {arena.get('peak_bytes', 0)}")
     return "\n".join(lines)

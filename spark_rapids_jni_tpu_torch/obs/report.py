@@ -28,8 +28,8 @@ ambient id. A batched dispatch runs under its first member's qid with
 every member's in ``batch_qids``, which the one batch report carries.
 
 ``native_route_sentinels`` and ``native_ra_snapshot`` read the native
-bridge (``native.py``), which the port has not ported: both return
-``{}``.
+bridge (``native.py``) once it is loaded in the process, as the
+reference's read its own; ``{}`` before (a report never builds it).
 """
 
 from __future__ import annotations
@@ -226,15 +226,73 @@ class _AsRecord:
 
 
 def native_route_sentinels() -> dict:
-    """The native bridge's per-kernel route sentinels: ``{}`` until
-    ``native.py`` is ported."""
-    return {}
+    """The native bridge's per-kernel route sentinels on this thread (1
+    device, 0 host, 2 failed, -1 never ran); {} when the library is not
+    loaded. A broken read is counted (``obs.native_route_errors``)."""
+    try:
+        from .. import native
+        if not native.available():
+            return {}
+        return {k: native.kernel_was_device(k)
+                for k in native.ROUTE_KERNELS}
+    except Exception:
+        from .metrics import count
+        count("obs.native_route_errors")
+        return {}
 
 
 def native_ra_snapshot() -> dict:
-    """The native resource adaptor's state: ``{}`` until ``native.py``
-    is ported."""
-    return {}
+    """The native resource adaptor's state as a ``native.ra.*`` dict, also
+    published as gauges: pool and in-use bytes and active tasks
+    (``ra_stats``), and the per-task retry metrics (``retry_oom``,
+    ``split_retry_oom``, ``block_time_ms``, ``blocked_count`` of
+    ``ra_task_metrics``) summed over the registered tasks. {} when the
+    library is not loaded; a broken read is counted
+    (``obs.native_ra_errors``), never silent."""
+    from .metrics import count, gauge
+    try:
+        from .. import native
+        if not native.available():
+            return {}
+        out = {f"native.ra.{k}": v for k, v in native.ra_stats().items()}
+        agg: dict = {}
+        for tid in _ra_task_ids():
+            try:
+                m = native.ra_task_metrics(tid)
+            except Exception:
+                count("obs.native_ra_errors")
+                continue
+            for k in ("retry_oom", "split_retry_oom", "block_time_ms",
+                      "blocked_count"):
+                agg[k] = agg.get(k, 0) + m.get(k, 0)
+        for k, v in agg.items():
+            out[f"native.ra.task.{k}"] = v
+        for k, v in out.items():
+            gauge(k).set(int(v))
+        return out
+    except Exception:
+        count("obs.native_ra_errors")
+        return {}
+
+
+# Task ids the RA snapshot aggregates over; native.ra_task_register and
+# ra_task_done keep it (the C ABI cannot enumerate tasks).
+_ra_tasks: set = set()  # guarded-by: _lock
+
+
+def ra_track_task(task_id: int, tracked: bool = True) -> None:
+    """(Un)register a resource-adaptor task id for the reliability
+    snapshot's per-task metric aggregation."""
+    with _lock:
+        if tracked:
+            _ra_tasks.add(int(task_id))
+        else:
+            _ra_tasks.discard(int(task_id))
+
+
+def _ra_task_ids() -> list:
+    with _lock:
+        return sorted(_ra_tasks)
 
 
 def report_provenance(info: dict) -> str:

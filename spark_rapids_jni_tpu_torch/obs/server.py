@@ -123,6 +123,7 @@ class ObsServer:
         from . import slo as _slo
         _slo.TRACKER.publish()
         _memory.sample_device_memory()
+        _memory.native_arena_snapshot()
 
     def _route(self, handler: BaseHTTPRequestHandler) -> None:
         url = urlparse(handler.path)

@@ -23,10 +23,12 @@ were slower on the card (``tools/torch_json_scans.py``). Rows go through in chun
 result is assembled on the device by ``strings_from_matrix`` (its
 validity through K3).
 
-Host routes, both the reference's own and counted under its names: a
-string value holding an escape is unescaped on the host (the byte
-length changes), ``get_json_object.host_unescape_rows``; a path whose
-field names hold quotes or backslashes takes the Python walker,
+Host routes, the reference's own: a string value holding an escape is
+unescaped on the host (the byte length changes),
+``get_json_object.host_unescape_rows``; a path whose field names hold
+quotes or backslashes takes the native library's C++ walker when
+``native.available()`` (the library is loaded in the process; nothing
+builds it here), else the Python walker,
 ``get_json_object.python_walker_rows``. Spark semantics: strings
 unquote, scalars return their literal text, objects and arrays their
 raw JSON; JSON null, a missing path and malformed input give SQL NULL.
@@ -42,6 +44,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import native
 from ..columnar import Column
 from ..columnar.strings import byte_matrix, max_length, strings_from_matrix
 from ..types import TypeId
@@ -535,8 +538,9 @@ def get_json_object(col: Column, path: str) -> Column:
     """Evaluate a JSONPath over every row of a STRING column.
 
     On the device route (see the module docstring) unless a field name
-    holds a quote or a backslash: those take the Python walker (their
-    in-place byte compare would need unescape-aware matching)."""
+    holds a quote or a backslash: those take the native walker, or the
+    Python walker without the library (their in-place byte compare would
+    need unescape-aware matching)."""
     expects(col.dtype.id == TypeId.STRING, "get_json_object needs STRING")
     steps = _parse_path(path)
     if steps is None:
@@ -545,7 +549,24 @@ def get_json_object(col: Column, path: str) -> Column:
     if all(kind != "f" or (arg and '"' not in arg and "\\" not in arg)
            for kind, arg in steps):
         return _device_eval(col, steps)
+    if native.available():
+        return _native_eval(col, path)
     return _python_eval(col, steps)
+
+
+def _native_eval(col: Column, path: str) -> Column:
+    """The native C++ walker (``src/main/cpp/src/get_json_object.cpp``)
+    over the column's host bytes."""
+    valid = col.valid_bool().to(torch.uint8).cpu().numpy()
+    got = native.get_json_object(col.child.data.cpu().numpy(),
+                                 col.offsets.data.cpu().numpy(), valid, path)
+    if got is None:  # a path the walker does not parse: all NULL
+        return Column.strings_from_list([None] * col.size,
+                                        device=col.device)
+    buf, offs, ok = got
+    out = [buf[offs[i]:offs[i + 1]].decode("utf-8") if ok[i] else None
+           for i in range(col.size)]
+    return Column.strings_from_list(out, device=col.device)
 
 
 def _python_eval(col: Column, steps) -> Column:

@@ -758,10 +758,17 @@ def run_fused(plan, rels: "dict[str, Rel]", device=None, mesh=None,
                     for r in _obs_recompile.records_since(rmark)],
         native_routes=_obs_report.native_route_sentinels(),
         shuffle=shuffle,
-        reliability={k: v for k, v in delta.items()
-                     if k.startswith("serving.fault.")},
+        reliability=_reliability_section(delta),
         memory=memory, morsel=info.get("morsel", {}),
         io=info.get("io", {})))
+    return out
+
+
+def _reliability_section(delta: dict) -> dict:
+    """A report's reliability rollup: this run's fault and retry counter
+    deltas plus the native resource adaptor's snapshot."""
+    out = {k: v for k, v in delta.items() if k.startswith("serving.fault.")}
+    out.update(_obs_report.native_ra_snapshot())
     return out
 
 
@@ -986,8 +993,7 @@ def run_fused_batched(plan, rels_list: "List[dict]", device=None, *,
                     for r in _obs_recompile.records_since(rmark)],
         native_routes=_obs_report.native_route_sentinels(),
         batch=len(rels_list),
-        reliability={k: v for k, v in delta.items()
-                     if k.startswith("serving.fault.")},
+        reliability=_reliability_section(delta),
         # one ingest a slot of the program (padded: the capacity rung;
         # ragged: the page-bucketed capacity), the pad slots' bytes apart
         memory=_obs_memory.query_memory_section(

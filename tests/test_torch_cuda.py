@@ -1394,3 +1394,237 @@ def test_cuda_memory_gauges_and_probe(cuda_device):
     assert budget >= comm_plan.MIN_SCRATCH_BYTES
     assert budget & (budget - 1) == 0
     assert 0.0 < memory.device_used_fraction() < 1.0
+
+
+# --------------------------------------------------------------------------
+# The native bridge's CUDA engine (native.py, csrc/native/)
+# --------------------------------------------------------------------------
+
+def _native_cols(n, seed=5):
+    import numpy as np
+    from spark_rapids_jni_tpu_torch import types as T
+    rng = np.random.default_rng(seed)
+    f32 = rng.standard_normal(n).astype(np.float32)
+    f64 = rng.standard_normal(n)
+    f32[:4] = [0.0, -0.0, np.nan, -np.inf]
+    f64[:4] = [-0.0, np.nan, np.inf, 0.0]
+    return [(T.INT32, rng.integers(-2**31, 2**31, n).astype(np.int32)),
+            (T.INT64, rng.integers(-2**62, 2**62, n)),
+            (T.decimal64(-2), rng.integers(-10**15, 10**15, n)),
+            (T.FLOAT32, f32), (T.FLOAT64, f64)]
+
+
+@pytest.mark.cuda
+def test_cuda_native_routes_equal_the_port_on_the_cpu(cuda_device):
+    """Each device route of the native library, as a host table and
+    resident, with sentinel 1, against the port's own CPU ops (hashes,
+    rows) and numpy (sort, join, groupby) on the same seeded data."""
+    import numpy as np
+    from spark_rapids_jni_tpu_torch import native
+    from spark_rapids_jni_tpu_torch import types as T
+    from spark_rapids_jni_tpu_torch.columnar import Column, Table
+    from spark_rapids_jni_tpu_torch.ops import hashing
+    from spark_rapids_jni_tpu_torch.ops import row_conversion as rc
+    native.load()
+    assert native.cuda_available()
+    n = 100_003
+    cols = _native_cols(n)
+    cpu = Table([Column.from_numpy(v, None, dt, device="cpu")
+                 for dt, v in cols])
+    t = native.NativeTable([(dt, v, None) for dt, v in cols])
+    d = t.to_device()
+    native.reset_kernel_launches()
+    m3 = hashing.murmur3_table(cpu).numpy()
+    assert (native.murmur3_table(t) == m3).all()
+    assert native.kernel_was_device("murmur3") == 1
+    with d.murmur3() as b:
+        assert (b.fetch(np.int32) == m3).all()
+    launches = native.kernel_launches()
+    assert launches["murmur3_int32"] == 4 and launches["murmur3_int64"] == 6
+    xx = hashing.xxhash64_table(cpu).numpy()
+    assert (native.xxhash64_table(t) == xx).all()
+    with d.xxhash64() as b:
+        assert (b.fetch(np.int64) == xx).all()
+    want_rows = rc.convert_to_rows(cpu)[0].child.data.numpy().view(np.uint8)
+    rows = native.convert_to_rows(t)
+    assert native.kernel_was_device("to_rows") == 1
+    assert (rows[0].reshape(-1) == want_rows).all()
+    with d.to_rows() as b:
+        assert (b.fetch(np.uint8) == want_rows).all()
+        for (dt, v), (data, words) in zip(cols, b.from_rows(n, [
+                dt for dt, _ in cols])):
+            assert (data.fetch(v.dtype).view(np.uint8) == v.view(np.uint8)
+                    ).all()
+            assert (words.fetch(np.uint32)[:-1] == 0xFFFFFFFF).all()
+            data.free()
+            words.free()
+    back = native.convert_from_rows(rows[0], [dt for dt, _ in cols])
+    assert native.kernel_was_device("from_rows") == 1
+    for (v, ok), (_, want) in zip(back, cols):
+        assert ok.all() and (v.view(np.uint8) == want.view(np.uint8)).all()
+    # sort: a 32-bit key descending, then a 64-bit one ascending
+    rng = np.random.default_rng(9)
+    k1 = rng.integers(-40, 40, n).astype(np.int32)
+    k2 = rng.integers(-2**62, 2**62, n)
+    want = np.lexsort((k2, -k1.astype(np.int64)))
+    k = native.NativeTable([(T.INT32, k1, None), (T.INT64, k2, None)])
+    assert (native.sort_order(k, [False, True]) == want).all()
+    assert native.kernel_was_device("sort_order") == 1
+    # join under the unique-right contract: pairs by key, then left row
+    right = rng.permutation(50_000)[:20_000].astype(np.int64) - 25_000
+    left = rng.integers(-25_000, 25_000, n)
+    pos = {int(v): i for i, v in enumerate(right)}
+    li = np.array([i for i in np.lexsort((np.arange(n), left))
+                   if int(left[i]) in pos], np.int32)
+    ri = np.array([pos[int(left[i])] for i in li], np.int32)
+    lt = native.NativeTable([(T.INT64, left, None)])
+    rt = native.NativeTable([(T.INT64, right, None)])
+    dl, dr = lt.to_device(), rt.to_device()
+    for got in (native.inner_join(lt, rt), dl.inner_join(dr)):
+        assert native.kernel_was_device("inner_join") == 1
+        assert (got[0] == li).all() and (got[1] == ri).all()
+    dl.free()
+    dr.free()
+    # groupby: groups by first row, int64 sums wrap, float sums in order
+    g = rng.integers(0, 997, n).astype(np.int32)
+    vi = rng.integers(-2**62, 2**62, n)
+    vf = rng.standard_normal(n)
+    kt = native.NativeTable([(T.INT32, g, None)])
+    vt = native.NativeTable([(T.INT64, vi, None), (T.FLOAT64, vf, None)])
+    res = native.groupby_sum_count(kt, vt)
+    assert native.kernel_was_device("groupby") == 1
+    _, first, inv = np.unique(g, return_index=True, return_inverse=True)
+    order = np.argsort(first)
+    isum = np.zeros(len(first), np.int64)
+    fsum = np.zeros(len(first), np.float64)
+    np.add.at(isum, inv, vi)
+    np.add.at(fsum, inv, vf)
+    assert (res["rep_rows"] == first[order]).all()
+    assert (res["sizes"] == np.bincount(inv)[order]).all()
+    assert (res["sums"][0] == isum[order]).all()
+    np.testing.assert_allclose(res["sums"][1], fsum[order], rtol=1e-12)
+    for x in (t, k, lt, rt, kt, vt):
+        x.close()
+    d.free()
+    assert native.live_handles() == 0 and native.live_device_handles() == 0
+
+
+@pytest.mark.cuda
+def test_cuda_native_wide_and_unsigned_shapes(cuda_device):
+    """The engine's less common shapes against the port's CPU ops and
+    numpy: 40 columns (two launches of the multi-column hash and unpack
+    kernels), mixed widths through K6, a row count off a 32-row word,
+    unsigned keys in the sort, a two-column join and a two-key groupby."""
+    import numpy as np
+    from spark_rapids_jni_tpu_torch import native
+    from spark_rapids_jni_tpu_torch import types as T
+    from spark_rapids_jni_tpu_torch.columnar import Column, Table
+    from spark_rapids_jni_tpu_torch.ops import hashing
+    from spark_rapids_jni_tpu_torch.ops import row_conversion as rc
+    native.load()
+    U32, U64 = T.DType(T.TypeId.UINT32), T.DType(T.TypeId.UINT64)
+    rng = np.random.default_rng(21)
+    n = 1000
+    types = [T.INT8, T.INT16, T.BOOL8, T.INT32, T.FLOAT32, T.INT64,
+             T.FLOAT64, T.decimal32(-3), U32, U64] * 4
+
+    def values(dt, m):
+        if dt.id == T.TypeId.BOOL8:
+            return rng.integers(0, 2, m, dtype=np.int8)
+        if dt.is_floating:
+            return rng.standard_normal(m).astype(dt.storage_dtype)
+        info = np.iinfo(dt.storage_dtype)
+        return rng.integers(info.min, info.max, m, dtype=dt.storage_dtype,
+                            endpoint=True)
+
+    cols = [(dt, values(dt, n)) for dt in types]
+    cpu = Table([Column.from_numpy(v, None, dt, device="cpu")
+                 for dt, v in cols])
+    t = native.NativeTable([(dt, v, None) for dt, v in cols])
+    want_rows = rc.convert_to_rows(cpu)[0].child.data.numpy().view(np.uint8)
+    rows = native.convert_to_rows(t)
+    assert native.kernel_was_device("to_rows") == 1
+    assert (rows[0].reshape(-1) == want_rows).all()
+    for (v, ok), (_, want) in zip(native.convert_from_rows(rows[0], types),
+                                  cols):
+        assert native.kernel_was_device("from_rows") == 1
+        assert ok.all() and (v.view(np.uint8) == want.view(np.uint8)).all()
+    d = t.to_device()
+    with d.to_rows() as b:
+        assert (b.fetch(np.uint8) == want_rows).all()
+        for (dt, v), (data, words) in zip(cols, b.from_rows(n, types)):
+            assert (data.fetch(v.dtype).view(np.uint8) == v.view(np.uint8)
+                    ).all()
+            w = words.fetch(np.uint32)
+            assert (w[:-1] == 0xFFFFFFFF).all() and w[-1] == 0xFF
+            data.free()
+            words.free()
+    d.free()
+    # the hashes over the types the device hashes (no 1- or 2-byte types,
+    # no DECIMAL32): 40 columns, two xxhash64 launches
+    hashed = [(dt, v) for dt, v in cols if dt.id in (
+        T.TypeId.INT32, T.TypeId.FLOAT32, T.TypeId.INT64, T.TypeId.FLOAT64,
+        T.TypeId.UINT32, T.TypeId.UINT64)] * 2
+    hcpu = Table([Column.from_numpy(v, None, dt, device="cpu")
+                  for dt, v in hashed])
+    h = native.NativeTable([(dt, v, None) for dt, v in hashed])
+    assert len(hashed) > 32
+    assert (native.xxhash64_table(h) == hashing.xxhash64_table(hcpu).numpy()
+            ).all()
+    assert native.kernel_was_device("xxhash64") == 1
+    assert (native.murmur3_table(h) == hashing.murmur3_table(hcpu).numpy()
+            ).all()
+    assert native.kernel_was_device("murmur3") == 1
+    # sort: a uint64 key descending, then an int32 key ascending
+    m = 50_003
+    u = rng.integers(0, 6, m).astype(np.uint64) << np.uint64(62)
+    i = rng.integers(-3, 3, m).astype(np.int32)
+    s = native.NativeTable([(U64, u, None), (T.INT32, i, None)])
+    assert (native.sort_order(s, [False, True]) == np.lexsort((i, ~u))).all()
+    assert native.kernel_was_device("sort_order") == 1
+    # join on (uint32, int64), unique right: pairs by key, then left row
+    ru = rng.integers(0, 2**32, 4000, dtype=np.uint32)
+    ri64 = rng.integers(-5, 5, 4000)
+    keys, first = np.unique(np.stack([ru.astype(np.int64), ri64], 1),
+                            axis=0, return_index=True)
+    ru, ri64 = ru[np.sort(first)], ri64[np.sort(first)]
+    pick = rng.integers(0, len(ru), m)
+    lu = np.where(rng.random(m) < 0.7, ru[pick], rng.integers(
+        0, 2**32, m, dtype=np.uint32)).astype(np.uint32)
+    li64 = ri64[pick]
+    pos = {(int(a), int(b)): k for k, (a, b) in enumerate(zip(ru, ri64))}
+    order = np.lexsort((np.arange(m), li64, lu))
+    want_l = np.array([k for k in order if (int(lu[k]), int(li64[k])) in pos],
+                      np.int32)
+    want_r = np.array([pos[(int(lu[k]), int(li64[k]))] for k in want_l],
+                      np.int32)
+    lt = native.NativeTable([(U32, lu, None), (T.INT64, li64, None)])
+    rt = native.NativeTable([(U32, ru, None), (T.INT64, ri64, None)])
+    gl, gr = native.inner_join(lt, rt)
+    assert native.kernel_was_device("inner_join") == 1
+    assert (gl == want_l).all() and (gr == want_r).all()
+    # groupby on (uint64, int32) keys: int32 and float32 values
+    vi = rng.integers(-2**31, 2**31, m).astype(np.int32)
+    vf = rng.standard_normal(m).astype(np.float32)
+    kt = native.NativeTable([(U64, u, None), (T.INT32, i, None)])
+    vt = native.NativeTable([(T.INT32, vi, None), (T.FLOAT32, vf, None)])
+    res = native.groupby_sum_count(kt, vt)
+    assert native.kernel_was_device("groupby") == 1
+    _, first, inv = np.unique(np.stack([u.view(np.int64),
+                                        i.astype(np.int64)], 1), axis=0,
+                              return_index=True, return_inverse=True)
+    inv = inv.reshape(-1)
+    order = np.argsort(first)
+    isum = np.zeros(len(first), np.int64)
+    fsum = np.zeros(len(first), np.float64)
+    np.add.at(isum, inv, vi.astype(np.int64))
+    np.add.at(fsum, inv, vf.astype(np.float64))
+    imin = np.full(len(first), 2**31, np.int64)
+    np.minimum.at(imin, inv, vi.astype(np.int64))
+    assert (res["rep_rows"] == first[order]).all()
+    assert (res["sums"][0] == isum[order]).all()
+    assert (res["mins"][0] == imin[order]).all()
+    assert (res["sums"][1] == fsum[order]).all()  # each group's rows in order
+    for x in (t, h, s, lt, rt, kt, vt):
+        x.close()
+    assert native.live_handles() == 0 and native.live_device_handles() == 0

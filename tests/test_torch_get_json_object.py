@@ -1,13 +1,14 @@
 """get_json_object of the PyTorch/CUDA port against the JAX package on the
 same inputs (on the CPU).
 
-Mirrors ``test_get_json_object.py`` (its native-library cases wait for
-the port's native bridge): the path semantics, surrogate pairs, invalid
-UTF-8 and truncated escapes, and the 60-document fuzz corpus with its
-nine paths, where the device route must equal the port's own Python
-walker and the reference row for row. Then the port's own parts: the
+Mirrors ``test_get_json_object.py``: the path semantics, surrogate
+pairs, invalid UTF-8 and truncated escapes, the 60-document fuzz corpus
+with its nine paths, where the device route must equal the port's own
+Python walker and the reference row for row, and the native library's
+walker (both libraries built and loaded on the CPU) against the Python
+walker and the reference's native walker. Then the port's own parts: the
 log-step running max/min against ``torch.cummax``/``cummin``, chunked
-rows, the host routes' counters and the quoted-name walker route.
+rows, the host routes' counters and the quoted-name routes.
 """
 
 import importlib
@@ -28,6 +29,9 @@ from spark_rapids_jni_tpu_torch.ops import get_json_object as gjo_fn
 from spark_rapids_jni_tpu_torch.ops.get_json_object import (
     _device_eval, _parse_path, _python_eval, _running, _running_sum,
     get_json_object)
+
+from torch_native_support import (native_libraries,  # noqa: F401
+                                  reference_native)
 
 # the module (``ops`` exports the function under the module's name)
 gjo = importlib.import_module("spark_rapids_jni_tpu_torch.ops.get_json_object")
@@ -212,7 +216,10 @@ def test_long_field_names_and_documents():
     assert _python_eval(col, _parse_path(path)).to_pylist() == [None] * 3
 
 
-def test_host_routes_are_counted():
+def test_host_routes_are_counted(monkeypatch):
+    # without the native library in the process, whatever another test
+    # of this worker loaded
+    monkeypatch.setattr(gjo.native, "_LIB", None)
     docs = ['{"a": "x\\ty"}', '{"a": "plain"}', '{"a": "\\u00e9"}', None]
     before = kernel_stats()
     out = get_json_object(_col(docs), "$.a")
@@ -258,3 +265,51 @@ def test_seeded_documents_equal_reference(seed):
                  "$.zz", "$.a.b[5]"]:
         assert get_json_object(col, path).to_pylist() == \
             ref_get_json_object(ref, path).to_pylist(), path
+
+
+# --------------------------------------------------------------------------
+# the native walker (src/main/cpp/src/get_json_object.cpp in the port's
+# library), both libraries loaded on the CPU
+# --------------------------------------------------------------------------
+
+NATIVE_PATHS = ["$.a", "$.a.b", "$.a.b[0]", "$.a.b[2].c", "$.s", "$.arr[2]",
+                "$.obj", "$['a']", "$.u"]
+
+
+def test_native_and_python_agree(native_libraries,  # noqa: F811
+                                 reference_native):  # noqa: F811
+    from spark_rapids_jni_tpu.ops.get_json_object import \
+        _native_eval as ref_native_eval
+    from spark_rapids_jni_tpu.ops.get_json_object import \
+        _parse_path as ref_parse_path
+    col, ref = _col(DOCS), RefColumn.strings_from_list(DOCS)
+    for path in NATIVE_PATHS:
+        nat = gjo._native_eval(col, path).to_pylist()
+        assert nat == _python_eval(col, _parse_path(path)).to_pylist(), path
+        assert nat == ref_native_eval(ref, path,
+                                      ref_parse_path(path)).to_pylist(), path
+
+
+def test_native_surrogate_pairs_agree(native_libraries):  # noqa: F811
+    docs = [json.dumps({"a": "😀"}), '{"a": "\\ud83d\\ude00"}',
+            '{"a": "\\ud800"}', '{"a": "\\udc00t"}', '{"a": "\\u+123"}',
+            json.dumps({"a": "mix😀é"})]
+    col = _col(docs)
+    assert gjo._native_eval(col, "$.a").to_pylist() == \
+        _python_eval(col, _parse_path("$.a")).to_pylist()
+
+
+def test_quoted_names_take_the_native_walker(native_libraries,  # noqa: F811
+                                             reference_native):  # noqa: F811
+    """With the library loaded, a field name holding a quote or a
+    backslash takes the native walker (no Python walker rows), as the
+    reference routes it; the rows equal the reference's."""
+    qdocs = ['{"k\\"q": 5}', '{"k\\"q": [1]}', '{"x": 1}', None,
+             '{"b\\\\s": "v"}']
+    for path in ("$['k\\\"q']", "$['b\\\\s']"):
+        before = kernel_stats()
+        got = get_json_object(_col(qdocs), path).to_pylist()
+        assert "get_json_object.python_walker_rows" not in \
+            stats_since(before)
+        assert got == ref_get_json_object(RefColumn.strings_from_list(qdocs),
+                                          path).to_pylist(), path

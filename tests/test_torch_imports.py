@@ -68,10 +68,14 @@ def test_sources_exist():
                 "utils/batching.py", "utils/plan_cache.py",
                 "obs/history.py", "obs/rollup.py",
                 "serving/control_plane.py", "tune/__init__.py",
-                "tune/space.py", "tune/store.py", "tune/runner.py"):
+                "tune/space.py", "tune/store.py", "tune/runner.py",
+                "native.py"):
         assert rel in names
     for src in ("hash_join_probe.cu", "ragged_groupby.cu",
-                "bitmask_pack.cu", "murmur3.cu", "pack_rows.cu"):
+                "bitmask_pack.cu", "murmur3.cu", "pack_rows.cu",
+                "native/c_api.cpp", "native/device_engine.hpp",
+                "native/cuda_engine.cu", "native/cuda_sort.cu",
+                "native/no_device_engine.cpp", "native/pack_plan.hpp"):
         assert (PORT / "csrc" / src).exists()
 
 
@@ -111,6 +115,7 @@ def test_import_loads_no_jax_module():
         "import spark_rapids_jni_tpu_torch.serving\n"
         "import spark_rapids_jni_tpu_torch.obs.server\n"
         "import spark_rapids_jni_tpu_torch.utils.tracing\n"
+        "import spark_rapids_jni_tpu_torch.native\n"
         "from spark_rapids_jni_tpu_torch.tpcds.oplib import registry\n"
         "registry.ensure_loaded()\n"
         "import chip_smoke\n"

@@ -65,6 +65,9 @@ from spark_rapids_jni_tpu_torch.tpcds import PLANS
 from spark_rapids_jni_tpu_torch.tpcds.rel import rel_from_df, run_fused
 from spark_rapids_jni_tpu_torch.utils.faults import FakeDeviceMemory
 
+from torch_native_support import (native_libraries,  # noqa: F401
+                                  port_dtype, reference_native)
+
 ROOT = Path(__file__).resolve().parents[1]
 CPU = "cpu"
 QS = [f"q{i}" for i in range(1, 21)]
@@ -421,6 +424,62 @@ def test_trace_export_writes_report_json(rels, tmp_path, monkeypatch):
     assert d["query"] == "q1"
     assert {"dispatches", "host_syncs", "spans", "routes", "counters",
             "memory"} <= set(d)
+
+
+def test_native_report_fields_equal_reference(rels, ref_rels, monkeypatch,
+                                              native_libraries,  # noqa: F811
+                                              reference_native):  # noqa: F811
+    """With both native libraries loaded on the CPU and the same native
+    calls made in both, a q1 report's ``native_routes``,
+    ``reliability``'s ``native.ra.*`` and ``memory.native_arena`` equal
+    the reference's. Run on a fresh thread: the route sentinels are the
+    thread's own."""
+    from spark_rapids_jni_tpu.types import DType as RefDType, TypeId
+    nat = native_libraries[0]
+    _enable(monkeypatch)
+    set_config(metrics_enabled=True)
+    i64 = RefDType(TypeId.INT64)
+    vals = np.arange(250_000, dtype=np.int64) % 977
+    out: dict = {}
+
+    def run():
+        for mod in (nat, reference_native):
+            dt = port_dtype(i64) if mod is nat else i64
+            with mod.NativeTable([(dt, vals, None)] * 8) as t:
+                mod.convert_to_rows(t)  # the arenas' new peak
+                mod.murmur3_table(t)
+                mod.sort_order(t)
+            mod.ra_configure(1 << 20)
+            mod.ra_task_register(41)
+            mod.ra_alloc(41, 1000)
+            try:
+                mod.ra_alloc(41, 1 << 20)
+            except RuntimeError as e:  # RetryOOM of either package
+                out.setdefault("oom", []).append(type(e).__name__)
+        ref_run_fused(RQ._q1, ref_rels)
+        run_fused(PLANS["q1"], rels, device=CPU)
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join(timeout=300)
+    try:
+        got, want = obs.last_report("q1"), ref_obs.last_report("q1")
+        assert out["oom"] == ["RetryOOM", "RetryOOM"]
+        assert got.native_routes == want.native_routes
+        assert got.native_routes["murmur3"] == 0
+        assert got.native_routes["to_rows"] == 0
+        assert got.native_routes["groupby"] == -1  # never ran on it
+        assert got.memory["native_arena"] == want.memory["native_arena"]
+        assert got.memory["native_arena"]["live_handles"] == 0
+        ra = {k: v for k, v in got.reliability.items()
+              if k.startswith("native.ra.")}
+        assert ra == {k: v for k, v in want.reliability.items()
+                      if k.startswith("native.ra.")}
+        assert ra["native.ra.task.retry_oom"] == 1
+        assert ra["native.ra.in_use"] == 1000
+    finally:
+        for mod in (nat, reference_native):
+            mod.ra_task_done(41)
 
 
 def test_reports_disabled_by_default(rels):

@@ -45,6 +45,9 @@ from spark_rapids_jni_tpu_torch.tpcds import PLANS
 from spark_rapids_jni_tpu_torch.tpcds.rel import rel_from_df, run_fused
 from spark_rapids_jni_tpu_torch.utils import faults
 
+from torch_native_support import (native_libraries,  # noqa: F401
+                                  reference_native)
+
 ROOT = Path(__file__).resolve().parents[1]
 CPU = "cpu"
 T = 60
@@ -287,3 +290,57 @@ def test_mesh_seams_fire_on_every_rank_before_collectives(tmp_path):
         assert res["alloc:retry_oom:1"] == "RetryOOM"
         pd.testing.assert_frame_equal(res["after"], res["single"],
                                       check_exact=False, rtol=1e-9)
+
+
+# ---------------------------------------------------------------------------
+# native resource adaptor (``native.ra.*``), both libraries loaded on the CPU
+# ---------------------------------------------------------------------------
+
+def test_native_ra_snapshot_equals_reference(native_libraries,  # noqa: F811
+                                             reference_native):  # noqa: F811
+    """The same retry escalation in both libraries: the port's native
+    binding raises ``utils/faults``' classes, ``retry_action`` maps them
+    as the reference maps its own, and the ``native.ra.*`` snapshots (and
+    their gauges) are equal."""
+    from spark_rapids_jni_tpu.obs import report as ref_report
+    nat, ref = native_libraries[0], reference_native
+    actions = []
+    try:
+        for mod, rel, retry, split in (
+                (nat, reliability, faults.RetryOOM, faults.SplitAndRetryOOM),
+                (ref, ref_rel, RefRetryOOM, RefSplitOOM)):
+            mod.ra_configure(1000)
+            mod.ra_task_register(77)
+            mod.ra_alloc(77, 800)
+            for exc in (retry, split):
+                with pytest.raises(exc) as e:
+                    mod.ra_alloc(77, 800)
+                actions.append(rel.retry_action(e.value))
+        assert actions == ["retry_oom", "split", "retry_oom", "split"]
+        snap = report_mod.native_ra_snapshot()
+        assert snap == ref_report.native_ra_snapshot()
+        assert snap["native.ra.in_use"] == 800
+        assert snap["native.ra.task.retry_oom"] == 1
+        assert snap["native.ra.task.split_retry_oom"] == 1
+        assert obs.gauge("native.ra.in_use").value == 800
+        rep = report_mod.ExecutionReport(
+            query="q1", fused=True, cache_hit=False, dispatches=1,
+            host_syncs=1, wall_ns=1, reliability=snap)
+        assert "native.ra.task.retry_oom: 1" in rep.render()
+    finally:
+        nat.ra_task_done(77)
+        ref.ra_task_done(77)
+    assert report_mod.native_ra_snapshot()["native.ra.in_use"] == 0
+
+
+def test_native_ra_snapshot_broken_read_is_counted(monkeypatch,
+                                                   native_libraries):  # noqa: F811
+    nat = native_libraries[0]
+
+    def boom():
+        raise RuntimeError("library half-loaded")
+
+    monkeypatch.setattr(nat, "ra_stats", boom)
+    before = obs.kernel_stats()
+    assert report_mod.native_ra_snapshot() == {}
+    assert obs.stats_since(before).get("obs.native_ra_errors") == 1
