@@ -194,12 +194,21 @@ In order, it:
    passes' wall times, the q3 report in full, and whether the kernel
    library's build was recorded as a compile event. Then: q1-q10's
    tables ingested again with ``SRT_RESULT_CACHE_BYTES`` 1 GiB and q1-q10
-   served twice on each tier (whole entries, ``SRT_PAGE_POOL_BYTES=0``;
-   page-rounded entries leased from a 1 GiB page pool): the second pass
-   must hit (provenance ``result_cache``), launch no kernel and count no
-   host sync, and equal the oracle; a one-row change of store_sales must
-   miss, and so must q3 on equal sf=2 content filled on the card and run
-   on the CPU. With
+   served twice on each tier (whole entries on the card,
+   ``SRT_PAGE_POOL_BYTES=0``; host pages, the pool at 1 GiB): the second
+   pass must hit (provenance ``result_cache``), launch no kernel and
+   count no host sync, and equal the oracle. On the paged tier every
+   resident page must be pinned host memory and no entry may hold a CUDA
+   tensor; q1-q10 hit once more through ``run_fused`` on this thread
+   must launch no kernel and make no synchronising call before any
+   decode, give new CUDA tensors, and equal the oracle although the
+   cache is dropped and fresh pinned buffers of its sizes written over
+   while the uploads may be in flight; each hit's ms (to return, and to
+   the upload's end) is printed beside the whole tier's. A pass at a cap
+   of half the bytes q1-q10 charge must count ``page_evictions``, the
+   stripped or dropped entries missing and the rest hitting equal to the
+   oracle. A one-row change of store_sales must miss, and so must q3 on
+   equal sf=2 content filled on the card and run on the CPU. With
    ``SRT_FAULTS``-style injections (``dispatch:raise:1,alloc:retry_oom:1``)
    two requests reject with ``InjectedFault`` and ``RetryOOM``
    (``retry_action``: ``retry``, ``retry_oom``; ``serving.failed``) and
@@ -213,6 +222,14 @@ In order, it:
    report's ``shuffle`` section its ``shuffle.*`` counters, with K5
    launched on the shuffle-hash joins' keys; it prints the scratch
    budget the ranks agreed;
+10t. the trace-range step: q3 on step 3's tables (sf=1000), the result
+   cache skipped, once under ``SRT_TRACE_ENABLED=1`` and once with it
+   off, each inside ``torch.profiler`` (Chrome traces under
+   ``target/trace_ranges/``): the first must hold ``srt::`` ranges (the
+   spans' and ``traced`` ops' ``record_function`` ranges) with hand
+   kernels inside them (their launching call, matched by correlation id,
+   in a range of its thread), the second no ``srt::`` range; both
+   results equal the oracle;
 10c. the batched serving step, with ``SRT_METRICS`` on and the result
    cache off, on step 3's tables and ``rels_b``: the same tables but
    store_sales ingested again from its frame with ss_net_profit rotated
@@ -381,7 +398,16 @@ In order, it:
     10, of 3 for the 12M-row host-table row routes), rows/s, the byte
     bound and the child's host-route ms (one run), requires every native
     and engine handle freed, and holds the engine's K4/K5/K6 launches,
-    as wrapper calls on the same inputs, against their plain versions;
+    as wrapper calls on the same inputs, against their plain versions.
+    Before the routes, the JVM's face: the mock-``JNIEnv`` driver
+    ``tests/torch_jni_engine_driver.cpp``, built with the host's ``g++``
+    against the library beside steps 1-3, runs in a child: a
+    ``Hashing.murmurHash3`` over 1M INT32/INT64 rows before
+    ``PjrtEngine.init`` (the host route, sentinel 0), then init on device
+    0, ``isAvailable``, ``deviceCount`` >= 1, the engine's platform name,
+    ``registerProgram`` throwing (no StableHLO registry), no program
+    registered, and the same hash again, which must route to the card
+    (sentinel 1) and equal the host route;
 14. prints the ``kernels`` JSON line (K1-K6, each with its launches on
     its paths: K1-K3 on q1-q10, q11-q20, the served path, the batched
     path, the morsel step, the fleet-control step (K5 too) and the tuned
@@ -964,7 +990,10 @@ def _count_syncs(fn):
             out = fn()
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    return out, sum("synchroniz" in str(w.message).lower() for w in caught)
+    # the mode's own first-use notice ("Synchronization debug mode is a
+    # prototype feature") is not a synchronising call
+    return out, sum("synchroniz" in str(w.message).lower()
+                    and "prototype" not in str(w.message) for w in caught)
 
 
 # the __global__ functions of csrc/*.cu (templates included), as the
@@ -3710,10 +3739,18 @@ def serve_recorded(ex, rels: dict, queries: tuple, calls: list,
 
 def serving_cache(dev, data: dict, oracles: dict, ex, log, card: str):
     """q1-q10's tables ingested again with the result cache on, q1-q10
-    served twice on each tier (whole entries, then entries leased from
-    the page ledger): the second pass must hit, launch nothing and sync
-    nothing; a one-row change of store_sales must miss, and equal content
-    on another device must miss."""
+    served twice on each tier (whole entries on the card, then host
+    pages): the second pass must hit, launch nothing and sync nothing.
+    On the paged tier every resident page must be pinned host memory and
+    no entry may hold a CUDA tensor; q1-q10 hit once more through
+    ``run_fused`` on this thread must launch nothing and make no
+    synchronising call before any decode, give new CUDA tensors, and
+    still equal the oracle after the cache is dropped and its pinned
+    memory written over while the uploads may be in flight; a pass at a
+    cap of half the charged bytes must strip pages
+    (``page_evictions``), the stripped entries missing and the rest
+    hitting equal to the oracle. A one-row change of store_sales must
+    miss, and equal content on another device must miss."""
     out = {}
     with env_set({"SRT_RESULT_CACHE_BYTES": str(1 << 30)}):
         result_cache.reset()
@@ -3732,11 +3769,8 @@ def serving_cache(dev, data: dict, oracles: dict, ex, log, card: str):
                 d = stats_since(st)
                 reps = served_reports(hit)
                 cache = result_cache.result_cache()
-                leases = (0 if pages.page_pool() is None
-                          else pages.page_pool().n_leases)
-                _require((cache.page_bytes > 0) == (tier == "paged")
-                         and (leases >= len(cache)) == (tier == "paged"),
-                         f"{tier}: wrong tier ({leases} page leases)")
+                _require(isinstance(cache, result_cache.PagedResultCache)
+                         == (tier == "paged"), f"{tier}: wrong tier {cache}")
                 _require(dict(K.LAUNCHES) == launches,
                          f"result cache ({tier}): a hit launched kernels")
                 _require(d.get("rel.host_syncs", 0) == 0
@@ -3760,6 +3794,24 @@ def serving_cache(dev, data: dict, oracles: dict, ex, log, card: str):
                     f"{min(hit_ms.values()):.4f}-{max(hit_ms.values()):.4f}"
                     f" ms a hit, {cache.resident_bytes} bytes in "
                     f"{len(cache)} entries [{card}]")
+                if tier == "paged":
+                    out[tier] |= paged_residency(dev, cache, cached, oracles,
+                                                 log, card)
+        for q in CACHE_QUERIES:
+            p = out["paged"]["direct"][q]
+            log(f"serving result cache hit {q}: whole "
+                f"{out['whole']['hit_ms'][q]:.4f} ms, paged "
+                f"{out['paged']['hit_ms'][q]:.4f} ms (served reports' "
+                f"run_fused wall); paged on this thread {p['host_ms']:.4f} ms"
+                f" to return (its token alone {p['token_ms']:.4f} ms, the "
+                f"cache's get alone {p['get_ms']:.4f} ms), "
+                f"{p['ready_ms']:.4f} ms to the upload's end, "
+                f"{p['upload_bytes']} bytes up [{card}]")
+        with env_set({"SRT_PAGE_POOL_BYTES": str(1 << 30)}):
+            out["eviction"] = paged_eviction(
+                dev, ex, cached, oracles, out["paged"]["resident_bytes"],
+                log, card)
+        out["large_put"] = paged_large_put(cached["store_sales"], log, card)
         ss = data["store_sales"].copy()
         ss.loc[0, "ss_quantity"] = ss.loc[0, "ss_quantity"] + 1
         changed = dict(cached, store_sales=rel_from_df(ss, device=dev))
@@ -3792,6 +3844,182 @@ def serving_cache(dev, data: dict, oracles: dict, ex, log, card: str):
             "card misses on the CPU, and lands there")
         result_cache.reset()
     return out
+
+
+def paged_residency(dev, cache, cached: dict, oracles: dict, log,
+                    card: str) -> dict:
+    """The paged tier's gates after its hit pass (``serving_cache``): the
+    pages pinned on the host, no CUDA tensor held, and q1-q10 hit on this
+    thread through ``run_fused`` with no launch and no synchronising call
+    before any decode, each hit new CUDA tensors equal to the oracle even
+    after the cache is dropped and pinned memory written over while the
+    uploads may still be in flight. Returns the residency and each hit's
+    host ms, ready ms and upload bytes."""
+    pages = cache.resident_pages()
+    _require(pages and all(p.device.type == "cpu"
+                           and (p.numel() == 0 or p.is_pinned())
+                           for p in pages),
+             "paged result cache: a resident page is not pinned host memory")
+    n_pages = len(pages)
+    del pages  # views: they would keep the host buffers alive
+    _require(not any(t.is_cuda for t in cache.resident_tensors()),
+             "paged result cache: an entry holds a CUDA tensor")
+    sizes = [t.nbytes for t in cache.resident_tensors()]
+    host_bytes = sum(sizes)
+    from spark_rapids_jni_tpu_torch.tpcds.rel import result_cache_token
+    direct = {}
+    for q in CACHE_QUERIES:  # one at a time: the ms of each hit
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one = run_fused(PLANS[q], cached, device=dev)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        ready = time.perf_counter()
+        # the same hit in its parts: the token, then the cache's get (the
+        # stream's wait and the uploads, enqueued)
+        tok = result_cache_token(PLANS[q], cached, device=dev)
+        t2 = time.perf_counter()
+        _require(cache.get(tok) is not None, f"{q}: the token missed")
+        t3 = time.perf_counter()
+        torch.cuda.synchronize()
+        direct[q] = {"host_ms": (t1 - t0) * 1e3,
+                     "ready_ms": (ready - t0) * 1e3,
+                     "token_ms": (t2 - ready) * 1e3,
+                     "get_ms": (t3 - t2) * 1e3,
+                     "upload_bytes": sum(
+                         c.data.nbytes + (0 if c.validity is None
+                                          else c.validity.nbytes)
+                         for c in one.table.columns)}
+    launches, st = dict(K.LAUNCHES), kernel_stats()
+    first = {q: run_fused(PLANS[q], cached, device=dev)
+             for q in CACHE_QUERIES}
+    hits, syncs = _count_syncs(lambda: {
+        q: run_fused(PLANS[q], cached, device=dev) for q in CACHE_QUERIES})
+    d = stats_since(st)
+    _require(dict(K.LAUNCHES) == launches,
+             "paged result cache: a run_fused hit launched kernels")
+    _require(syncs == 0, f"paged result cache: {syncs} synchronising calls "
+             "in the run_fused hits")
+    _require(d.get("serving.result_cache.hits") == 2 * len(CACHE_QUERIES)
+             and not d.get("rel.host_syncs"), f"paged hits: {d}")
+    for q, rel in hits.items():
+        held = {c.data.data_ptr() for c in first[q].table.columns}
+        _require(all(c.data.device.type == dev.type
+                     and c.data.data_ptr() not in held
+                     for c in rel.table.columns),
+                 f"{q}: a paged hit's columns are not new CUDA tensors")
+    # drop every host page while the uploads may be in flight and write
+    # over fresh pinned buffers of the same sizes (the caching host
+    # allocator's next blocks): the hits must not see it
+    cache.clear()
+    junk = [torch.full((max(1, n),), 0xA5, dtype=torch.uint8,
+                       pin_memory=True) for n in sizes for _ in range(2)]
+    for q, rel in hits.items():
+        frames_match(rel.to_df(), oracles[q], f"{q} (paged hit, cache "
+                     "dropped during the upload)")
+    del junk, first
+    log(f"serving result cache (paged): {n_pages} resident pages, all "
+        f"pinned host memory ({host_bytes} bytes), no CUDA tensor held; "
+        f"q1-q10 hit through run_fused: 0 launches, 0 synchronising calls, "
+        f"new CUDA tensors, equal to the oracle with the cache dropped and "
+        f"its pinned memory written over during the upload [{card}]")
+    return {"pages": n_pages, "host_bytes": host_bytes, "direct": direct}
+
+
+def paged_large_put(rel, log, card: str) -> dict:
+    """One large result through a paged cache of its own: ``rel`` (the
+    main path's store_sales, every row and column) put, then read back.
+    Times ``put`` on this thread (the pinned buffers' allocation and the
+    copies enqueued) and to its event, and the hit to its return and to
+    the upload's end; the hit must equal ``rel`` column for column."""
+    from spark_rapids_jni_tpu_torch.exec.pages import page_bytes
+    cache = result_cache.PagedResultCache(1 << 40, page_bytes())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _require(cache.put("large", rel), "large put: refused")
+    t1 = time.perf_counter()
+    ent = cache._entries["large"]
+    _require(ent.opaque is None
+             and (ent.event is not None) == (ent.device.type == "cuda"),
+             "large put: not paged")
+    if ent.event is not None:
+        ent.event.synchronize()
+    t2 = time.perf_counter()
+    host_bytes = sum(t.nbytes for t in cache.resident_tensors())
+    pages = len(ent.page_slots)
+    t3 = time.perf_counter()
+    got = cache.get("large")
+    t4 = time.perf_counter()
+    torch.cuda.synchronize()
+    t5 = time.perf_counter()
+    for a, b in zip(rel.table.columns, got.table.columns, strict=True):
+        _require(torch.equal(a.data, b.data)
+                 and (a.validity is None) == (b.validity is None)
+                 and (a.validity is None or torch.equal(a.validity,
+                                                        b.validity)),
+                 "large put: a column changed on its round trip")
+    cache.clear()
+    del got, ent
+    out = {"rows": rel.table.num_rows, "columns": len(rel.table.columns),
+           "host_bytes": host_bytes, "pages": pages,
+           "put_ms": (t1 - t0) * 1e3, "put_ready_ms": (t2 - t0) * 1e3,
+           "get_ms": (t4 - t3) * 1e3, "get_ready_ms": (t5 - t3) * 1e3}
+    log(f"serving result cache (paged, one large result: store_sales, "
+        f"{out['rows']} rows x {out['columns']} columns, {host_bytes} "
+        f"bytes in {pages} pages): put {out['put_ms']:.3f} ms to return, "
+        f"{out['put_ready_ms']:.3f} ms to its event; hit "
+        f"{out['get_ms']:.3f} ms to return, {out['get_ready_ms']:.3f} ms "
+        f"to the upload's end; equal column for column [{card}]")
+    return out
+
+
+def paged_eviction(dev, ex, cached: dict, oracles: dict, charged: int,
+                   log, card: str) -> dict:
+    """q1-q10 served once into a paged cache capped at half of what they
+    charge: admission strips LRU pages (``page_evictions``); then every
+    token is read once: the stripped entries miss, the rest hit equal to
+    the oracle."""
+    from spark_rapids_jni_tpu_torch.tpcds.rel import result_cache_token
+    cap = max(charged // 2, 1)
+    with env_set({"SRT_RESULT_CACHE_BYTES": str(cap)}):
+        cache = result_cache.result_cache()
+        _require(isinstance(cache, result_cache.PagedResultCache)
+                 and len(cache) == 0, "eviction pass: not a fresh paged cache")
+        st = kernel_stats()
+        serve_pass(ex, cached, CACHE_QUERIES)
+        filled = stats_since(st)
+        tokens = {q: result_cache_token(PLANS[q], cached, device=dev)
+                  for q in CACHE_QUERIES}
+        with cache._lock:
+            state = {q: ("absent" if t not in cache._entries else
+                         "stripped" if cache._entries[t].stripped else "live")
+                     for q, t in tokens.items()}
+        resident = cache.resident_bytes
+        st = kernel_stats()
+        for q, tok in tokens.items():
+            got = cache.get(tok)
+            _require((got is None) == (state[q] != "live"),
+                     f"{q}: {state[q]} entry read {got is not None}")
+            if got is not None:
+                frames_match(got.to_df(), oracles[q], f"{q} (eviction pass)")
+        d = stats_since(st)
+    pe = filled.get("serving.result_cache.page_evictions", 0)
+    live = sum(v == "live" for v in state.values())
+    _require(pe > 0 and resident <= cap, f"eviction pass: {filled}, "
+             f"{resident} bytes resident of {cap}")
+    _require(d.get("serving.result_cache.hits", 0) == live
+             and d.get("serving.result_cache.misses", 0)
+             == len(tokens) - live, f"eviction pass reads: {d}")
+    log(f"serving result cache (paged, cap {cap} bytes of {charged} "
+        f"charged): page_evictions={pe} "
+        f"evictions={filled.get('serving.result_cache.evictions', 0)}; "
+        f"{live} entries live and hit equal to the oracle, "
+        f"{sum(v == 'stripped' for v in state.values())} stripped and "
+        f"{sum(v == 'absent' for v in state.values())} gone, missing "
+        f"[{card}]")
+    return {"cap": cap, "charged": charged, "page_evictions": pe,
+            "evictions": filled.get("serving.result_cache.evictions", 0),
+            "states": state, "resident_bytes": resident}
 
 
 def serving_faults(ex, rels: dict, oracles: dict, log) -> dict:
@@ -4047,6 +4275,101 @@ def run_serving(dev, rels: dict, data: dict, oracles: dict, mesh, log,
     out["step_s"] = time.perf_counter() - t_step
     out["serial"] = serial  # the fleet-control step's baseline
     return out, calls, mesh_calls
+
+
+# --------------------------------------------------------------------------
+# The trace-range step: SRT_TRACE_ENABLED's srt:: profiler ranges
+# --------------------------------------------------------------------------
+
+TRACE_QUERY = "q3"
+TRACE_DIR = Path(__file__).resolve().parent / "target" / "trace_ranges"
+
+
+def _traced_ranges(trace: dict) -> dict:
+    """The ``srt::`` ranges of a Chrome trace and the hand kernels inside
+    them: a kernel is inside a range when the host call that launched it
+    (matched by correlation id) lies in a CPU ``srt::`` range of its
+    thread, or its device interval lies in a GPU-side ``srt::``
+    annotation."""
+    events = [e for e in trace.get("traceEvents", [])
+              if e.get("ph") == "X"]
+    cpu_ranges: dict = {}
+    gpu_ranges = []
+    for e in events:
+        if not str(e.get("name", "")).startswith("srt::"):
+            continue
+        span = (float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+        if e.get("cat") == "gpu_user_annotation":
+            gpu_ranges.append(span)
+        else:
+            cpu_ranges.setdefault(e.get("tid"), []).append(span)
+    launches = {}
+    for e in events:
+        corr = (e.get("args") or {}).get("correlation")
+        if corr is not None and e.get("cat") in ("cuda_runtime",
+                                                 "cuda_driver"):
+            launches[corr] = e
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and HAND_KERNEL.search(str(e.get("name", "")) + "(")]
+    inside = 0
+    for k in kernels:
+        launch = launches.get((k.get("args") or {}).get("correlation"))
+        t = None if launch is None else float(launch["ts"])
+        by_host = t is not None and any(
+            lo <= t <= hi for lo, hi in cpu_ranges.get(launch.get("tid"), ()))
+        lo_k = float(k["ts"])
+        hi_k = lo_k + float(k.get("dur", 0))
+        by_device = any(lo <= lo_k and hi_k <= hi for lo, hi in gpu_ranges)
+        inside += by_host or by_device
+    names = sorted({str(e["name"]) for e in events
+                    if str(e.get("name", "")).startswith("srt::")})
+    return {"ranges": sum(map(len, cpu_ranges.values())) + len(gpu_ranges),
+            "names": names, "hand_kernels": len(kernels),
+            "hand_kernels_inside": inside}
+
+
+def run_trace_ranges(dev, rels: dict, oracles: dict, log, card: str) -> dict:
+    """``TRACE_QUERY`` at sf=1000 once under ``SRT_TRACE_ENABLED=1`` and
+    once with it off, each inside ``torch.profiler`` (the result cache
+    skipped, so the kernels run): the first trace must hold ``srt::``
+    ranges with hand kernels inside them, the second none; both results
+    equal the oracle."""
+    from torch.profiler import ProfilerActivity, profile
+    t_step = time.perf_counter()
+    shutil.rmtree(TRACE_DIR, ignore_errors=True)
+    TRACE_DIR.mkdir(parents=True)
+    out = {}
+    for on in ("1", "0"):
+        with env_set({"SRT_TRACE_ENABLED": on}):
+            run_fused(PLANS[TRACE_QUERY], rels, device=dev,
+                      skip_result_cache=True).to_df()  # warm
+            launched = dict(K.LAUNCHES)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                got = run_fused(PLANS[TRACE_QUERY], rels, device=dev,
+                                skip_result_cache=True)
+                torch.cuda.synchronize()
+            path = TRACE_DIR / f"{TRACE_QUERY}_trace_{on}.json"
+            prof.export_chrome_trace(str(path))
+        frames_match(got.to_df(), oracles[TRACE_QUERY],
+                     f"{TRACE_QUERY} (SRT_TRACE_ENABLED={on})")
+        r = _traced_ranges(json.loads(path.read_text()))
+        r["launched"] = sum(K.LAUNCHES.values()) - sum(launched.values())
+        out["on" if on == "1" else "off"] = r
+    on, off = out["on"], out["off"]
+    _require(on["ranges"] > 0 and on["hand_kernels_inside"] > 0,
+             f"SRT_TRACE_ENABLED=1: no srt:: range holding a hand kernel "
+             f"({on})")
+    _require(off["ranges"] == 0 and not off["names"],
+             f"SRT_TRACE_ENABLED=0: srt:: ranges in the trace ({off})")
+    out["step_s"] = time.perf_counter() - t_step
+    log(f"trace ranges: {TRACE_QUERY} at sf={SF} under SRT_TRACE_ENABLED=1: "
+        f"{on['ranges']} srt:: ranges ({', '.join(on['names'][:8])}), "
+        f"{on['hand_kernels_inside']} of {on['hand_kernels']} hand-kernel "
+        f"launches in the trace inside one ({on['launched']} launched); "
+        f"with it off: {off['ranges']} srt:: ranges, {off['hand_kernels']} "
+        f"hand-kernel launches; {out['step_s']:.3f} s [{card}]")
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -5243,6 +5566,9 @@ NATIVE_ROW_TABLES = (1_000_000, 12_000_000)  # TestTables x 4, no validity
 NATIVE_GROUPS = ((62, 102), (1_000_000,))    # 6,324 groups (two keys), 1M
 NATIVE_SEED = 14
 NATIVE_DIR = Path(__file__).resolve().parent / "target" / "native_smoke"
+# the mock-JNIEnv driver of the PjrtEngine natives (also the CPU tests')
+JNI_DRIVER = Path(__file__).resolve().parent / "tests" / \
+    "torch_jni_engine_driver.cpp"
 NATIVE_NAMES = HASH_NAMES + ("pack_rows",)
 # the engine's K4/K5/K6 launches in one pass of every route both ways:
 # murmur3 of the hash table's two 4-byte and four 8-byte columns twice,
@@ -5422,6 +5748,7 @@ class NativePrep(threading.Thread):
     def __init__(self):
         super().__init__(daemon=True)
         self.build_s = None
+        self.driver = None
         self.child = None
         self.error = None
         self.proc = None
@@ -5431,8 +5758,9 @@ class NativePrep(threading.Thread):
         try:
             from spark_rapids_jni_tpu_torch import native as nat
             t0 = time.perf_counter()
-            nat.build()
+            lib = nat.build()
             self.build_s = time.perf_counter() - t0
+            self.driver = nat.build_jni_driver(lib, JNI_DRIVER)
             shutil.rmtree(NATIVE_DIR, ignore_errors=True)
             t0 = time.perf_counter()
             if self.stopped:
@@ -5549,6 +5877,38 @@ def native_kernel_calls(dev, tabs: dict, m3: np.ndarray) -> list:
     return calls
 
 
+JNI_ROWS = 1_000_000  # the driver's murmurHash3 table: INT32 and INT64
+
+
+def run_jni_driver(prep: NativePrep, log, card: str) -> dict:
+    """The mock-``JNIEnv`` driver (``tests/torch_jni_engine_driver.cpp``,
+    built with the host's ``g++`` against the library) in a child, as a
+    Spark executor starts: a Hashing.murmurHash3 before init on the host
+    route, ``PjrtEngine.init`` on device 0, the engine's queries, the
+    refused program registration, and the same murmurHash3 again, which
+    must route to the card (sentinel 1) and equal the host route."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([str(prep.driver), "cuda: ", str(JNI_ROWS)],
+                          capture_output=True, text=True, timeout=300)
+    _require(proc.returncode == 0, f"JNI driver failed ({proc.returncode}): "
+             f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    _require(got["init_error"] == "" and got["available"]
+             and got["device_count"] >= 1
+             and got["platform"].startswith("cuda: ")
+             and "StableHLO" in got["register_refused"]
+             and not got["registered"] and got["host_sentinel"] == 0
+             and got["device_sentinel"] == 1 and got["equal"]
+             and got["failures"] == 0, f"JNI driver: {got}")
+    got["seconds"] = time.perf_counter() - t0
+    log(f"native JNI face: PjrtEngine.init on device 0 ({got['platform']}, "
+        f"{got['device_count']} device(s)); registerProgram throws "
+        f"({got['register_refused']!r}); Hashing.murmurHash3 over "
+        f"{JNI_ROWS} rows routed to the card (sentinel 1) equal to the host "
+        f"route before init; child {got['seconds']:.3f} s [{card}]")
+    return got
+
+
 def run_native(dev, prep: NativePrep, log, card: str, out_dir=None):
     """The native step: every route both ways with sentinel 1, equal to
     the CPU child's host route; K4/K5/K6 launches counted from the
@@ -5570,6 +5930,7 @@ def run_native(dev, prep: NativePrep, log, card: str, out_dir=None):
     _require(nat.cuda_available(), "the CUDA engine did not start")
     log(f"native engine: {nat.cuda_platform_name()}, "
         f"{nat.cuda_device_count()} device(s)")
+    jni = run_jni_driver(prep, log, card)
     tabs = native_tables()
     want = prep.child
     d = NATIVE_DIR
@@ -5756,7 +6117,7 @@ def run_native(dev, prep: NativePrep, log, card: str, out_dir=None):
         f"[{card}]")
     log(json.dumps({"native_routes": routes}))
     return {"build_s": prep.build_s, "child_s": prep.child["seconds"],
-            "pass_s": pass_s, "step_s": step_s, "routes": routes,
+            "jni": jni, "pass_s": pass_s, "step_s": step_s, "routes": routes,
             "sentinels": sentinels, "engine_launches": engine,
             "launches": launches, "live": live}, calls
 
@@ -6021,6 +6382,8 @@ def main(argv=None) -> int:
     del fleet_calls
     log(f"fleet-control step: {fleet['step_s']:.3f} s [{card}]")
 
+    trace = run_trace_ranges(dev, rels, oracles, log, card)
+
     batching, calls, batch_rec = run_batching(dev, rels, data, oracles, log,
                                               card)
     log("batched kernel calls, each equal to its plain version on the "
@@ -6096,6 +6459,7 @@ def main(argv=None) -> int:
                        "mesh": mesh, "serving": serving,
                        "batching": batching, "morsel": morsel,
                        "fleet_control": fleet, "warm_disk": warm_disk,
+                       "trace_ranges": trace,
                        "tune": tuned, "row_conversion": rows,
                        "native": native_res,
                        "sf": SF, "seed": SEED}, f, indent=1, sort_keys=True,

@@ -68,6 +68,22 @@ def unpack_bytes(vbytes: torch.Tensor, n_fields: int) -> torch.Tensor:
     return bits.reshape(n, nbytes * 8)[:, :n_fields].to(torch.bool)
 
 
+def count_unset(words: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """Null count: the zero bits among the first ``n_rows`` (an int32
+    scalar tensor on the words' device)."""
+    return n_rows - unpack(words, n_rows).sum(dtype=torch.int32)
+
+
+def all_valid_words(n_rows: int) -> np.ndarray:
+    """Host-side all-valid mask (trailing padding bits zeroed)."""
+    w = num_words(n_rows)
+    out = np.full(w, 0xFFFFFFFF, dtype=np.uint32)
+    tail = n_rows % BITS_PER_WORD
+    if w and tail:
+        out[-1] = (1 << tail) - 1
+    return out
+
+
 def pack_host(valid: np.ndarray) -> np.ndarray:
     """Host-side (numpy) pack, LSB-first per 32-bit word."""
     n = valid.shape[0]

@@ -113,6 +113,41 @@ class Column:
                       value_range=vrange, unique=uniq)
 
     @staticmethod
+    def from_numpy_batch(arrays: Sequence[np.ndarray], *,
+                         device: torch.device) -> "list[Column]":
+        """Host -> device ingest of non-null 1-D arrays in one copy: the
+        arrays are packed into one host buffer (pinned when the device is
+        the card), 64-byte-aligned each, that goes to the device at once;
+        each column is a view of its segment. Stats as ``from_numpy``."""
+        staged, at = [], 0
+        for values in arrays:
+            values = np.asarray(values)
+            dt = np_to_dtype(values.dtype)
+            expects(dt.is_fixed_width and dt.storage_lanes == 1,
+                    "from_numpy_batch supports single-lane fixed widths")
+            expects(values.ndim == 1, "columns are 1-D")
+            expects(values.nbytes <= SIZE_TYPE_MAX,
+                    "single column buffer must stay below 2GB")
+            host = np.ascontiguousarray(values.astype(dt.storage_dtype,
+                                                      copy=False))
+            staged.append((values, dt, host, at))
+            at += -(-host.nbytes // 64) * 64
+        dev = torch.device(device)
+        buf = torch.empty(at, dtype=torch.uint8,
+                          pin_memory=dev.type == "cuda")
+        flat = buf.numpy()
+        for _, _, host, off in staged:
+            flat[off:off + host.nbytes] = host.reshape(-1).view(np.uint8)
+        moved = buf.to(dev, non_blocking=True)
+        cols = []
+        for values, dt, host, off in staged:
+            data = moved[off:off + host.nbytes].view(dt.to_torch())
+            vrange, uniq = host_ingest_stats(values, None)
+            cols.append(Column(dt, int(values.shape[0]), data,
+                               value_range=vrange, unique=uniq))
+        return cols
+
+    @staticmethod
     def decimal128_from_ints(values: Sequence[Optional[int]], scale: int = 0,
                              *, device: torch.device) -> "Column":
         """DECIMAL128 from unscaled Python ints (``v * 10**scale``); None

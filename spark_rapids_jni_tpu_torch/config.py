@@ -23,6 +23,24 @@ histograms, spans, SLO latency samples and one ``ExecutionReport`` a
 ``run_fused`` call. ``TZDIR`` names the TZif database the timezone
 operators read.
 
+The runtime switches are the reference's ``Config`` fields, with their
+names, knobs and defaults: ``trace_enabled`` (``SRT_TRACE_ENABLED``: every
+span and ``traced`` op opens a ``torch.profiler.record_function`` range
+``srt::<name>``, the analog of cudf's NVTX switch), ``metrics_enabled``
+(``SRT_METRICS``), ``trace_export`` (``SRT_TRACE_EXPORT``; ``None``
+reads as unset) and ``control_plane_enabled`` (``SRT_CONTROL_PLANE``).
+``get_config()`` reads each field at access: a value given to
+``set_config`` wins over the environment until ``reset_config``;
+otherwise the knob is read anew each time, so a caller that sets the
+environment sees the change at once. Four of the reference's fields are
+left out, as nothing here would read them: ``use_pallas`` (on a CUDA
+tensor the port always takes its kernel), ``shape_bucket_floor`` (the
+port compiles no program per shape, so it buckets no row counts),
+``refcount_debug`` (no code of either package reads it) and
+``memory_log_level`` (the native arena reads ``SRT_MEMORY_LOG_LEVEL``
+from its own environment, never through ``Config``, so a field would
+be a setting with no effect). ``set_config`` raises on each of them.
+
 The serving and obs knobs keep the reference's names and defaults:
 ``SRT_TRACE_EXPORT`` (a directory the reports and flight dumps are
 written to), ``SRT_OBS_HTTP_PORT`` / ``SRT_OBS_HTTP_HOST`` (the scrape
@@ -188,5 +206,70 @@ def tzdir() -> str:
     return env_str("TZDIR", "/usr/share/zoneinfo")
 
 
+# --- the runtime Config (the reference's ``Config``/``get_config``/
+# ``set_config``) ------------------------------------------------------
+
+# field -> (environment knob, parser, default), as in the reference
+_CONFIG_FIELDS = {
+    "trace_enabled": ("SRT_TRACE_ENABLED", env_bool, False),
+    "metrics_enabled": ("SRT_METRICS", env_bool, False),
+    "trace_export": ("SRT_TRACE_EXPORT", env_str, ""),
+    "control_plane_enabled": ("SRT_CONTROL_PLANE", env_bool, False),
+}
+_overrides: dict = {}  # field -> the value set_config gave it
+_UNSET = object()
+
+
+class Config:
+    """The runtime switches, read field by field: a value given to
+    :func:`set_config` until :func:`reset_config`, else the field's
+    environment knob, read at each access (so a changed environment is
+    seen at once), else its default."""
+
+    __slots__ = ()
+
+    def __getattr__(self, name: str):
+        value = _overrides.get(name, _UNSET)
+        if value is not _UNSET:
+            return value
+        spec = _CONFIG_FIELDS.get(name)
+        if spec is None:
+            raise AttributeError(f"unknown config key {name!r}")
+        knob, parse, default = spec
+        return parse(knob, default)
+
+    def __setattr__(self, name: str, value) -> None:
+        set_config(**{name: value})
+
+    def __repr__(self) -> str:
+        return "Config(" + ", ".join(f"{k}={getattr(self, k)!r}"
+                                     for k in _CONFIG_FIELDS) + ")"
+
+
+_config = Config()
+
+
+def get_config() -> Config:
+    return _config
+
+
+def set_config(**kwargs) -> Config:
+    """Set fields; each wins over its environment knob until
+    :func:`reset_config`. An unknown key raises ``AttributeError`` and
+    sets nothing."""
+    for k in kwargs:
+        if k not in _CONFIG_FIELDS:
+            raise AttributeError(f"unknown config key {k!r}")
+    _overrides.update(kwargs)
+    return _config
+
+
+def reset_config(*names: str) -> None:
+    """Drop the values ``set_config`` gave ``names`` (all fields when none
+    are named): they read their environment knobs again."""
+    for k in names or tuple(_overrides):
+        _overrides.pop(k, None)
+
+
 def metrics_enabled() -> bool:
-    return env_bool("SRT_METRICS", False)
+    return get_config().metrics_enabled

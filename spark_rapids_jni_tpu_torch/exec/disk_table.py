@@ -67,7 +67,7 @@ from ..types import decimal64
 from ..utils import faults as _faults
 from ..utils.device import resolve_device
 from ..utils.errors import expects
-from .host_table import _padded_range
+from .host_table import _padded_range, _page_arrays
 
 _OPS = ("lt", "le", "gt", "ge", "eq", "ne", "between")
 
@@ -946,6 +946,13 @@ class ParquetHostTable:
                 chunk = np.concatenate([chunk, pad])
             out.append(np.ascontiguousarray(chunk))
         return out
+
+    def chunk_page_arrays(self, cols, start: int, live: int, cap: int,
+                          page_bytes: int) -> list:
+        """Page-granular staging view (HostTable contract): live pages
+        only, decoded through the prefetcher."""
+        return _page_arrays(self.chunk_views(cols, start, live), live, cap,
+                            page_bytes)
 
     # -- append (delta-recomputation seam) ---------------------------------
 

@@ -318,6 +318,19 @@ class HostTable:
             out.append(np.ascontiguousarray(chunk))
         return out
 
+    def chunk_page_arrays(self, cols: "Dict[str, HostColumn]",
+                          start: int, live: int, cap: int,
+                          page_bytes: int) -> list:
+        """Page-granular staging view of one capacity-shaped morsel: per
+        column ``(pages, n_pages, prows, dtype, tail_shape)``, ``pages``
+        the live page arrays (``(prows, *tail)`` each, rows [start,
+        start+live), the last zero-padded), ``n_pages`` the column's page
+        count at ``cap`` and ``prows`` the rows a page (at most ``cap``).
+        Dead pages are not built: a caller stands the zero page in for
+        them."""
+        return _page_arrays([cols[name].data[start:start + live]
+                             for name in self.names], live, cap, page_bytes)
+
     def chunk_views(self, cols: "Dict[str, HostColumn]", start: int,
                     live: int) -> "list[np.ndarray]":
         """The live rows [start, start+live) of each column, as views of
@@ -350,6 +363,29 @@ class HostTable:
             if self._version == version:
                 self._rel_memo = ((version, str(dev)), out)
         return out
+
+
+def _page_arrays(chunks: "list[np.ndarray]", live: int, cap: int,
+                 page_bytes: int) -> list:
+    """``chunk_page_arrays`` of the live rows ``chunks`` (one array a
+    column, ``live`` rows each)."""
+    out = []
+    for data in chunks:
+        tail = data.shape[1:]
+        row_bytes = int(data.dtype.itemsize
+                        * int(np.prod(tail, dtype=np.int64) or 1))
+        prows = max(1, min(int(cap), int(page_bytes) // max(1, row_bytes)))
+        n_pages = -(-int(cap) // prows)
+        live_pages = -(-int(live) // prows) if live > 0 else 0
+        pages = []
+        for j in range(live_pages):
+            page = data[j * prows:min(live, (j + 1) * prows)]
+            if page.shape[0] < prows:
+                pad = np.zeros((prows - page.shape[0],) + tail, data.dtype)
+                page = np.concatenate([page, pad])
+            pages.append(np.ascontiguousarray(page))
+        out.append((pages, n_pages, prows, data.dtype, tail))
+    return out
 
 
 def rel_append(table: HostTable, df) -> HostTable:

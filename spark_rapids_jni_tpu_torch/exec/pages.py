@@ -17,10 +17,11 @@ Port of ``spark_rapids_jni_tpu/exec/pages.py``, the same accounting:
 
 The ledger allocates nothing itself: the buffers come from PyTorch's
 CUDA caching allocator, and the pool is the admission ledger that keeps
-the paged consumers' total bounded and visible. The one consumer so far
-is the morsel pump's paged staging route (``exec/runner.py``), which
-leases its window and copies only the live pages of each morsel into
-the card; the batcher and the result cache come with the serving layer.
+the paged consumers' total bounded and visible: the morsel pump's paged
+staging route (``exec/runner.py``), which leases its window and copies
+only the live pages of each morsel into the card, and the batched runs'
+windows (``tpcds/rel.py``). The result cache's paged tier keeps its
+pages on the host and leases nothing.
 """
 
 from __future__ import annotations

@@ -13,6 +13,9 @@ over the same C ABI (``srt_*``). The library, ``libsrt_torch_native-
   (``src/main/cpp/jni``, against the vendored ``jni.h``), so a JVM that
   loads the library reaches the card through ``DeviceTableJni``,
   ``RowConversionJni``, ``HashJni`` and ``RelationalJni``;
+- ``csrc/native/engine_jni.cpp``, the port's own ``PjrtEngine`` natives
+  over the CUDA engine in place of ``PjrtEngineJni.cpp`` (its deviations
+  are in its header comment);
 - ``csrc/native/c_api.cpp``, the port's copy of the reference's C ABI
   with its device half behind ``csrc/native/device_engine.hpp``;
 - on a host with a CUDA device, the engine ``csrc/native/cuda_engine.cu``
@@ -79,7 +82,7 @@ HOST_SOURCES = tuple(CPP / "src" / f"{name}.cpp" for name in (
 JNI_SOURCES = tuple(CPP / "jni" / f"{name}.cpp" for name in (
     "RowConversionJni", "HashJni", "RmmSparkJni", "TpuTableJni",
     "RelationalJni", "CastStringsJni", "GetJsonObjectJni",
-    "DeviceTableJni"))
+    "DeviceTableJni")) + (NATIVE / "engine_jni.cpp",)
 CUDA_SOURCES = (NATIVE / "cuda_engine.cu", NATIVE / "cuda_sort.cu",
                 CSRC / "murmur3.cu", CSRC / "pack_rows.cu")
 NO_CUDA_SOURCES = (NATIVE / "no_device_engine.cpp",)
@@ -175,6 +178,33 @@ def build(sources=None, stem: str = "libsrt_torch_native") -> Path:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not out.exists():
             _build(out, sources)
+    return out
+
+
+def build_jni_driver(library: Path, source: Path) -> Path:
+    """A C++ driver of the library's JNI natives (a mock ``JNIEnv``, such
+    as ``tests/torch_jni_engine_driver.cpp``) built with the host's C++
+    compiler against the vendored ``jni.h`` and linked against
+    ``library``, beside it: its path. The name holds a digest of the
+    source, the library's name (itself a digest) and the flags, so an
+    edit to either builds anew."""
+    flags = ("-O1", "-std=c++17", "-I",
+             str(CPP / "include" / "vendored_jni"))
+    h = hashlib.sha256(" ".join(flags).encode() + library.name.encode())
+    h.update(Path(source).read_bytes())
+    out = library.with_name(f"{Path(source).stem}-{h.hexdigest()[:16]}")
+    with open(out.parent / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not out.exists():
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            proc = subprocess.run(
+                [_tool("g++", "/usr/bin/c++"), *flags, str(source), "-o",
+                 str(tmp), str(library), f"-Wl,-rpath,{library.parent}"],
+                capture_output=True, text=True, timeout=300)
+            if proc.returncode != 0:
+                raise CudfLikeError(f"JNI driver build failed:\n"
+                                    f"{proc.stdout}{proc.stderr}")
+            os.replace(tmp, out)
     return out
 
 

@@ -31,7 +31,13 @@ Port of ``spark_rapids_jni_tpu/obs/``, one import:
   scrape endpoints (``/fleet/*``).
 - **history** (``obs_history``): the bounded on-disk snapshot ring and
   the regression watch over it.
+
+``set_enabled(on)`` flips the ``SRT_METRICS`` gate at run time
+(``config.set_config(metrics_enabled=on)``); ``get_config`` is the
+package's runtime ``Config``.
 """
+
+from ..config import get_config, set_config
 
 from .metrics import (  # noqa: F401
     DEFAULT_BOUNDS_NS, DISPATCH_COUNTER, HOST_SYNC_COUNTER, Counter, Gauge,
@@ -49,7 +55,7 @@ from .recompile import (  # noqa: F401
     signature_of)
 from .report import (  # noqa: F401
     ExecutionReport, current_qid, emit, last_report, mint_qid, qid_scope,
-    recent_reports, reset_reports)
+    recent_reports, reset_ra_tasks, reset_reports)
 from .memory import (  # noqa: F401
     device_memory_stats, device_used_fraction, hbm_headroom_bytes,
     native_arena_snapshot, probed_scratch_budget, reset_memory_probe,
@@ -66,15 +72,23 @@ from . import history as obs_history  # noqa: F401
 from .history import reset_history  # noqa: F401
 
 
+def set_enabled(on: bool = True) -> None:
+    """Flip the ``SRT_METRICS`` gate at run time (config
+    ``metrics_enabled``); counters stay on either way."""
+    set_config(metrics_enabled=bool(on))
+
+
 def reset_all() -> None:
     """Clear every obs buffer: the registry, the span ring, the compile
-    records, the report ring, the SLO windows, the flight ring and the
-    history's rate-limit latch. Not the memory-probe memo
+    records, the report ring, the native resource adaptor's registered
+    task ids, the SLO windows, the flight ring and the history's
+    rate-limit latch. Not the memory-probe memo
     (``memory.reset_memory_probe``)."""
     reset_kernel_stats()
     reset_spans()
     reset_recompiles()
     reset_reports()
+    reset_ra_tasks()
     reset_slo()
     reset_flight()
     reset_history()
@@ -93,12 +107,13 @@ __all__ = [
     "RecompileRecord", "signature_of", "record_event", "recompile_mark",
     "recompiles_since", "recompile_records", "reset_recompiles",
     "ExecutionReport", "emit", "recent_reports", "last_report",
-    "reset_reports", "mint_qid", "current_qid", "qid_scope",
+    "reset_reports", "reset_ra_tasks", "mint_qid", "current_qid",
+    "qid_scope",
     "sample_device_memory", "device_memory_stats", "hbm_headroom_bytes",
     "device_used_fraction", "probed_scratch_budget",
     "native_arena_snapshot", "reset_memory_probe",
     "SloTracker", "SLO_TRACKER", "reset_slo",
     "flight_note", "flight_dump", "flight_snapshot", "reset_flight",
     "obs_server", "fleet_rollup", "obs_history", "reset_history",
-    "reset_all",
+    "set_enabled", "reset_all", "get_config",
 ]

@@ -23,7 +23,7 @@ import time
 from collections import deque
 from typing import Optional
 
-from ..config import env_float, env_str
+from ..config import env_float, get_config
 from .metrics import REGISTRY, count, kernel_stats
 
 MAX_EVENTS = 512
@@ -94,7 +94,7 @@ def snapshot() -> dict:
 
 
 def dump_dir() -> str:
-    return env_str("SRT_TRACE_EXPORT", "").strip() or DEFAULT_DUMP_DIR
+    return (get_config().trace_export or "").strip() or DEFAULT_DUMP_DIR
 
 
 def dump(reason: str, directory: Optional[str] = None) -> Optional[str]:

@@ -42,7 +42,7 @@ from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Optional
 
-from ..config import env_str
+from ..config import get_config
 from . import spans
 
 _reports: "deque" = deque(maxlen=256)  # guarded-by: _lock
@@ -340,7 +340,7 @@ def emit(report: ExecutionReport) -> None:
         _reports.append(report)
     from . import flight as _flight
     _flight.note_report(report)
-    export_dir = env_str("SRT_TRACE_EXPORT", "").strip()
+    export_dir = (get_config().trace_export or "").strip()
     if export_dir:
         try:
             os.makedirs(export_dir, exist_ok=True)
@@ -371,3 +371,12 @@ def last_report(query: Optional[str] = None) -> Optional[ExecutionReport]:
 def reset_reports() -> None:
     with _lock:
         _reports.clear()
+
+
+def reset_ra_tasks() -> None:
+    """Drop every registered RA task id (``obs.reset_all``), so ids do
+    not leak from one test into the next. Not part of ``reset_reports``:
+    callers unregister their own ids when a task finishes, and a clear
+    piggybacked on the report ring would drop live ids."""
+    with _lock:
+        _ra_tasks.clear()

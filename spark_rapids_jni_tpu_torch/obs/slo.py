@@ -39,7 +39,7 @@ import threading
 import time
 from typing import Dict, Optional, Tuple
 
-from ..config import env_bool, env_float, env_int
+from ..config import env_float, env_int, get_config
 from .metrics import enabled, gauge
 
 KIND_QUEUE_WAIT = "queue_wait"
@@ -141,7 +141,7 @@ class SloTracker:
                dur_ns: int) -> None:
         """Record one latency sample; a no-op when metrics are off and the
         control plane (which reads these windows) is off too."""
-        if not enabled() and not env_bool("SRT_CONTROL_PLANE", False):
+        if not enabled() and not get_config().control_plane_enabled:
             return
         b = _bucket(dur_ns)
         key = (kind, tenant, int(priority))

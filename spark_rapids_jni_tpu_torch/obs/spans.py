@@ -8,10 +8,15 @@ and duration in ns plus host-side attributes, feeds the
 query's report reads its own spans that way); ``export_perfetto()``
 writes the ring as Chrome trace-event JSON.
 
-With ``SRT_METRICS`` off, ``span()`` and ``traced`` cost one environment
-read and record nothing. The reference also opens a
-``jax.profiler.TraceAnnotation`` under ``SRT_TRACE_ENABLED``; the port
-has no such hook (``torch.profiler`` sees the kernels themselves).
+Under config ``trace_enabled`` (``SRT_TRACE_ENABLED``) every span and
+``traced`` op also opens a ``torch.profiler.record_function`` range
+``srt::<name>``, where the reference opens a
+``jax.profiler.TraceAnnotation``: it shows in ``torch.profiler`` traces,
+with the kernels launched inside it, and as an NVTX range under
+``torch.autograd.profiler.emit_nvtx``. With both ``metrics_enabled`` and
+``trace_enabled`` off, ``span()`` and ``traced`` cost two field reads
+(each an environment read unless ``set_config`` gave the field) and
+record nothing.
 
 The times are host wall times: a span around queued device work
 measures the enqueue unless the work inside ends in a synchronising
@@ -27,7 +32,9 @@ import time
 from collections import deque
 from typing import Optional
 
-from ..config import metrics_enabled
+from torch.profiler import record_function
+
+from ..config import get_config
 from .metrics import REGISTRY
 
 _records: "deque" = deque(maxlen=100_000)  # guarded-by: _rec_lock
@@ -81,15 +88,20 @@ class _LiveSpan:
 class _SpanCtx:
     """The context manager ``span()`` returns. One use."""
 
-    __slots__ = ("name", "attrs", "_live")
+    __slots__ = ("name", "attrs", "_range", "_live")
 
     def __init__(self, name: str, attrs: dict):
         self.name = name
         self.attrs = attrs
+        self._range = None
         self._live = None
 
     def __enter__(self):
-        if metrics_enabled():
+        cfg = get_config()
+        if cfg.trace_enabled:
+            self._range = record_function(f"srt::{self.name}")
+            self._range.__enter__()
+        if cfg.metrics_enabled:
             st = _stack()
             parent = st[-1].name if st else None
             self._live = _LiveSpan(self.name, self.attrs, parent)
@@ -99,23 +111,25 @@ class _SpanCtx:
     def __exit__(self, *exc):
         global _seq
         live = self._live
-        if live is None:
-            return False
-        end = time.perf_counter_ns()
-        st = _stack()
-        # pop through any leaked children so one missed __exit__ never
-        # skews every later record's depth
-        while st and st[-1] is not live:
-            st.pop()
-        if st:
-            st.pop()
-        dur = end - live.start_ns
-        with _rec_lock:
-            _seq += 1
-            _records.append(SpanRecord(
-                _seq, live.name, live.start_ns, dur, threading.get_ident(),
-                len(st), live.parent, dict(live.attrs)))
-        REGISTRY.histogram(f"span.{live.name}").observe(dur)
+        if live is not None:
+            end = time.perf_counter_ns()
+            st = _stack()
+            # pop through any leaked children so one missed __exit__ never
+            # skews every later record's depth
+            while st and st[-1] is not live:
+                st.pop()
+            if st:
+                st.pop()
+            dur = end - live.start_ns
+            with _rec_lock:
+                _seq += 1
+                _records.append(SpanRecord(
+                    _seq, live.name, live.start_ns, dur,
+                    threading.get_ident(), len(st), live.parent,
+                    dict(live.attrs)))
+            REGISTRY.histogram(f"span.{live.name}").observe(dur)
+        if self._range is not None:
+            self._range.__exit__(*exc)
         return False
 
     def set_attrs(self, **attrs) -> None:
@@ -141,12 +155,14 @@ def set_attrs(**attrs) -> None:
 
 
 def traced(name: str):
-    """Decorator: run the function inside ``span(name)``; with metrics
-    off, one environment read and a direct call."""
+    """Decorator: run the function inside ``span(name)`` (and, under
+    ``trace_enabled``, its profiler range); with both switches off, two
+    field reads and a direct call."""
     def deco(fn):
         @functools.wraps(fn)
         def wrapper(*args, **kwargs):
-            if not metrics_enabled():
+            cfg = get_config()
+            if not (cfg.metrics_enabled or cfg.trace_enabled):
                 return fn(*args, **kwargs)
             with _SpanCtx(name, {}):
                 return fn(*args, **kwargs)

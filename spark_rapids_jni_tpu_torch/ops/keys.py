@@ -19,6 +19,12 @@ order (the unsigned lane order with the sign bit flipped):
 - descending order is ``~key`` (bitwise not is an order-reversing
   bijection on int64).
 
+``key_lanes`` is the reference's lane form, kept for callers that need
+its exact lanes: uint32 lane values (held in int64 tensors, torch having
+no uint32 arithmetic) whose joint unsigned order is the value order,
+STRING columns included (big-endian byte lanes and a length lane, at a
+pad width ``string_pad_widths`` can make common across tables).
+
 A multi-column order is a least-significant-first chain of stable sorts
 (``torch.sort(stable=True)``), which equals the reference's
 lexicographic sort with its trailing row-index tiebreak: ties keep input
@@ -84,6 +90,71 @@ def key_columns(col: Column, *, descending: bool = False
     return [~k for k in keys] if descending else keys
 
 
+_U32 = 0xFFFFFFFF
+
+
+def _split64(bits: torch.Tensor) -> List[torch.Tensor]:
+    """int64 bit patterns -> [high, low] uint32 lanes."""
+    return [(bits >> 32) & _U32, bits & _U32]
+
+
+@traced("keys.key_lanes")
+def key_lanes(col: Column, *, descending: bool = False,
+              string_pad: Optional[int] = None) -> List[torch.Tensor]:
+    """The reference's sort lanes of a column, most significant first:
+    int64 tensors holding uint32 values whose joint unsigned
+    lexicographic order is the value order (null slots carry storage
+    junk). A STRING column gives ceil(pad / 4) big-endian byte lanes and
+    a length lane (Spark's binary order); ``string_pad`` overrides the
+    pad width (default: the longest string, at least 1)."""
+    tid = col.dtype.id
+    data = col.data
+    if tid == TypeId.STRING:
+        from ..columnar.strings import byte_matrix, max_length
+        m = string_pad if string_pad is not None else max(max_length(col), 1)
+        m4 = ((m + 3) // 4) * 4
+        mat, lens = byte_matrix(col, m4)
+        mat = mat.to(torch.int64)
+        lanes = [(mat[:, i] << 24) | (mat[:, i + 1] << 16)
+                 | (mat[:, i + 2] << 8) | mat[:, i + 3]
+                 for i in range(0, m4, 4)]
+        lanes.append(lens.to(torch.int64))
+    elif tid == TypeId.FLOAT64:
+        b = float64_to_bits(data)
+        lanes = _split64(torch.where(b < 0, ~b, b | _SIGN64))
+    elif tid == TypeId.FLOAT32:
+        b = float32_to_bits(data).to(torch.int64) & _U32
+        lanes = [torch.where(b >> 31 == 1, b ^ _U32, b | (1 << 31))]
+    elif tid == TypeId.DECIMAL128:
+        lanes = _split64(data[:, 1] ^ _SIGN64) + _split64(data[:, 0])
+    elif tid == TypeId.STRUCT:
+        # per field: an unconditional validity plane (the lane count is a
+        # function of the type), then its lanes masked to 0 on null rows
+        lanes = []
+        for ch in col.children:
+            expects(ch.dtype.id != TypeId.STRING,
+                    "STRING fields inside STRUCT keys are not supported")
+            valid = ch.valid_bool()
+            lanes.append(valid.to(torch.int64))
+            lanes.extend(torch.where(valid, lane, 0)
+                         for lane in key_lanes(ch))
+    elif not col.dtype.is_fixed_width:
+        fail(f"key_lanes does not support {col.dtype!r}")
+    else:
+        st = col.dtype.storage_dtype
+        if st.kind == "u" and st.itemsize == 8:
+            lanes = _split64(data.view(torch.int64))
+        elif st.kind == "u":
+            lanes = [data.to(torch.int64)]
+        elif st.itemsize == 8:
+            lanes = _split64(data.to(torch.int64) ^ _SIGN64)
+        else:  # signed <= 32-bit storage
+            lanes = [(data.to(torch.int64) & _U32) ^ (1 << 31)]
+    if descending:
+        lanes = [lane ^ _U32 for lane in lanes]
+    return lanes
+
+
 def null_plane(col: Column, *, nulls_first: bool = True) -> torch.Tensor:
     """0/1 int64 key putting nulls first (0 for null) or last."""
     valid = col.valid_bool().to(torch.int64)
@@ -120,6 +191,30 @@ def lexsort_indices(columns: Sequence[Column],
             keys.append(null_plane(col, nulls_first=nf))
         keys.extend(key_columns(col, descending=desc))
     return stable_lexsort(keys)
+
+
+def _bucket_pad(n: int) -> int:
+    """A string pad width rounded up to the {2^k, 1.5 * 2^k} grid, at
+    least 4, as in the reference (there it bounds recompiles)."""
+    if n <= 4:
+        return 4
+    p = 1 << (n - 1).bit_length()
+    if 3 * (p >> 2) >= n:
+        return 3 * (p >> 2)
+    return p
+
+
+@traced("keys.string_pad_widths")
+def string_pad_widths(tables: Sequence[Table]) -> Tuple[int, ...]:
+    """The common byte-matrix pad width of each STRING key column across
+    ``tables`` (a host sync), bucketed as the reference buckets it; empty
+    when no key column is a string. Pass each to ``key_lanes``'s
+    ``string_pad`` so every table gets the same lane count."""
+    from ..columnar.strings import max_length
+    return tuple(
+        _bucket_pad(max(max_length(t.columns[ci]) for t in tables))
+        for ci in range(tables[0].num_columns)
+        if tables[0].columns[ci].dtype.id == TypeId.STRING)
 
 
 @traced("keys.row_ranks")

@@ -87,6 +87,11 @@ class RowLayout:
         self.var_start = align_offset(at + self.validity_bytes, 8)
         self.has_var = any(dt.id == TypeId.STRING for dt in self.schema)
 
+    @property
+    def fixed_size_per_row(self) -> int:
+        """Row size when the schema has no variable-width columns."""
+        return self.var_start
+
 
 def max_rows_per_batch(row_bytes: int) -> int:
     """Rows of ``row_bytes`` each that keep a batch below 2 GB, a

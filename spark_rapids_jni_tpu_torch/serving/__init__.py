@@ -20,8 +20,9 @@ Port of ``spark_rapids_jni_tpu/serving/``:
   one batched dispatch (``tpcds/rel.run_fused_batched``, a CUDA graph
   replayed on the card), falling back route-counted to per-query
   dispatch;
-- **result_cache**: the content-keyed result cache (whole entries on
-  the device, leased from the page ledger while the page pool is on);
+- **result_cache**: the content-keyed result cache (host pages, rebuilt
+  on the device by copies, while the page pool is on; whole entries on
+  the device when it is off);
 - **aot_cache**: the result cache's key constructors, the batch
   program's graph capture (``capture_graph``) and the disk tier
   (``SRT_AOT_CACHE_DIR``: the kernel library and the capture manifest,

@@ -57,7 +57,7 @@ import time
 from dataclasses import dataclass
 from typing import Optional
 
-from ..config import env_bool, env_float, env_int
+from ..config import env_bool, env_float, env_int, get_config
 from ..obs import count, gauge
 from ..obs import flight as _flight
 from ..obs import slo as _slo
@@ -71,9 +71,10 @@ LOOPS = (LOOP_SHED, LOOP_BATCH, LOOP_MEM, LOOP_SCALE)
 
 
 def enabled() -> bool:
-    """The master switch, ``SRT_CONTROL_PLANE``. Off, every caller keeps
-    its static policy with no added work on the submit path."""
-    return env_bool("SRT_CONTROL_PLANE", False)
+    """The master switch, config ``control_plane_enabled``
+    (``SRT_CONTROL_PLANE``). Off, every caller keeps its static policy
+    with no added work on the submit path."""
+    return get_config().control_plane_enabled
 
 
 def _env_on(name: str) -> bool:

@@ -1,11 +1,14 @@
 """TPC-DS miniature data generator (scaled star schema).
 
-A copy of ``spark_rapids_jni_tpu/tpcds/data.py`` ``generate`` (the port
-imports nothing of the reference): row counts scale linearly with ``sf``
-from ~10k store_sales rows at sf=1, with big fact tables, small
+A copy of ``spark_rapids_jni_tpu/tpcds/data.py`` (the port imports
+nothing of the reference). ``generate``: row counts scale linearly with
+``sf`` from ~10k store_sales rows at sf=1, with big fact tables, small
 dimensions and skewed foreign keys. The draws come from numpy
 ``default_rng(seed)`` in the reference's order, so the frames are equal
-to the reference's for the same (sf, seed).
+to the reference's for the same (sf, seed). ``ingest`` turns the frames
+into rels with the schema's decimal columns typed; ``as_table`` and
+``as_sharded_table`` build plain tables, the second one this rank's row
+chunk over a mesh.
 """
 
 from __future__ import annotations
@@ -148,3 +151,77 @@ def generate(sf: float = 1.0, seed: int = 0) -> "dict[str, pd.DataFrame]":
         "web_sales": web_sales,
         "catalog_sales": catalog_sales,
     }
+
+
+# Integer cents columns typed DECIMAL64 at ingest (the reference's
+# DECIMAL_COLUMNS: value = stored * 10^scale).
+DECIMAL_COLUMNS = {
+    "ss_list_price_cents": -2,
+    "ss_coupon_amt_cents": -2,
+    "ws_list_price_cents": -2,
+}
+
+
+def ingest(data: "dict[str, pd.DataFrame]", device=None):
+    """Generated frames -> Rel dict on ``device`` (``cuda`` unless the
+    caller passes another), the schema's decimal columns typed DECIMAL64
+    (``tpcds/rel.rel_from_df``'s ``decimals``)."""
+    from .rel import rel_from_df
+    out = {}
+    for name, df in data.items():
+        decs = {c: s for c, s in DECIMAL_COLUMNS.items() if c in df.columns}
+        out[name] = rel_from_df(df, decimals=decs or None, device=device)
+    return out
+
+
+def as_table(df: pd.DataFrame, device=None):
+    """pandas frame -> Table on ``device`` (``cuda`` unless the caller
+    passes another); object columns become STRING, int32 widens to
+    int64."""
+    from ..columnar import Column, Table
+    from ..utils.device import resolve_device
+    dev = resolve_device(device)
+    cols = []
+    for name in df.columns:
+        s = df[name]
+        if not pd.api.types.is_numeric_dtype(s.dtype):
+            cols.append(Column.strings_from_list(
+                [None if v is None else str(v) for v in s], device=dev))
+        else:
+            arr = np.ascontiguousarray(s.to_numpy())
+            if arr.dtype == np.int32:
+                arr = arr.astype(np.int64)
+            cols.append(Column.from_numpy(arr, device=dev))
+    return Table(cols)
+
+
+def as_sharded_table(df: pd.DataFrame, mesh, axis=None):
+    """pandas frame -> this rank's row chunk of it over ``mesh`` and a
+    bool mask of the chunk's real rows: the frame's fixed-width columns
+    padded to ``shard_capacity`` rows a shard along ``axis`` (default
+    ``part``), on the mesh's device. Every rank calls it with the same
+    frame. For whole queries ``run_fused(plan, rels, mesh=...)`` shards
+    its inputs itself; this serves hand-built pipelines over the mesh."""
+    import torch
+    from ..columnar import Column, Table
+    from ..parallel import PART_AXIS, shard_capacity
+    from ..utils.errors import expects
+    axis = axis or PART_AXIS
+    p = int(mesh.shape[axis])
+    index = mesh.axis_index(axis)
+    dev = mesh.device
+    plain = as_table(df, device="cpu")
+    n = plain.num_rows
+    cap = shard_capacity(n, p)
+    start = index * cap
+    cols = []
+    for c in plain.columns:
+        expects(c.data is not None and not c.children,
+                "as_sharded_table shards fixed-width columns only")
+        part = c.data[min(start, n):min(start + cap, n)]
+        pad = torch.zeros((cap - part.shape[0],) + tuple(part.shape[1:]),
+                          dtype=part.dtype)
+        cols.append(Column(c.dtype, cap, torch.cat([part, pad]).to(dev),
+                           value_range=c.value_range, unique=c.unique))
+    mask = (start + torch.arange(cap, dtype=torch.int64, device=dev)) < n
+    return Table(cols), mask

@@ -5,18 +5,22 @@ Port of ``spark_rapids_jni_tpu/tpcds/oplib/registry.py``. Every operator
 the core dispatches is declared once with its lowering, its
 mask-composition class, its partition behaviour and its pandas oracle;
 the core reaches lowerings only through :func:`dispatch`. The operator
-modules load lazily, on the first lookup. The port runs on one device:
-the partition behaviour (``local``, ``collective``, ``exchange_by_keys``)
-is declared as in the reference and read by nothing yet, and there is no
-plan cache for a registry revision to key.
+modules load lazily, on the first lookup. The partition behaviour
+(``local``, ``collective``, ``exchange_by_keys``) is declared as in the
+reference. ``registry_revision()`` digests the registered set and the
+lowering modules' source; it rides ``tpcds/rel.planner_env_key``, so a
+batch-cache entry or a result-cache token never outlives an edit of the
+operator library.
 """
 
 from __future__ import annotations
 
+import hashlib
 import importlib
+import sys
 import threading
 from dataclasses import dataclass, field
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 MASK_CLASSES = ("rowwise", "segmented", "terminal")
 PARTITION_BEHAVIORS = ("local", "collective", "exchange_by_keys")
@@ -55,11 +59,13 @@ class OperatorSpec:
 _REGISTRY: "dict[str, OperatorSpec]" = {}
 _LOCK = threading.RLock()
 _LOADED = False
+_REVISION: Optional[str] = None  # guarded-by: _LOCK
 
 
 def register_operator(spec: OperatorSpec) -> OperatorSpec:
     """Add one operator. Registering the same lowering again is allowed;
     a different lowering under a taken name is refused."""
+    global _REVISION
     with _LOCK:
         old = _REGISTRY.get(spec.name)
         if old is not None and (
@@ -67,6 +73,7 @@ def register_operator(spec: OperatorSpec) -> OperatorSpec:
                 != (spec.lowering.__module__, spec.lowering.__qualname__)):
             raise ValueError(f"duplicate operator name {spec.name!r}")
         _REGISTRY[spec.name] = spec
+        _REVISION = None  # the registry changed: digest it again
     return spec
 
 
@@ -111,3 +118,29 @@ def registered() -> "dict[str, OperatorSpec]":
 def dispatch(name: str, *args, **kwargs):
     """The core's one entry into operator lowerings."""
     return lookup(name).lowering(*args, **kwargs)
+
+
+def registry_revision() -> str:
+    """Content digest of the registered operator set: the names, the
+    declared contracts and the lowering modules' source."""
+    global _REVISION
+    ensure_loaded()
+    with _LOCK:
+        if _REVISION is not None:
+            return _REVISION
+        h = hashlib.sha256()
+        modules = set()
+        for name in sorted(_REGISTRY):
+            spec = _REGISTRY[name]
+            h.update(f"{name}|{spec.mask_class}|{spec.partition}|"
+                     f"{','.join(spec.params)}\n".encode())
+            modules.add(spec.lowering.__module__)
+        for mod in sorted(modules):
+            src = getattr(sys.modules.get(mod), "__file__", None)
+            try:
+                with open(src, "rb") as f:
+                    h.update(hashlib.sha256(f.read()).digest())
+            except (OSError, TypeError):
+                h.update(mod.encode())  # no source: the name stands in
+        _REVISION = h.hexdigest()[:16]
+        return _REVISION

@@ -1425,12 +1425,16 @@ _ROUTE_KNOBS = ("SRT_JOIN_METHOD", "SRT_DENSE_GROUPBY", "SRT_STRING_ROUTE",
 
 
 def planner_env_key() -> tuple:
-    """The planner knobs' environment values and the tuned tier's part
-    (``tune.tuned_planner_key``: the winner table's digest and every
-    resolved tuned planner knob), so two tuning tables never share a
-    batch-cache entry or a result-cache token."""
+    """The planner knobs' environment values, the operator registry's
+    revision (``oplib.registry.registry_revision``) and the tuned tier's
+    part (``tune.tuned_planner_key``: the winner table's digest and every
+    resolved tuned planner knob), so neither two tuning tables nor two
+    versions of the operator library share a batch-cache entry or a
+    result-cache token."""
     from ..tune.space import tuned_planner_key
-    return tuple(env_str(k, "") for k in _ROUTE_KNOBS) + tuned_planner_key()
+    from .oplib.registry import registry_revision
+    return (tuple(env_str(k, "") for k in _ROUTE_KNOBS)
+            + (registry_revision(),) + tuned_planner_key())
 
 
 # digests of the read-only dictionary arrays seen so far: id -> (weak

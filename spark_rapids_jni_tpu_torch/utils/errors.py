@@ -17,6 +17,12 @@ def expects(condition: bool, message: str) -> None:
         raise CudfLikeError(message)
 
 
+def null_check(value, message: str) -> None:
+    """``JNI_NULL_CHECK`` analog for host-API arguments."""
+    if value is None:
+        raise ValueError(message)
+
+
 def fail(message: str) -> "NoReturn":  # noqa: F821
     """``CUDF_FAIL`` analog: unconditional failure."""
     raise CudfLikeError(message)

@@ -75,7 +75,8 @@ def test_sources_exist():
                 "bitmask_pack.cu", "murmur3.cu", "pack_rows.cu",
                 "native/c_api.cpp", "native/device_engine.hpp",
                 "native/cuda_engine.cu", "native/cuda_sort.cu",
-                "native/no_device_engine.cpp", "native/pack_plan.hpp"):
+                "native/no_device_engine.cpp", "native/pack_plan.hpp",
+                "native/engine_jni.cpp"):
         assert (PORT / "csrc" / src).exists()
 
 

@@ -278,8 +278,10 @@ def test_pack_plan_equals_python(native_libraries, widths):  # noqa: F811
 
 def test_jni_symbols_resolve(native_libraries):  # noqa: F811
     """Every ``Java_com_nvidia_spark_rapids_tpu_*`` entry of the compiled
-    JNI sources (all but PjrtEngineJni.cpp) is exported by the port's
-    library, so a JVM that loads it reaches them."""
+    JNI sources (the reference's but PjrtEngineJni.cpp, and the port's
+    own engine_jni.cpp in its place) is exported by the port's library,
+    so a JVM that loads it reaches them, every PjrtEngine native
+    included."""
     nat = native_libraries[0]
     lib = nat._lib()
     names = set()
@@ -291,6 +293,49 @@ def test_jni_symbols_resolve(native_libraries):  # noqa: F811
     assert not missing
     assert (ROOT / "src" / "main" / "cpp" / "jni" /
             "PjrtEngineJni.cpp") not in nat.JNI_SOURCES
+    assert nat.NATIVE / "engine_jni.cpp" in nat.JNI_SOURCES
+    java = (ROOT / "src" / "main" / "java" / "com" / "nvidia" / "spark" /
+            "rapids" / "tpu" / "PjrtEngine.java").read_text()
+    natives = re.findall(r"private static native \w+ (\w+)\(", java)
+    assert len(natives) == 6
+    for name in natives:
+        assert hasattr(lib, f"Java_com_nvidia_spark_rapids_tpu_PjrtEngine_"
+                       f"{name}"), name
+
+
+def test_pjrt_engine_natives_under_the_fake_engine(
+        native_libraries):  # noqa: F811
+    """The mock-``JNIEnv`` driver (``tests/torch_jni_engine_driver.cpp``)
+    against the port's library with the stand-in engine, in a child: a
+    murmurHash3 before init takes the host route (0); a null pluginPath
+    and a malformed device option throw, leaving the engine down; init
+    on device 0 starts it (idempotently); the engine's queries answer;
+    registerProgram throws (null arguments first, with the reference's
+    message) and no program reads registered; the same murmurHash3 then
+    routes to the device (1) and equals the host route."""
+    import json
+    import subprocess
+    from spark_rapids_jni_tpu_torch import native
+    from torch_native_support import build_fake_engine_library
+    driver = native.build_jni_driver(
+        build_fake_engine_library(),
+        ROOT / "tests" / "torch_jni_engine_driver.cpp")
+    proc = subprocess.run([str(driver), "host stand-in", "5000"],
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got == {
+        "rows": 5000, "host_sentinel": 0,
+        "null_path": "pluginPath must not be null",
+        "bad_device": "the device option must be a non-negative integer",
+        "init_error": "", "available": True, "device_count": 1,
+        "platform": "host stand-in",
+        "register_null": "name and mlir must not be null",
+        "register_refused": "the CUDA engine compiles its kernels into the "
+                            "library and keeps no StableHLO program "
+                            "registry",
+        "registered": False, "device_sentinel": 1, "equal": True,
+        "failures": 0}
 
 
 FAKE_ENGINE_SCRIPT = r'''

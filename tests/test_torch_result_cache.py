@@ -10,10 +10,13 @@ undigested inputs are uncacheable.
   ``result_cache`` with no dispatch and no host sync, and equals the
   reference's ``run_fused`` result;
 - the whole-entry tier's LRU eviction by bytes;
-- the paged tier, the cache while the page ledger (``exec/pages.py``)
-  is on: page-rounded charging, the pool's lease, released when an
-  entry is evicted; a refused lease still caches the result, counted;
-- ``result_cache()`` re-reads ``SRT_RESULT_CACHE_BYTES`` each call;
+- the paged tier (``PagedResultCache``), the cache while the page pool
+  (``exec/pages.py``) is on: the reference's four paged-cache cases
+  (``tests/test_pages.py``) run side by side on both packages with the
+  same counters, lengths and resident bytes; host pages only, no lease
+  from the page ledger; a hit rebuilt as new tensors;
+- ``result_cache()`` re-reads ``SRT_RESULT_CACHE_BYTES`` each call and
+  picks the tier as the reference does;
 - the executor in front of the cache builds a control plane under
   ``SRT_CONTROL_PLANE=1`` and none without it.
 """
@@ -24,6 +27,7 @@ import pytest
 import torch
 
 from spark_rapids_jni_tpu.serving import result_cache as ref_rc
+from spark_rapids_jni_tpu.tpcds.rel import rel_from_df as ref_rel_plain
 from spark_rapids_jni_tpu.tpcds import generate as ref_generate
 from spark_rapids_jni_tpu.tpcds import queries as RQ
 from spark_rapids_jni_tpu.tpcds.rel import rel_from_df as ref_rel_from_df
@@ -166,10 +170,17 @@ def test_token_helpers_are_content_stable():
 
 
 def test_result_cache_rereads_the_env(monkeypatch):
-    assert result_cache.result_cache().page_bytes == pages.page_bytes()
+    paged = result_cache.result_cache()
+    assert isinstance(paged, result_cache.PagedResultCache)
+    assert isinstance(ref_rc.result_cache(), ref_rc.PagedResultCache)
+    assert paged.page_bytes == pages.page_bytes()
+    monkeypatch.setenv("SRT_PAGE_BYTES", "4096")
+    assert result_cache.result_cache().page_bytes == 4096
     monkeypatch.setenv("SRT_PAGE_POOL_BYTES", "0")
     c = result_cache.result_cache()
-    assert c.page_bytes == 0 and c.max_bytes == int(CAP)
+    assert type(c) is result_cache.ResultCache
+    assert type(ref_rc.result_cache()) is ref_rc.ResultCache
+    assert c.max_bytes == int(CAP)
     monkeypatch.setenv("SRT_RESULT_CACHE_BYTES", "4096")
     assert result_cache.result_cache().max_bytes == 4096
     monkeypatch.setenv("SRT_RESULT_CACHE_BYTES", "0")
@@ -202,9 +213,13 @@ def test_hit_equals_reference_and_runs_nothing(q, paged, data,
     _frames_equal(hit.to_df(), want)
     _frames_equal(first, want)
     cache = result_cache.result_cache()
-    assert (cache.page_bytes > 0) == paged
-    assert (pages.page_pool() is not None
-            and pages.page_pool().n_leases == 1) == paged
+    assert isinstance(cache, result_cache.PagedResultCache) == paged
+    if paged:  # host pages only: no device tensor, no ledger lease
+        held = cache.resident_tensors()
+        assert held and all(t.device.type == "cpu" for t in held)
+        assert not ({c.data.data_ptr() for c in hit.table.columns}
+                    & {t.data_ptr() for t in held})  # the hit's are new
+        assert pages.page_pool() is None or pages.page_pool().n_leases == 0
 
 
 def test_changed_ingest_misses(data):
@@ -272,54 +287,198 @@ def test_whole_entry_lru_evicts_by_bytes():
     assert st["serving.result_cache.misses"] == 1
 
 
-def test_paged_tier_charges_pages_and_leases_from_the_ledger(monkeypatch):
-    monkeypatch.setenv("SRT_PAGE_BYTES", "1024")
-    pb = 1024
-    cache = result_cache.ResultCache(1 << 20, pb)
-    r = _rel(1000, nulls=True)  # 8000-byte columns: 8 pages each
-    assert cache.put("a", r)
-    # two data columns of 8 pages, a 1-page validity, one dict page
-    assert cache.resident_bytes == (8 + 8 + 1 + 1) * pb
-    assert result_cache.paged_nbytes(r, pb) == (8 + 8 + 1 + 1) * pb
-    pool = pages.page_pool()
-    assert pool.n_leases == 1
-    assert obs.gauge("mem.pool.bytes_leased").value >= 18 * pb
-    assert cache.get("a") is r
-    cache.clear()
-    assert pool.n_leases == 0 and cache.resident_bytes == 0
+def _flat(n: int, seed: int = 0):
+    """The reference test's flat result (``tests/test_pages.py``), as a
+    frame both packages ingest."""
+    rng = np.random.default_rng(seed)
+    return pd.DataFrame({"k": np.arange(n, dtype=np.int64),
+                         "v": rng.integers(0, 1000, n).astype(np.int64)})
 
 
-def test_paged_tier_evicts_pages_then_refunds_a_dead_entry(monkeypatch):
-    """An evicted entry gives its pages back to the ledger."""
-    monkeypatch.setenv("SRT_PAGE_BYTES", "1024")
-    pb = 1024
-    one = (8 + 8 + 1) * pb  # 1000 rows, no nulls
-    cache = result_cache.ResultCache(2 * one + 2 * pb, pb)
-    assert cache.put("a", _rel(1000, 1))
-    assert cache.put("b", _rel(1000, 2))
-    pool = pages.page_pool()
-    assert pool.n_leases == 2
-    assert cache.put("c", _rel(200, 3))  # needs 2 + 2 + 1 pages: evicts a
+def _paged_pair(max_bytes: int, pbytes: int):
+    return (result_cache.PagedResultCache(max_bytes, pbytes),
+            ref_rc.PagedResultCache(max_bytes=max_bytes, pbytes=pbytes))
+
+
+def _case_roundtrip(cache, mine: bool):
+    rel = (rel_from_df(_flat(1000), device=CPU) if mine
+           else ref_rel_plain(_flat(1000)))
+    assert cache.put("a", rel)
+    got = cache.get("a")
+    assert got is not None and got is not rel  # rebuilt, not pinned
+    _frames_equal(got.to_df(), rel.to_df())
+    return {"len": len(cache), "bytes": cache.resident_bytes}
+
+
+def _case_page_eviction(cache, mine: bool):
+    # 4096 rows x 2 int64 columns: 16 data pages of 4096 bytes and one
+    # page of (empty) dictionary charge, 17 pages an entry
+    def rel(seed):
+        df = _flat(4096, seed)
+        return rel_from_df(df, device=CPU) if mine else ref_rel_plain(df)
+    a, b = rel(1), rel(2)
+    assert cache.put("a", a) and cache.put("b", b)
+    out = {"len2": len(cache), "bytes2": cache.resident_bytes}
+    assert cache.put("c", rel(3))  # admission needs 15 pages of a
+    out.update(len3=len(cache), bytes3=cache.resident_bytes)
+    assert cache.resident_bytes <= cache.max_bytes
+    out["a"] = cache.get("a") is None  # dead: misses and refunds
+    out.update(len_after=len(cache), bytes_after=cache.resident_bytes)
+    _frames_equal(cache.get("b").to_df(), b.to_df())
+    return out
+
+
+def _case_too_large(cache, mine: bool):
+    df = _flat(4096)
+    assert not cache.put("big", rel_from_df(df, device=CPU) if mine
+                         else ref_rel_plain(df))
+    return {"len": len(cache), "bytes": cache.resident_bytes}
+
+
+def _case_opaque(cache, mine: bool):
+    df = _flat(64)
+    rel = rel_from_df(df, device=CPU) if mine else ref_rel_plain(df)
+    rel.limit = 5  # unflushed decoration: not pageable losslessly
+    assert cache.put("a", rel)
+    assert cache.get("a") is rel  # stored whole, page-rounded
+    return {"len": len(cache), "bytes": cache.resident_bytes}
+
+
+@pytest.mark.parametrize("case, caps, want", [
+    (_case_roundtrip, (1 << 20, 4096),
+     {"serving.result_cache.hits": 1}),
+    (_case_page_eviction, (36 * 4096, 4096),
+     {"serving.result_cache.page_evictions": 15,
+      "serving.result_cache.misses": 1, "serving.result_cache.hits": 1}),
+    (_case_too_large, (4096, 4096), {"serving.result_cache.too_large": 1}),
+    (_case_opaque, (1 << 20, 4096), {"serving.result_cache.hits": 1}),
+], ids=["roundtrip", "page_eviction", "too_large", "opaque_limit"])
+def test_paged_cache_matches_reference(case, caps, want):
+    """The reference's four paged-cache cases on both packages: the same
+    counters (15 page evictions and no whole eviction where admission
+    needs 15 pages), lengths and resident bytes."""
+    from spark_rapids_jni_tpu import obs as ref_obs
+    mine, ref = _paged_pair(*caps)
+    ref_obs.reset_kernel_stats()
+    got = case(mine, True)
+    assert got == case(ref, False)
+    for stats in (obs.kernel_stats(), ref_obs.kernel_stats()):
+        assert {k: v for k, v in stats.items()
+                if k.startswith("serving.result_cache.")
+                and not k.endswith("uncacheable")} == want
+    if case is _case_page_eviction:
+        assert got == {"len2": 2, "bytes2": 34 * 4096, "len3": 3,
+                       "bytes3": 36 * 4096, "a": True, "len_after": 2,
+                       "bytes_after": 34 * 4096}
+    ref_obs.reset_kernel_stats()
+
+
+def test_paged_cache_keeps_nulls_and_stats():
+    """A lossless round trip with nulls: validity, ``value_range``,
+    ``unique`` and the dictionaries kept, every buffer a new tensor, and
+    the charge the reference's for the same shapes."""
+    from spark_rapids_jni_tpu.columnar import Column as RefColumn
+    from spark_rapids_jni_tpu.columnar import Table as RefTable
+    from spark_rapids_jni_tpu.tpcds.rel import Rel as RefRel
+    rng = np.random.default_rng(5)
+    vals = rng.integers(0, 5000, 3000)
+    valid = rng.random(3000) > 0.25
+    codes = rng.integers(0, 2, 3000)
+    dicts = {"s": np.array(["a", "b"], dtype=object)}
+    rel = Rel(Table([Column.from_numpy(vals, valid, device=CPU),
+                     Column.from_numpy(vals * 0.5, device=CPU),
+                     Column.from_numpy(codes, device=CPU)]),
+              ["k", "v", "s"], dicts=dicts)
+    ref = RefRel(RefTable([RefColumn.from_numpy(vals, valid),
+                           RefColumn.from_numpy(vals * 0.5),
+                           RefColumn.from_numpy(codes)]), ["k", "v", "s"],
+                 dicts=dicts)
+    mine, theirs = _paged_pair(1 << 20, 4096)
+    assert mine.put("a", rel) and theirs.put("a", ref)
+    assert mine.resident_bytes == theirs.resident_bytes
+    got, want = mine.get("a"), theirs.get("a")
+    _frames_equal(got.to_df(), rel.to_df())
+    _frames_equal(got.to_df(), want.to_df())
+    assert got.dicts.keys() == dicts.keys()
+    for g, c, w in zip(got.table.columns, rel.table.columns,
+                       want.table.columns):
+        assert (g.value_range, g.unique) == (c.value_range, c.unique) \
+            == (w.value_range, w.unique)
+        for a, b in ((g.data, c.data), (g.validity, c.validity)):
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert a.data_ptr() != b.data_ptr() and torch.equal(a, b)
+    # the pages are row-aligned views of at most a page each
+    assert all(p.nbytes <= 4096 for p in mine.resident_pages())
+    assert sum(p.nbytes for p in mine.resident_pages()) == \
+        sum(c.data.nbytes + (0 if c.validity is None else c.validity.nbytes)
+            for c in rel.table.columns)
+
+
+def test_paged_cache_dead_entry_frees_its_pages():
+    """The first stripped page kills the entry: its host buffers go at
+    once (its remaining charge stays until its next get), and every
+    later put and get keeps the reference's accounting."""
+    cache = result_cache.PagedResultCache(36 * 4096, 4096)
+    cache.put("a", rel_from_df(_flat(4096, 1), device=CPU))
+    cache.put("b", rel_from_df(_flat(4096, 2), device=CPU))
+    assert len(cache.resident_pages()) == 32
+    cache.put("c", rel_from_df(_flat(4096, 3), device=CPU))
+    assert len(cache.resident_pages()) == 32  # a's 16 gone, c's 16 came
+    assert len(cache.resident_tensors()) == 4
+    assert cache.resident_bytes == 36 * 4096 and len(cache) == 3
+    # d needs 3 pages: a's last data page (its husk, with its dictionary
+    # page, then drops whole) and one page of b, now dead too
+    cache.put("d", rel_from_df(_flat(256, 4), device=CPU))
     st = obs.kernel_stats()
+    assert st["serving.result_cache.page_evictions"] == 15 + 1 + 1
     assert st["serving.result_cache.evictions"] == 1
-    assert pool.n_leases == 2  # a's lease went back, c's came
-    assert cache.get("a") is None
-    assert cache.get("b") is not None and cache.get("c") is not None
-    assert len(cache) == 2
-    assert cache.resident_bytes == one + 5 * pb <= cache.max_bytes
+    assert len(cache.resident_pages()) == 16 + 2  # c's and d's
+    assert cache.get("a") is None and len(cache) == 3
+    assert cache.get("b") is None and len(cache) == 2
+    assert cache.resident_bytes == 17 * 4096 + 3 * 4096
 
 
-def test_paged_tier_keeps_a_result_whole_when_the_pool_refuses(monkeypatch):
-    monkeypatch.setenv("SRT_PAGE_BYTES", "1024")
-    monkeypatch.setenv("SRT_PAGE_POOL_BYTES", "2048")  # too small a pool
-    pages.reset()
-    cache = result_cache.ResultCache(1 << 20, 1024)
-    r = _rel(1000)
-    assert cache.put("a", r)
-    assert cache.get("a") is r
-    st = obs.kernel_stats()
-    assert st["serving.result_cache.pool_degraded"] == 1
-    assert st["mem.pool.exhausted"] == 1
+def test_paged_cache_thread_safety():
+    """Puts, gets and evictions from many threads keep the byte total
+    equal to the live entries' charges."""
+    import sys
+    import threading
+    cache = result_cache.PagedResultCache(40 * 1024, 1024)
+    rels = [rel_from_df(_flat(64 * (i % 5 + 1), i), device=CPU)
+            for i in range(10)]
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    errors = []
+
+    def work(t):
+        try:
+            for i in range(200):
+                k = (t * 7 + i) % 10
+                if i % 3:
+                    cache.put(f"r{k}", rels[k])
+                else:
+                    got = cache.get(f"r{k}")
+                    if got is not None:
+                        assert got.num_rows == rels[k].num_rows
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    try:
+        threads = [threading.Thread(target=work, args=(t,))
+                   for t in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+    assert not errors, errors
+    with cache._lock:
+        live = sum(result_cache._live_bytes(e, 1024)
+                   for e in cache._entries.values())
+        assert live == cache._bytes <= cache.max_bytes
 
 
 def test_reference_tiers_share_the_accounting(monkeypatch):
