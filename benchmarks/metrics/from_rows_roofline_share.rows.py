@@ -1,0 +1,9 @@
+"""Percent of the least time of the traced window's conversions back from
+rows (rows read once, columns and validity written once, at 3.35 TB/s)
+over the device time inside them."""
+
+from harness.readers import conversion_roofline
+
+
+def read(ctx):
+    return conversion_roofline(ctx, "bench::from_rows")

@@ -1,0 +1,6 @@
+"""The device memory allocated at its peak over the window
+(torch.cuda.max_memory_allocated after reset_peak_memory_stats), in GiB."""
+
+
+def read(ctx):
+    return ctx.peak_bytes / 2**30 if ctx.peak_bytes else None
