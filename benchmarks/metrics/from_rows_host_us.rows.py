@@ -1,0 +1,11 @@
+"""The median host time, in us, of the program's
+``srt::row_conversion.convert_from_rows`` ranges in the host-and-device
+traced window: the host's busy time a conversion back from rows, at the
+traced pace. None where the program opens no such range."""
+
+from harness.program_spans import median_range_us
+
+
+def read(ctx):
+    return median_range_us(ctx.host_trace,
+                           "srt::row_conversion.convert_from_rows")

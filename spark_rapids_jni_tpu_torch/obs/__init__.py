@@ -11,9 +11,12 @@ Port of ``spark_rapids_jni_tpu/obs/``, one import:
   ``rel.morsel_*``, ``io.disk.*`` and ``mem.pool.*``, and the serving
   layer's ``serving.*`` keep the reference's names. Every counter is
   this rank's.
-- **spans**: nesting wall-time ranges (``span``, ``traced``) feeding
-  ``span.<name>`` histograms, scoped by ``span_mark``/``spans_since``,
-  exported as Perfetto JSON.
+- **spans**: nesting wall-time ranges (``span``, ``traced``;
+  ``span_opener`` reads the switches once for a call that opens
+  several) feeding ``span.<name>`` histograms, scoped by
+  ``span_mark``/``spans_since``, exported as Perfetto JSON. Their start
+  times are on ``torch.profiler``'s clock (epoch ns), so a span file
+  lays over a profiler trace on one timeline.
 - **recompile**: the compile events (the kernel library's first-use
   ``nvcc`` build), the eager analog of the reference's jit tracking.
 - **report**: the per-query ``ExecutionReport`` that ``run_fused`` emits
@@ -47,8 +50,8 @@ from .metrics import (  # noqa: F401
     stats_since, timer)
 from .spans import (  # noqa: F401
     SpanRecord, aggregate, current_span_name, export_perfetto,
-    mark as span_mark, records_since as spans_since, reset_spans, set_attrs,
-    span, span_records, traced)
+    mark as span_mark, no_span, records_since as spans_since, reset_spans,
+    set_attrs, span, span_opener, span_records, traced)
 from .recompile import (  # noqa: F401
     RecompileRecord, mark as recompile_mark, record_event,
     records_since as recompiles_since, recompile_records, reset_recompiles,
@@ -101,7 +104,8 @@ __all__ = [
     "kernel_stats", "reset_kernel_stats", "stats_since",
     "count_dispatch", "count_host_sync", "dispatch_counts",
     "prom_name", "parse_prometheus",
-    "SpanRecord", "span", "traced", "set_attrs", "current_span_name",
+    "SpanRecord", "span", "span_opener", "no_span", "traced", "set_attrs",
+    "current_span_name",
     "span_mark", "spans_since", "span_records", "reset_spans",
     "export_perfetto", "aggregate",
     "RecompileRecord", "signature_of", "record_event", "recompile_mark",

@@ -8,6 +8,17 @@ and duration in ns plus host-side attributes, feeds the
 query's report reads its own spans that way); ``export_perfetto()``
 writes the ring as Chrome trace-event JSON.
 
+``SpanRecord.start_ns`` is on the clock ``torch.profiler`` places host
+ranges and device operations on: the epoch (CLOCK_REALTIME) in ns, where
+a profiler event starts at ``kineto_results.trace_start_ns()`` plus its
+``time_range.start`` (us) times 1000. Spans are timed on
+``perf_counter_ns`` and moved to the epoch by one offset taken at
+import. ``export_perfetto()``
+writes ``baseTimeNanoseconds`` and ``ts = (start_ns - base) / 1000``, as
+``export_chrome_trace`` does, so a span file laid over a profiler trace,
+each file's base applied, puts every device-idle gap under the span the
+host was in.
+
 Under config ``trace_enabled`` (``SRT_TRACE_ENABLED``) every span and
 ``traced`` op also opens a ``torch.profiler.record_function`` range
 ``srt::<name>``, where the reference opens a
@@ -16,7 +27,9 @@ with the kernels launched inside it, and as an NVTX range under
 ``torch.autograd.profiler.emit_nvtx``. With both ``metrics_enabled`` and
 ``trace_enabled`` off, ``span()`` and ``traced`` cost two field reads
 (each an environment read unless ``set_config`` gave the field) and
-record nothing.
+record nothing. A call that opens several spans reads the switches once
+through ``span_opener()``, which hands back ``span`` or, with both off,
+``no_span``: one shared no-op context, no span object built.
 
 The times are host wall times: a span around queued device work
 measures the enqueue unless the work inside ends in a synchronising
@@ -25,6 +38,7 @@ read, as ``run_fused``'s one host sync does.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import os
 import threading
@@ -41,11 +55,18 @@ _records: "deque" = deque(maxlen=100_000)  # guarded-by: _rec_lock
 _rec_lock = threading.Lock()
 _seq = 0  # guarded-by: _rec_lock
 _tls = threading.local()
+# perf_counter_ns() + _EPOCH_NS is the epoch time in ns, the profiler's
+# clock; the export's base is the whole second at or before
+# perf_counter's zero, so every ts is positive
+_EPOCH_NS = time.time_ns() - time.perf_counter_ns()
+_BASE_NS = _EPOCH_NS // 1_000_000_000 * 1_000_000_000
+_OFF = contextlib.nullcontext()
 
 
 class SpanRecord:
     """One finished span. ``seq`` is a process-wide monotonic id
-    assigned when the span closes."""
+    assigned when the span closes; ``start_ns`` is epoch ns, the
+    profiler's clock."""
 
     __slots__ = ("seq", "name", "start_ns", "dur_ns", "tid", "depth",
                  "parent", "attrs")
@@ -81,7 +102,7 @@ class _LiveSpan:
     def __init__(self, name, attrs, parent):
         self.name = name
         self.attrs = attrs
-        self.start_ns = time.perf_counter_ns()
+        self.start_ns = time.perf_counter_ns() + _EPOCH_NS
         self.parent = parent
 
 
@@ -112,7 +133,7 @@ class _SpanCtx:
         global _seq
         live = self._live
         if live is not None:
-            end = time.perf_counter_ns()
+            end = time.perf_counter_ns() + _EPOCH_NS
             st = _stack()
             # pop through any leaked children so one missed __exit__ never
             # skews every later record's depth
@@ -139,6 +160,20 @@ class _SpanCtx:
 def span(name: str, **attrs) -> _SpanCtx:
     """Open a named span; attributes must be host-side values."""
     return _SpanCtx(name, attrs)
+
+
+def no_span(name: str, **attrs) -> contextlib.nullcontext:
+    """``span``'s stand-in with both switches off: one shared no-op
+    context."""
+    return _OFF
+
+
+def span_opener():
+    """``span`` if ``metrics_enabled`` or ``trace_enabled`` is on, else
+    ``no_span``: a call that opens several spans reads the switches once
+    and passes the opener down."""
+    cfg = get_config()
+    return span if cfg.metrics_enabled or cfg.trace_enabled else no_span
 
 
 def current_span_name() -> Optional[str]:
@@ -200,14 +235,18 @@ def reset_spans() -> None:
 
 def export_perfetto(records=None) -> dict:
     """Chrome trace-event JSON (what Perfetto and chrome://tracing load):
-    complete ("X") events, ts/dur in microseconds."""
+    complete ("X") events, ts/dur in microseconds, ts counted from
+    ``baseTimeNanoseconds`` (epoch ns) as in ``export_chrome_trace``'s
+    files: ``base + ts * 1000`` is on the profiler's clock."""
     if records is None:
         records = span_records()
     pid = os.getpid()
-    return {"displayTimeUnit": "ns", "traceEvents": [
-        {"name": r.name, "cat": "srt", "ph": "X", "ts": r.start_ns / 1e3,
-         "dur": r.dur_ns / 1e3, "pid": pid, "tid": r.tid, "args": r.attrs}
-        for r in records]}
+    return {"displayTimeUnit": "ns", "baseTimeNanoseconds": _BASE_NS,
+            "traceEvents": [
+                {"name": r.name, "cat": "srt", "ph": "X",
+                 "ts": (r.start_ns - _BASE_NS) / 1e3, "dur": r.dur_ns / 1e3,
+                 "pid": pid, "tid": r.tid, "args": r.attrs}
+                for r in records]}
 
 
 def aggregate(records) -> "list[dict]":

@@ -7,7 +7,8 @@ Held on the CPU, on the same inputs in both packages:
 2. **Histogram buckets**: Prometheus ``le`` semantics, cumulative export,
    the same snapshot as the reference's for the same values.
 3. **Spans**: nesting, attributes, ``span_mark``/``spans_since``,
-   duration histograms, the Perfetto export.
+   duration histograms, the Perfetto export; a span's start on
+   ``torch.profiler``'s clock, in its record and in the export.
 4. **Exposition**: the Prometheus text parses under both packages' strict
    parsers, names sanitized alike; concurrent writers never break it.
 5. **Reports**: ``run_fused`` emits one ``ExecutionReport`` a query; on
@@ -257,6 +258,49 @@ def test_perfetto_export_shape_and_json_roundtrip(monkeypatch):
     inner = next(e for e in events if e["name"] == "p.inner")
     outer = next(e for e in events if e["name"] == "p.outer")
     assert outer["ts"] <= inner["ts"]
+
+
+def _profiled_span(monkeypatch, name):
+    """(the span's record, the profiler) of one span opened with both
+    switches on under a CPU ``torch.profiler`` run."""
+    from torch.profiler import ProfilerActivity, profile
+    from spark_rapids_jni_tpu_torch import config as port_config
+    monkeypatch.setattr(port_config, "_overrides", {})
+    _enable(monkeypatch)
+    monkeypatch.setenv("SRT_TRACE_ENABLED", "1")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        # a process's first profiler range takes about a millisecond
+        # after its start is stamped: warm that path first
+        with obs.span("clock.warm"):
+            pass
+        with obs.span(name):
+            time.sleep(0.001)
+    (rec,) = [r for r in obs.span_records() if r.name == name]
+    return rec, prof
+
+
+def test_span_start_is_on_the_profilers_clock(monkeypatch):
+    rec, prof = _profiled_span(monkeypatch, "clock.events")
+    (ev,) = [e for e in prof.events() if e.name == "srt::clock.events"]
+    at = prof.profiler.kineto_results.trace_start_ns() \
+        + ev.time_range.start * 1000
+    assert abs(rec.start_ns - at) < 100_000
+
+
+def test_perfetto_export_lays_over_the_profilers_trace(monkeypatch,
+                                                       tmp_path):
+    rec, prof = _profiled_span(monkeypatch, "clock.export")
+    path = tmp_path / "profile.json"
+    prof.export_chrome_trace(str(path))
+    chrome = json.loads(path.read_text())
+    (ev,) = [e for e in chrome["traceEvents"]
+             if e.get("name") == "srt::clock.export"]
+    spans = json.loads(json.dumps(obs.export_perfetto()))
+    (sp,) = [e for e in spans["traceEvents"] if e["name"] == "clock.export"]
+    at_profiler = chrome["baseTimeNanoseconds"] + float(ev["ts"]) * 1000
+    at_span = spans["baseTimeNanoseconds"] + sp["ts"] * 1000
+    assert abs(at_span - at_profiler) < 100_000
+    assert at_span == pytest.approx(rec.start_ns, abs=1)
 
 
 # --------------------------------------------------------------------------

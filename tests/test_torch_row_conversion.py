@@ -10,7 +10,9 @@ package, on the same numpy columns (built as in ``test_torch_hashing``).
   reference's decoding of the same bytes;
 - batches split below 2 GB in multiples of 32 rows, as
   ``tests/test_row_conversion.py`` checks it, and with a lowered cap the
-  split batches carry the reference's bytes.
+  split batches carry the reference's bytes;
+- under ``SRT_METRICS`` each conversion records its span with the step
+  spans nested under it; with both switches off it builds no span.
 """
 
 import numpy as np
@@ -20,8 +22,11 @@ import torch
 import spark_rapids_jni_tpu as srt
 from spark_rapids_jni_tpu.ops import row_conversion as ref_rc
 
+from spark_rapids_jni_tpu_torch import config as port_config
+from spark_rapids_jni_tpu_torch import obs as port_obs
 from spark_rapids_jni_tpu_torch.columnar import Column, Table
 from spark_rapids_jni_tpu_torch.obs import kernel_stats, stats_since
+from spark_rapids_jni_tpu_torch.obs import spans as port_spans
 from spark_rapids_jni_tpu_torch.ops import row_conversion as rc
 from spark_rapids_jni_tpu_torch.tpcds.carry import table_from_arrays
 from spark_rapids_jni_tpu_torch.types import DType, TypeId
@@ -316,3 +321,80 @@ def test_one_row_batch_decodes_to_dense_columns(schema):
             K.as_bytes(col.data)
     assert torch.equal(rc.convert_to_rows(back)[0].child.data,
                        rows[0].child.data)
+
+
+def _two_batches(monkeypatch, metrics: bool):
+    """A 150-row fixed-width table that a lowered cap splits into two
+    batches (96 + 54 rows), with the port's switches from the
+    environment alone: ``SRT_METRICS`` as given, ``SRT_TRACE_ENABLED``
+    off."""
+    monkeypatch.setattr(port_config, "_overrides", {})
+    monkeypatch.delenv("SRT_TRACE_ENABLED", raising=False)
+    if metrics:
+        monkeypatch.setenv("SRT_METRICS", "1")
+    else:
+        monkeypatch.delenv("SRT_METRICS", raising=False)
+    _, got = _both(_arrays(np.random.default_rng(21), TEST_TABLES_8, 150))
+    monkeypatch.setattr(rc, "SIZE_TYPE_MAX",
+                        rc.RowLayout(got.schema()).var_start * 100)
+    port_obs.reset_spans()
+    return got
+
+
+def _under(recs, top):
+    """``recs`` other than ``top`` all lie inside it, one level down."""
+    for r in recs:
+        assert r.parent == top.name and r.depth == top.depth + 1, r.name
+        assert top.start_ns <= r.start_ns
+        assert r.start_ns + r.dur_ns <= top.start_ns + top.dur_ns
+
+
+def test_conversion_spans_nest_under_the_call(monkeypatch):
+    got = _two_batches(monkeypatch, metrics=True)
+    rows = rc.convert_to_rows(got)
+    assert [b.size for b in rows] == [96, 54]
+    recs = port_obs.span_records()
+    top = [r for r in recs if r.name == "row_conversion.convert_to_rows"]
+    assert len(top) == 1 and top[0].depth == 0 and top[0].parent is None
+    assert top[0].attrs == {"rows": 150, "columns": 8, "batches": 2,
+                            "route": "pack_rows"}
+    steps = [r for r in recs if r is not top[0]]
+    assert sorted(r.name for r in steps) == sorted(
+        f"row_conversion.to_rows.{s}" for s in ("slice", "pack", "offsets")
+        for _ in range(2))
+    _under(steps, top[0])
+
+    mark = port_obs.span_mark()
+    back = rc.convert_from_rows(rows[1], got.schema())
+    assert back.num_rows == 54
+    recs = port_obs.spans_since(mark)
+    top = [r for r in recs if r.name == "row_conversion.convert_from_rows"]
+    assert len(top) == 1
+    assert top[0].attrs == {"rows": 54, "columns": 8,
+                            "route": "fixed_width"}
+    steps = [r for r in recs if r is not top[0]]
+    assert sorted(r.name for r in steps) == [
+        "row_conversion.from_rows.decode",
+        "row_conversion.from_rows.validity"]
+    _under(steps, top[0])
+
+
+def test_conversion_with_both_switches_off_builds_no_span(monkeypatch):
+    built = []
+    init = port_spans._SpanCtx.__init__
+
+    def counting_init(self, name, attrs):
+        built.append(name)
+        init(self, name, attrs)
+
+    monkeypatch.setattr(port_spans._SpanCtx, "__init__", counting_init)
+    got = _two_batches(monkeypatch, metrics=False)
+    for b in rc.convert_to_rows(got):
+        rc.convert_from_rows(b, got.schema())
+    assert built == [] and port_obs.span_records() == []
+    # the count sees every span once a switch is on: 1 + 3 a batch to
+    # rows, 3 a batch back
+    monkeypatch.setenv("SRT_METRICS", "1")
+    for b in rc.convert_to_rows(got):
+        rc.convert_from_rows(b, got.schema())
+    assert len(built) == 7 + 2 * 3 == len(port_obs.span_records())
