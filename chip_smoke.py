@@ -2,12 +2,12 @@
 """Smoke run of the PyTorch/CUDA port (spark_rapids_jni_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--out DIR] [--profile] [--queries-only]
-                          [--native-only]
+                          [--rows-only] [--native-only]
 
 In order, it:
 
 1. prints the card (``nvidia-smi --query-gpu=name,power.limit``) and
-   builds the CUDA kernels K1-K6 from ``spark_rapids_jni_tpu_torch/csrc``
+   builds the CUDA kernels K1-K7 from ``spark_rapids_jni_tpu_torch/csrc``
    with ``nvcc`` (one process per source, all started together), timing
    the build;
 2. holds each kernel against its plain PyTorch version on the card at
@@ -164,7 +164,7 @@ In order, it:
    (its all_gather); ``SRT_GROUPBY_PSUM_WIDTH=1``;
    ``SRT_SHUFFLE_SCRATCH_BYTES`` 64 MiB), then ``shuffle_table`` of the hashing step's 10M-row table
    (the STRING column through the torch route) and of a 1M-row
-   TestTables table (K6 and K3's table form), keyed by an INT32 and an
+   TestTables table (K6 and K7), keyed by an INT32 and an
    INT64 column (K4 and K5). It requires every query result to equal the
    pandas oracle and the single-device result (integers exact, floats
    within rtol=atol=1e-9), ``rel.dist_fallbacks == 0``, at most one
@@ -365,14 +365,18 @@ In order, it:
    schema repeated 13 times (104 columns, 1% nulls). With the counts set
    to 0 just before ``convert_to_rows`` of the five and
    ``convert_from_rows`` of each of their batches, and read just after,
-   it requires K6 to have been launched once per batch of the four
-   fixed-width tables, K3's table form once per batch of all five, each
-   K6 and K3 call to equal its plain version exactly, and
-   ``convert_from_rows`` to give back every valid value (float NaN
+   it requires K6 and K7 to have been launched once per batch of the
+   four fixed-width tables, K3's table form once per batch of the STRING
+   table, each K6, K7 and K3 call to equal its plain version exactly,
+   and ``convert_from_rows`` to give back every valid value (float NaN
    payloads byte for byte) and every validity bit; it prints ms and GB/s
    of row bytes both ways, and each conversion's wall time beside the
-   device time of its K6 (to rows) or K3 (from rows) calls (the rest is
-   host work, other kernels and idle card);
+   device time of its K6 (to rows) or K7 / K3 (from rows) calls (the
+   rest is host work, other kernels and idle card); after the native
+   step it times the native engine's one-thread-a-row
+   ``unpack_rows_kernel`` at K7's shapes (12M rows x 32 columns, 1M x
+   104) as a yardstick (``--rows-only`` runs this step and that
+   yardstick alone);
 13. the native bridge (``native.py`` and its library; ``--native-only``
     runs this step alone): the library builds with ``nvcc`` (every source
     at once) on a thread beside steps 1-3, which then runs a CPU child
@@ -429,7 +433,7 @@ paths: K1-K3 over q1-q10, q11-q20, the served path's counted pass, the
 batched path (launches: the replayed windows of step 10c (a); calls and
 times: its recording pass (b)), the morsel step's and the tuned q3
 (step 11c), K4 and K5 over the hashing step, K3 over the roster, the
-strings step and roster II, K6 and K3's table form over the
+strings step and roster II, K6, K7 and K3's table form over the
 row-conversion step, all of them over the mesh step and the mesh-served
 pass, and K1, K2, K3 and K5 over the fleet-control step's counted pass
 (its launches) and its recording pass (calls and times) (the mesh,
@@ -548,7 +552,8 @@ Q11_20 = tuple(f"q{i}" for i in range(11, 21))
 BYTES_ROUTE = ("q11", "q12", "q20")  # run again on SRT_STRING_ROUTE=bytes
 Q_NAMES = ("hash_join_probe", "ragged_groupby_sum_count", "bitmask_pack")
 HASH_NAMES = ("murmur3_int32", "murmur3_int64")
-ROW_NAMES = ("pack_rows", "bitmask_pack", "bitmask_pack_fields")
+ROW_NAMES = ("pack_rows", "unpack_rows", "bitmask_pack",
+             "bitmask_pack_fields")
 NAMES = tuple(dict.fromkeys(Q_NAMES + HASH_NAMES + ROW_NAMES))
 # the kernels line: each kernel and the (path, wrapper) pairs it sums
 KERNELS = (("hash_join_probe", (("q1-q10", "hash_join_probe"),
@@ -599,7 +604,10 @@ KERNELS = (("hash_join_probe", (("q1-q10", "hash_join_probe"),
            ("pack_rows", (("row conversion", "pack_rows"),
                           ("mesh", "pack_rows"),
                           ("serving mesh", "pack_rows"),
-                          ("native", "pack_rows"))))
+                          ("native", "pack_rows"))),
+           ("unpack_rows", (("row conversion", "unpack_rows"),
+                            ("mesh", "unpack_rows"),
+                            ("serving mesh", "unpack_rows"))))
 HASH_ROWS, HASH_CPU_ROWS = 10_000_000, 1_000_000
 # the wrappers as the port defines them (the recording pass swaps the
 # module's names for recorders that call these)
@@ -750,6 +758,16 @@ def k6_cost(columns, widths, validity):
             f"with validity) -> {size} B rows")
 
 
+def k7_cost(rows, widths, dtypes=None):
+    """Bytes: every row read once, every column value and validity word
+    written once; a few integer operations a value."""
+    n, size = rows.shape
+    words = 4 * len(widths) * ((n + 31) // 32)
+    return (n * size + n * sum(widths) + words, n * len(widths), 0,
+            f"{n} rows of {size} B -> {len(widths)} columns and their "
+            "validity words")
+
+
 def k2_library(slots, live, values, width):
     """One int64 ``index_add_`` of the live in-range values (the sums
     only: no single call also counts)."""
@@ -792,6 +810,11 @@ SPECS = {
         source="spark_rapids_jni_tpu_torch/csrc/pack_rows.cu",
         replaces=f"{PALLAS}:311", plain=K.pack_rows_plain,
         cost=k6_cost, library=None, plain_reps=3),
+    "unpack_rows": dict(
+        source="spark_rapids_jni_tpu_torch/csrc/unpack_rows.cu",
+        replaces="none (the reference decodes rows with jnp slices)",
+        plain=K.unpack_rows_plain, cost=k7_cost, library=None,
+        plain_reps=3),
 }
 
 
@@ -808,9 +831,18 @@ def _launches(name: str, args: tuple) -> int:
     return 1 if first.numel() else 0
 
 
+_INT_OF_SIZE = {1: torch.int8, 2: torch.int16, 4: torch.int32,
+                8: torch.int64}
+
+
 def _outputs(out) -> list:
-    return [t.to(torch.int64) for t in (out if isinstance(out, tuple)
-                                        else (out,))]
+    """A wrapper's output tensors as int64, float ones by their bits (K7's:
+    its columns, then its words)."""
+    if isinstance(out, tuple) and isinstance(out[0], list):
+        out = (*out[0], out[1])
+    return [(t.view(_INT_OF_SIZE[t.element_size()]) if t.is_floating_point()
+             else t).to(torch.int64)
+            for t in (out if isinstance(out, tuple) else (out,))]
 
 
 def measure(name: str, args: tuple, reps: int = REPS) -> dict:
@@ -1463,7 +1495,7 @@ def _same_columns(got: Table, want: Table) -> bool:
 
 
 def run_row_conversion(dev, gen, log, profile: bool = False):
-    """Step 7: convert_to_rows / convert_from_rows, K6's and K3's
+    """Step 7: convert_to_rows / convert_from_rows, K6's, K7's and K3's
     launches and the round trip."""
     cases = ROW_CASES
     tables = [rows_table(dev, gen, *case[1:]) for case in cases]
@@ -1481,19 +1513,26 @@ def run_row_conversion(dev, gen, log, profile: bool = False):
         torch.cuda.synchronize()
     launches = {n: K.LAUNCHES[n] for n in ROW_NAMES}
     routes = {k: v for k, v in stats_since(before).items()
-              if k.startswith("row_conversion.route.")}
+              if k.startswith(("row_conversion.route.",
+                               "row_conversion.from_rows.route."))}
     log(f"row conversion launches: {json.dumps(launches)} routes: "
         f"{json.dumps(routes, sort_keys=True)}")
-    want = sum(len(b) for b, case in zip(rows, cases) if not case[3])
-    _require(launches["pack_rows"] == want,
-             f"K6 launched {launches['pack_rows']} times, want {want}: one "
+    fixed = sum(len(b) for b, case in zip(rows, cases) if not case[3])
+    _require(launches["pack_rows"] == fixed,
+             f"K6 launched {launches['pack_rows']} times, want {fixed}: one "
              "per batch of each fixed-width table")
-    want = sum(len(b) for b in rows)
+    _require(launches["unpack_rows"] == fixed,
+             f"K7 launched {launches['unpack_rows']} times, want {fixed}: "
+             "one per batch of each fixed-width table converted back")
+    want = sum(len(b) for b in rows) - fixed
     _require(launches["bitmask_pack_fields"] == want,
              f"K3's table form launched {launches['bitmask_pack_fields']} "
-             f"times, want {want}: one per batch converted from rows")
+             f"times, want {want}: one per batch with STRING columns "
+             "converted back")
     _require(routes == {"row_conversion.route.pack_rows": 4,
-                        "row_conversion.route.torch": 1},
+                        "row_conversion.route.torch": 1,
+                        "row_conversion.from_rows.route.unpack_rows": fixed,
+                        "row_conversion.from_rows.route.torch": want},
              f"row-conversion routes {routes}")
     step = rc.max_rows_per_batch(200)
     n_big = cases[2][1]
@@ -1538,11 +1577,12 @@ def run_row_conversion(dev, gen, log, profile: bool = False):
 
 def kernels_beside_wall(cases: list, totals: dict, card: str, log) -> None:
     """Each conversion's wall time beside the device time of its kernel
-    calls, K6 in ``convert_to_rows`` and K3's table form in
-    ``convert_from_rows``: the rest is the host's work, other kernels and
-    the card's idle time."""
+    calls, K6 in ``convert_to_rows``, K7 (or, with STRING columns, K3's
+    table form) in ``convert_from_rows``: the rest is the host's work,
+    other kernels and the card's idle time."""
     for r in cases:
         for way, key, name in (("to_rows", "k6", "pack_rows"),
+                               ("from_rows", "k7", "unpack_rows"),
                                ("from_rows", "k3", "bitmask_pack_fields")):
             ms = [c["ms"] for c in totals[name]["per_call"]
                   if c["query"] == r["case"]]
@@ -1553,6 +1593,65 @@ def kernels_beside_wall(cases: list, totals: dict, card: str, log) -> None:
             log(f"rows {r['case']}: convert_{way} {r[f'{way}_ms']:.3f} ms "
                 f"wall, {key.upper()} {sum(ms):.4f} ms in {len(ms)} "
                 f"call(s) = {share:.3f} of it [{card}]")
+
+
+# K7's shapes (rows, repeats of the 8-type schema) at which the native
+# engine's own decoder is timed beside it
+NATIVE_UNPACK_SHAPES = ((12_000_000, 4), (1_000_000, 13))
+
+
+def native_unpack_yardstick(log, card: str) -> list:
+    """The native engine's ``unpack_rows_kernel`` (csrc/native/
+    cuda_engine.cu: a thread a row, one global load a column, 32 columns
+    a launch) at K7's shapes of the row step, on rows the engine packed
+    and keeps resident: its device time under the profiler (the median of
+    3 calls), beside K7's bound; "not measured" when the profiler saw
+    none of its launches. A yardstick: no benchmark cell runs the engine,
+    and the port does not call it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from spark_rapids_jni_tpu_torch import native as nat
+    torch.cuda.empty_cache()  # the engine allocates outside torch's cache
+    nat.load()
+    _require(nat.cuda_available(), "the CUDA engine did not start")
+    out = []
+    for n, repeats in NATIVE_UNPACK_SHAPES:
+        schema = ROW_TYPES * repeats
+        host = nat.NativeTable([(dt, np.zeros(n, dt.storage_dtype), None)
+                                for dt in schema])
+        table = host.to_device()
+        host.close()
+        with table.to_rows() as rows:
+            times, launches = [], 0
+            for _ in range(4):
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    got = rows.from_rows(n, schema)
+                    torch.cuda.synchronize()
+                ev = [e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA
+                      and "unpack_rows_kernel" in e.name]
+                times.append(sum(e.time_range.elapsed_us() for e in ev)
+                             / 1e3)
+                launches = len(ev)
+                for d, v in got:
+                    d.free()
+                    v.free()
+        table.free()
+        widths = [dt.size_bytes for dt in schema]
+        size = K.unpack_plan(tuple(widths)).size_per_row
+        nbytes = n * size + n * sum(widths) + 4 * len(widths) * (
+            (n + 31) // 32)
+        r = {"rows": n, "columns": len(schema), "launches": launches,
+             "ms": statistics.median(times[1:]) if launches else None,
+             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+        out.append(r)
+        ms = ("not measured (the profiler saw no launch)" if r["ms"] is None
+              else f"{r['ms']:.4f} ms ({100 * r['bound_ms'] / r['ms']:.1f}% "
+              "of the bound)")
+        log(f"native unpack_rows_kernel {n} rows x {len(schema)} columns: "
+            f"{launches} launch(es), {ms}, bound {r['bound_ms']:.4f} ms "
+            f"[{card}]")
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -3477,7 +3576,7 @@ def run_roster2(dev, gen, ss, text: Column, log, profile: bool = False):
 # The mesh: run_fused over a NCCL process group, and shuffle_table
 # --------------------------------------------------------------------------
 
-MESH_NAMES = NAMES  # K1-K6, K3 in both forms
+MESH_NAMES = NAMES  # K1-K7, K3 in both forms
 MESH_THRESHOLD = "8192"  # the reference test's: the dimensions shard too
 MESH_BUDGET = 64 << 20   # stages the 10M-row exchanges into rounds
 # (pass, env, queries): the forced passes run only the queries whose
@@ -6207,6 +6306,10 @@ def main(argv=None) -> int:
     ap.add_argument("--tune-child", action="store_true",
                     help=argparse.SUPPRESS)
     ap.add_argument("--native-child", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--rows-only", action="store_true",
+                    help="build the kernels, run only the row-conversion "
+                    "step (step 7) with its kernel entries, and time the "
+                    "native engine's row decoder beside K7; no result")
     ap.add_argument("--native-only", action="store_true",
                     help="build the kernels and the native library, run "
                     "only the native step (step 13) and print its routes "
@@ -6244,7 +6347,7 @@ def main(argv=None) -> int:
             logfile.flush()
 
     prep = NativePrep()  # the native library's build, then its CPU child
-    if not args.queries_only:
+    if not (args.queries_only or args.rows_only):
         atexit.register(prep.stop)
         prep.start()
     t0 = time.perf_counter()
@@ -6261,6 +6364,23 @@ def main(argv=None) -> int:
         return 0
     Card.read()
     log(f"card: {Card.sms} SMs, max SM clock {Card.sm_hz / 1e6:.0f} MHz")
+    if args.rows_only:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        rows, calls = run_row_conversion(dev, gen, log, args.profile)
+        log("row-conversion kernel calls, each equal to its plain version:")
+        totals = path_kernels(calls, rows["launches"], ROW_NAMES, log)
+        del calls
+        kernels_beside_wall(rows["cases"], totals, card, log)
+        for name, t in totals.items():
+            if t["calls"]:
+                log(f"kernel {name}: row conversion calls={t['calls']} "
+                    f"launches={rows['launches'][name]} "
+                    f"kernel_ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} "
+                    f"bound_ms={t['bound_ms']:.4g} ({t['bound_by']}) "
+                    f"[{card}]")
+        native_unpack_yardstick(log, card)
+        return 0
     if args.native_only:
         native_res, calls = run_native(dev, prep, log, card, args.out)
         totals = {"native": path_kernels(calls, native_res["launches"],
@@ -6425,6 +6545,7 @@ def main(argv=None) -> int:
     log(f"row-conversion step: {rows['step_s']:.3f} s")
 
     native_res, calls = run_native(dev, prep, log, card, args.out)
+    native_res["unpack_yardstick"] = native_unpack_yardstick(log, card)
     log("native K4/K5/K6 launches as wrapper calls, each equal to its "
         "plain version on the engine's inputs:")
     totals["native"] = path_kernels(calls, native_res["launches"],

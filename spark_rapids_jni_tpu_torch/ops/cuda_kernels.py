@@ -15,7 +15,11 @@ pallas_kernels.py``) become CUDA C++ under ``csrc/``:
   (``hashing.murmur3_table`` chains K5 over int64 columns as
   ``murmur3_int64_table_pallas`` does);
 - K6 ``pack_rows`` (``csrc/pack_rows.cu``) replaces
-  ``_pack_rows_compiled`` / ``pack_rows_pallas``, with real validity.
+  ``_pack_rows_compiled`` / ``pack_rows_pallas``, with real validity;
+- K7 ``unpack_rows`` (``csrc/unpack_rows.cu``), K6's inverse, replaces no
+  TPU kernel (the reference decodes rows with ``jnp`` slices): it turns a
+  row batch into its fixed-width columns and their validity words in one
+  pass.
 
 The sources compile with ``nvcc`` for ``sm_90a`` into one shared library
 with a plain C interface, at first use, into ``target/torch_kernels/``
@@ -75,7 +79,7 @@ from .row_layout import fixed_width_layout
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("hash_join_probe.cu", "ragged_groupby.cu", "bitmask_pack.cu",
-           "murmur3.cu", "pack_rows.cu")
+           "murmur3.cu", "pack_rows.cu", "unpack_rows.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "target" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -96,7 +100,7 @@ RAGGED_BLOCK_ROWS = 2048
 # __global__ launches per kernel name (K1 "hash_join_probe", K2
 # "ragged_groupby_sum_count", K3 "bitmask_pack" and its table form
 # "bitmask_pack_fields", K4 "murmur3_int32", K5 "murmur3_int64", K6
-# "pack_rows")
+# "pack_rows", K7 "unpack_rows")
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
 
 
@@ -262,10 +266,13 @@ def kernels() -> ctypes.CDLL:
     lib.srt_murmur3_int32.argtypes = [vp, vp, vp, ll, vp]
     lib.srt_murmur3_int64.argtypes = [vp, vp, vp, ll, vp]
     lib.srt_pack_rows.argtypes = [vp, i, i, i, i, i, i, i, vp, ll, vp, vp]
+    lib.srt_unpack_rows.argtypes = [vp, i, i, i, i, i, i, i, vp, vp, ll, vp,
+                                    vp]
     for fn in (lib.srt_hash_join_probe, lib.srt_ragged_groupby_sum_count,
                lib.srt_ragged_groupby_max_blocks, lib.srt_bitmask_pack,
                lib.srt_bitmask_pack_fields, lib.srt_murmur3_int32,
-               lib.srt_murmur3_int64, lib.srt_pack_rows):
+               lib.srt_murmur3_int64, lib.srt_pack_rows,
+               lib.srt_unpack_rows):
         fn.restype = ctypes.c_int
     return lib
 
@@ -677,8 +684,8 @@ def murmur3_int64(values: torch.Tensor, seeds: torch.Tensor) -> torch.Tensor:
 # K6: fixed-width columns -> row-format word image
 # --------------------------------------------------------------------------
 
-# K6: the shared memory of a block when two fit on an SM, and when one
-# takes the SM; the most rows a tile holds
+# K6 and K7: the shared memory of a block when two fit on an SM, and when
+# one takes the SM; the most rows a tile holds
 PACK_SMEM_BYTES = 110 * 1024
 PACK_SMEM_ONE_BLOCK = 220 * 1024
 PACK_MAX_TILE = 256
@@ -886,3 +893,160 @@ def pack_rows(columns, widths, validity=None) -> torch.Tensor:
     _check(rc, "pack_rows")
     _count_launch("pack_rows")
     return out
+
+
+# --------------------------------------------------------------------------
+# K7: row-format rows -> fixed-width columns and their validity words
+# --------------------------------------------------------------------------
+
+_INT_OF_WIDTH = {1: torch.int8, 2: torch.int16, 4: torch.int32,
+                 8: torch.int64}
+
+
+class UnpackPlan(NamedTuple):
+    """K7's plan for a schema (``unpack_plan``)."""
+    size_per_row: int
+    validity_offset: int
+    tile_rows: int          # T: rows a tile stages, a multiple of 32
+    # (c0, c1, lo, hi, vc0, vc1): the columns of each band, its bytes
+    # [lo, hi) of the row, the columns whose validity bits its validity
+    # bytes hold
+    bands: Tuple[Tuple[int, ...], ...]
+    cols: Tuple[Tuple[int, int], ...]  # (byte in the row, width)
+    img_stride: int         # bytes between image rows, an odd multiple of 8
+    vstage_bytes: int       # a tile's validity words of one band
+
+    @property
+    def smem_bytes(self) -> int:
+        return 2 * self.tile_rows * self.img_stride + self.vstage_bytes
+
+    def words(self) -> Tuple[int, ...]:
+        """The plan as the kernel reads it (int32): 8 per band, then 2 per
+        column."""
+        return tuple(x for b in self.bands for x in b + (0, 0)) \
+            + tuple(x for col in self.cols for x in col)
+
+
+def _unpack_sizes(bands, tile: int) -> Tuple[int, int]:
+    """(img_stride, shared memory) of tiles of ``tile`` rows: two images
+    of the widest band, and the words of the band with most validity
+    columns."""
+    stride = _img_stride(bands)
+    words = _align16(4 * (tile // 32) * max(b[5] - b[4] for b in bands))
+    return stride, 2 * tile * stride + words
+
+
+@functools.lru_cache(maxsize=256)
+def unpack_plan(widths: Tuple[int, ...]) -> UnpackPlan:
+    """K7's plan for a schema of byte widths, chosen as K6's
+    (``pack_plan``): T is the largest multiple of 32 up to
+    ``PACK_MAX_TILE`` whose two row images (rows ``img_stride`` bytes
+    apart) and staged validity words fit ``PACK_SMEM_BYTES`` (two blocks
+    an SM); where that leaves fewer than 128 rows, a block takes the SM
+    (``PACK_SMEM_ONE_BLOCK``) for a larger T. When 32 rows of the whole
+    row fit neither, the row is cut greedily into bands at 16-byte
+    boundaries, each within half of ``PACK_SMEM_BYTES``, and unpacked 32
+    rows at a time."""
+    expects(len(widths) > 0 and all(w in (1, 2, 4, 8) for w in widths),
+            f"unpack_rows takes widths 1, 2, 4 or 8, not {widths}")
+    size_per_row, starts, voff = fixed_width_layout(widths)
+    blocks = -(-size_per_row // 16)
+
+    def band(b0, b1):
+        return _pack_segment(widths, starts, voff, size_per_row, b0, b1)
+
+    def largest_tile(bands, budget):
+        return next((t for t in range(PACK_MAX_TILE, 31, -32)
+                     if _unpack_sizes(bands, t)[1] <= budget), 0)
+
+    bands = [band(0, blocks)]
+    tile = largest_tile(bands, PACK_SMEM_BYTES)
+    if tile < 128:
+        tile = max(tile, largest_tile(bands, PACK_SMEM_ONE_BLOCK))
+    if not tile:
+        tile, bands, b0 = 32, [], 0
+        half = PACK_SMEM_BYTES // 2
+        while b0 < blocks:
+            b1 = b0 + 1
+            expects(_unpack_sizes([band(b0, b1)], tile)[1] <= half,
+                    "a 16-byte band exceeds K7's shared memory")
+            while b1 < blocks and _unpack_sizes(
+                    [band(b0, b1 + 1)], tile)[1] <= half:
+                b1 += 1
+            bands.append(band(b0, b1))
+            b0 = b1
+    stride, smem = _unpack_sizes(bands, tile)
+    return UnpackPlan(size_per_row, voff, tile, tuple(bands),
+                      tuple(zip(starts, widths)), stride,
+                      smem - 2 * tile * stride)
+
+
+@functools.lru_cache(maxsize=256)
+def _unpack_plan_on_card(widths: Tuple[int, ...], dev: torch.device
+                         ) -> torch.Tensor:
+    """The schema's K7 plan as int32 on the card, copied once."""
+    return torch.tensor(unpack_plan(widths).words(), dtype=torch.int32,
+                        device=dev)
+
+
+def _column_dtypes(widths, dtypes) -> list:
+    if dtypes is None:
+        return [_INT_OF_WIDTH[w] for w in widths]
+    dtypes = list(dtypes)
+    if [d.itemsize for d in dtypes] != list(widths):
+        expects(False, f"column dtypes {dtypes} for widths {widths}")
+    return dtypes
+
+
+def unpack_rows_plain(rows: torch.Tensor, widths, dtypes=None
+                      ) -> Tuple[list, torch.Tensor]:
+    """Plain PyTorch K7: each column a packed copy of its slot viewed
+    as the column's type (one slot a row), and the validity words of
+    K3's table form on the rows' validity bytes."""
+    widths = tuple(int(w) for w in widths)
+    _, starts, voff = fixed_width_layout(widths)
+    cols = [rows.view(d)[:, s // w].clone(
+        memory_format=torch.contiguous_format)
+        for s, w, d in zip(starts, widths, _column_dtypes(widths, dtypes))]
+    nb = (len(widths) + 7) // 8
+    return cols, bitmask_pack_fields_plain(rows[:, voff:voff + nb],
+                                           len(widths))
+
+
+def unpack_rows(rows: torch.Tensor, widths, dtypes=None
+                ) -> Tuple[list, torch.Tensor]:
+    """The row format's uint8 (N, size_per_row) rows of a schema of byte
+    widths 1, 2, 4 or 8 -> (one dense 1-D column per column, of its
+    ``dtypes`` entry or else the width's integer type, and uint32 (k,
+    ceil(N/32)) validity words: row ``c`` is column ``c``'s, LSB-first,
+    padding 0). One launch for the batch."""
+    widths = tuple(int(w) for w in widths)
+    k = len(widths)
+    plan = unpack_plan(widths)
+    if not (rows.dtype == torch.uint8 and rows.dim() == 2
+            and rows.shape[1] == plan.size_per_row):
+        expects(False,
+                f"unpack_rows takes uint8 (rows, {plan.size_per_row}) rows")
+    dev = rows.device
+    if dev.type == "cpu":
+        return unpack_rows_plain(rows, widths, dtypes)
+    n = int(rows.shape[0])
+    rows = rows.contiguous()
+    cols = [torch.empty(n, dtype=d, device=dev)
+            for d in _column_dtypes(widths, dtypes)]
+    words = torch.empty((k, (n + 31) // 32), dtype=torch.uint32, device=dev)
+    if n == 0:
+        return cols, words
+    # this call's pointers, one small array on the card (pinned, so the
+    # copy does not wait for the stream)
+    ptrs = torch.tensor([c.data_ptr() for c in cols],
+                        dtype=torch.int64).pin_memory().to(dev,
+                                                           non_blocking=True)
+    rc = kernels().srt_unpack_rows(
+        _unpack_plan_on_card(widths, dev).data_ptr(), k, plan.size_per_row,
+        len(plan.bands), plan.validity_offset, plan.tile_rows,
+        plan.img_stride, plan.vstage_bytes, ptrs.data_ptr(),
+        rows.data_ptr(), n, words.data_ptr(), _stream(dev))
+    _check(rc, "unpack_rows")
+    _count_launch("unpack_rows")
+    return cols, words

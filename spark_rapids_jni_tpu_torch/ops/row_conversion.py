@@ -16,18 +16,20 @@ STRING columns take the variable-width layout of ``RowLayout``: an
 8-byte (offset, length) slot in the fixed section, the bytes after it.
 
 Routes: a table whose columns all have widths 1, 2, 4 or 8 goes to K6
-(``cuda_kernels.pack_rows``, any number of columns), which on a CPU
-tensor is its plain version; a table with a DECIMAL128 or STRING column
-is built from torch ops. The route is counted
-(``row_conversion.route.pack_rows`` / ``row_conversion.route.torch``).
-Each call opens the reference's span (``row_conversion.convert_to_rows``,
+(``cuda_kernels.pack_rows``, any number of columns) and its rows come
+back through K7 (``cuda_kernels.unpack_rows``: every column and every
+validity word in one launch a batch); on a CPU tensor each is its plain
+version. A schema with a DECIMAL128 or STRING column is built from torch
+ops, and decoded from slot views with one K3 launch
+(``cuda_kernels.bitmask_pack_fields``) a batch for the validity words.
+The routes are counted (``row_conversion.route.pack_rows`` /
+``row_conversion.route.torch`` to rows,
+``row_conversion.from_rows.route.unpack_rows`` / ``.torch`` back). Each
+call opens the reference's span (``row_conversion.convert_to_rows``,
 ``row_conversion.convert_from_rows``) and, on the fixed-width routes,
 one span per step inside it, so a profiler trace taken with
 ``SRT_TRACE_ENABLED`` names the step the host was in at each
 device-idle gap. The switches are read once a call.
-``convert_from_rows`` is torch slicing and views for the data, and one
-K3 launch (``cuda_kernels.bitmask_pack_fields``) a batch for every
-column's validity words.
 
 Batches keep each output ``list<int8>`` column below 2 GB, in multiples
 of 32 rows so validity words never split across batches
@@ -350,9 +352,11 @@ def convert_from_rows(rows: Column, schema: Sequence[DType]) -> Table:
     row_conversion.cu:519-575). Every column gets validity words.
 
     Spans: ``row_conversion.convert_from_rows`` over the call, with attrs
-    ``rows``, ``columns`` and ``route``; on the fixed-width route
+    ``rows``, ``columns`` and ``route``; on K7's route
+    ``row_conversion.from_rows.unpack`` (K7 with its pointer table)
+    inside it; on the fixed-width torch route (a DECIMAL128 column)
     ``row_conversion.from_rows.decode`` (the columns' copies) and
-    ``.validity`` (K3) inside it."""
+    ``.validity`` (K3)."""
     expects(rows.dtype.id == TypeId.LIST, "input must be a list column")
     child = rows.child
     expects(child.dtype.id in (TypeId.INT8, TypeId.UINT8),
@@ -360,9 +364,12 @@ def convert_from_rows(rows: Column, schema: Sequence[DType]) -> Table:
     lay = RowLayout(schema)
     n = rows.size
     sp = span_opener()
+    kernel = _kernel_route(lay.schema)
+    count("row_conversion.from_rows.route.unpack_rows" if kernel
+          else "row_conversion.from_rows.route.torch")
     with sp("row_conversion.convert_from_rows", rows=n,
             columns=len(lay.schema),
-            route="torch" if lay.has_var else "fixed_width"):
+            route="unpack_rows" if kernel else "torch"):
         if lay.has_var:
             expects(int(rows.offsets.data[-1]) == child.size,
                     "The layout of the data appears to be off")
@@ -370,6 +377,12 @@ def convert_from_rows(rows: Column, schema: Sequence[DType]) -> Table:
         expects(lay.var_start * n == child.size,
                 "The layout of the data appears to be off")
         mat = child.data.view(torch.uint8).reshape(n, lay.var_start)
-        datas, vwords = _decode_fixed(mat, lay, sp)
+        if kernel:
+            with sp("row_conversion.from_rows.unpack"):
+                datas, words = K.unpack_rows(
+                    mat, lay.sizes, [dt.to_torch() for dt in lay.schema])
+            vwords = list(words)
+        else:
+            datas, vwords = _decode_fixed(mat, lay, sp)
         return Table([Column(dt, n, d, v)
                       for dt, d, v in zip(lay.schema, datas, vwords)])

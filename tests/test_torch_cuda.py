@@ -1,4 +1,4 @@
-"""K1-K6 on the card: each hand-written CUDA kernel of the PyTorch/CUDA
+"""K1-K7 on the card: each hand-written CUDA kernel of the PyTorch/CUDA
 port against its plain PyTorch version on the same CUDA tensors, and the
 hashing and row-conversion entry points on the card against the same
 calls on the CPU.
@@ -179,9 +179,12 @@ def test_cuda_convert_from_rows_packs_validity_in_one_launch(cuda_device):
         r.random(n) > 0.2 if i % 3 else None, device=cuda_device)
         for i in range(k)])
     rows = rc.convert_to_rows(t)
-    before = K.LAUNCHES["bitmask_pack_fields"]
+    before = dict(K.LAUNCHES)
     back = rc.convert_from_rows(rows[0], t.schema())
-    assert K.LAUNCHES["bitmask_pack_fields"] == before + 1
+    # K7 packs every column's words with the columns: K3 is not launched
+    assert K.LAUNCHES["unpack_rows"] == before.get("unpack_rows", 0) + 1
+    assert K.LAUNCHES["bitmask_pack_fields"] == \
+        before.get("bitmask_pack_fields", 0)
     for a, b in zip(back.columns, t.columns):
         assert torch.equal(a.valid_bool(), b.valid_bool())
 
@@ -397,6 +400,134 @@ def test_cuda_pack_rows_slices_nulls_and_unaligned(cuda_device):
                        K.pack_rows_plain(odd, _TESTTABLES))
 
 
+def _unpack_case(dev, widths, n, seed, offset=0):
+    """Rows of the schema's size with every byte random, as a view
+    ``offset`` bytes into a larger buffer."""
+    from spark_rapids_jni_tpu_torch.ops.row_layout import fixed_width_layout
+    size = fixed_width_layout(widths)[0]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    buf = torch.randint(0, 256, (n * size + 16,), generator=g, device=dev,
+                        dtype=torch.uint8)
+    return buf[offset:offset + n * size].view(n, size)
+
+
+def _assert_unpack_equals_plain(rows, widths):
+    before = K.LAUNCHES["unpack_rows"]
+    fields = K.LAUNCHES["bitmask_pack_fields"]
+    cols, words = K.unpack_rows(rows, widths)
+    assert K.LAUNCHES["unpack_rows"] == before + (1 if rows.shape[0] else 0)
+    # the plain version views the rows as each width's integers, which
+    # needs a buffer aligned to 8 bytes: it reads a packed copy
+    want_cols, want_words = K.unpack_rows_plain(rows.clone(), widths)
+    # the plain version launches K3's plain form: nothing counted
+    assert K.LAUNCHES["bitmask_pack_fields"] == fields
+    assert torch.equal(words.view(torch.int32), want_words.view(torch.int32))
+    for i, (c, w) in enumerate(zip(cols, want_cols)):
+        assert c.dtype == w.dtype and c.stride() == (1,)
+        assert torch.equal(c, w), f"column {i}"
+
+
+_WIDE_104 = (8, 8, 4, 1, 4, 1, 4, 8) * 13
+_BANDED = (8, 1, 8, 8, 2, 8, 4, 8) * 64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths,n", [
+    (_TESTTABLES, 1), (_TESTTABLES, 31), (_TESTTABLES, 33),
+    (_TESTTABLES, 255), (_TESTTABLES, 257), (_TESTTABLES, 1_000_000),
+    (_TESTTABLES + (2, 1), 100_003), ((1, 2, 2, 1, 1, 1, 2, 1, 2, 2, 1), 513),
+    (_WIDE_104, 161), (_WIDE_104, 1_000_000), (_BANDED, 33),
+    (_BANDED, 10_001), ((1,) * 1500, 1000)],
+    ids=lambda v: str(len(v)) if isinstance(v, tuple) else str(v))
+def test_cuda_unpack_rows_equals_plain(cuda_device, widths, n):
+    # random bytes everywhere (padding, validity bits past the last
+    # column): the columns and words equal the plain version's, byte for
+    # byte; 1M rows of 32 and of 104 columns; a banded schema
+    _assert_unpack_equals_plain(
+        _unpack_case(cuda_device, widths, n, n + len(widths)), widths)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [8, 4, 1])
+@pytest.mark.parametrize("widths", [_TESTTABLES, _WIDE_104],
+                         ids=["32", "104"])
+def test_cuda_unpack_rows_unaligned_views(cuda_device, widths, offset):
+    # a row buffer viewed 8 bytes past a 16-byte boundary takes 8-byte
+    # copies, 4 bytes past 4-byte copies, 1 byte past byte loads
+    rows = _unpack_case(cuda_device, widths, 5000, offset, offset)
+    assert rows.data_ptr() % 16 == offset
+    _assert_unpack_equals_plain(rows, widths)
+
+
+@pytest.mark.cuda
+def test_cuda_convert_from_rows_two_batches_through_k7(cuda_device,
+                                                       monkeypatch):
+    # a lowered cap splits 40,000 rows into two batches (as 12M rows of
+    # 200 bytes split under 2 GB): one K7 launch a batch, no K3, no slot
+    # copies; every value and validity bit back
+    import numpy as np
+    from spark_rapids_jni_tpu_torch import types as T
+    from spark_rapids_jni_tpu_torch.columnar import Column, Table
+    from spark_rapids_jni_tpu_torch.obs import kernel_stats, stats_since
+    from spark_rapids_jni_tpu_torch.ops import row_conversion as rc
+    r = np.random.default_rng(7)
+    n = 40_000
+    types = [T.INT64, T.FLOAT64, T.INT32, T.BOOL8, T.FLOAT32, T.INT8,
+             T.decimal32(-3), T.decimal64(-8)] * 4
+    cols = []
+    for dt in types:
+        vals = r.integers(-2**62, 2**62, n).astype(
+            np.dtype(dt.storage_dtype)) if dt.id != T.TypeId.BOOL8 else \
+            r.integers(0, 2, n).astype(np.int8)
+        cols.append(Column.from_numpy(vals, r.random(n) > 0.01, dt,
+                                      device=cuda_device))
+    t = Table(cols)
+    monkeypatch.setattr(rc, "SIZE_TYPE_MAX", 200 * 30_000)
+    rows = rc.convert_to_rows(t)
+    assert [b.size for b in rows] == [29_984, 10_016]
+    K.reset_launch_counts()
+    before = kernel_stats()
+    start = 0
+    for b in rows:
+        back = rc.convert_from_rows(b, t.schema())
+        for a, c in zip(back.columns, t.columns):
+            want = rc.slice_rows(c, start, start + b.size)
+            ok = want.valid_bool()
+            assert torch.equal(a.valid_bool(), ok)
+            assert a.data.dtype == c.data.dtype
+            assert torch.equal(K.as_bytes(a.data)[ok],
+                               K.as_bytes(want.data)[ok])
+        start += b.size
+    assert dict(K.LAUNCHES) == {"unpack_rows": 2}
+    assert stats_since(before) == {
+        "row_conversion.from_rows.route.unpack_rows": 2}
+
+
+@pytest.mark.cuda
+def test_cuda_convert_from_rows_launches_only_k7(cuda_device):
+    # under the profiler, a conversion back runs K7 and the pointer
+    # table's copy, and nothing else on the card
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from spark_rapids_jni_tpu_torch.columnar import Column, Table
+    from spark_rapids_jni_tpu_torch.ops import row_conversion as rc
+    r = np.random.default_rng(8)
+    n = 200_000
+    t = Table([Column.from_numpy(r.integers(-2**31, 2**31, n).astype(
+        np.int32), r.random(n) > 0.1, device=cuda_device)
+        for _ in range(32)])
+    rows = rc.convert_to_rows(t)
+    rc.convert_from_rows(rows[0], t.schema())
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        rc.convert_from_rows(rows[0], t.schema())
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [x for x in names if "memcpy" not in x.lower()]
+    assert len(kernels) == 1 and "inverse::pack_rows_kernel" in kernels[0]
+
+
 @pytest.mark.cuda
 def test_cuda_empty_inputs_launch_nothing(cuda_device):
     before = dict(K.LAUNCHES)
@@ -405,6 +536,10 @@ def test_cuda_empty_inputs_launch_nothing(cuda_device):
     assert K.murmur3_int32(e32, e32).shape == (0,)
     assert K.murmur3_int64(e64, e32).shape == (0,)
     assert K.pack_rows([e64, e32], [8, 4]).shape == (0, 4)
+    cols, words = K.unpack_rows(torch.zeros((0, 16), dtype=torch.uint8,
+                                            device=cuda_device), [8, 4])
+    assert [c.shape for c in cols] == [(0,), (0,)]
+    assert words.shape == (2, 0)
     assert dict(K.LAUNCHES) == before
 
 
@@ -1138,7 +1273,10 @@ def test_cuda_nccl_shuffle_table_keeps_every_row(nccl_mesh, strings):
         got, over = shuffle_table(mesh, table, [0, 1], capacity=capacity)
         st = stats_since(before)
         assert K.LAUNCHES["murmur3_int32"] and K.LAUNCHES["murmur3_int64"]
-        assert K.LAUNCHES["bitmask_pack_fields"] >= 1
+        # a fixed-width table goes back through K7, a STRING one through
+        # slot copies and K3's table form
+        assert bool(K.LAUNCHES["bitmask_pack_fields"]) == strings
+        assert bool(K.LAUNCHES["unpack_rows"]) == (not strings)
         assert bool(K.LAUNCHES["pack_rows"]) == (not strings)
         if capacity is None:
             assert int(over.sum()) == 0

@@ -453,6 +453,7 @@ def test_wrappers_do_not_count_cpu_calls():
     K.murmur3_int32(torch.arange(4, dtype=torch.int32), seeds)
     K.murmur3_int64(torch.arange(4), seeds)
     K.pack_rows([torch.arange(4)], [8])
+    K.unpack_rows(torch.zeros((4, 16), dtype=torch.uint8), [8])
     assert dict(K.LAUNCHES) == before
 
 
@@ -815,3 +816,194 @@ def test_pack_rows_rejects_bad_inputs():
     # 8 bytes, a validity byte, padding to 16: four words
     assert K.pack_rows([torch.zeros(0, dtype=torch.int64)], [8]).shape \
         == (0, 4)
+
+
+# --------------------------------------------------------------------------
+# K7: row unpack
+# --------------------------------------------------------------------------
+
+def _emulate_unpack_kernel(rows, widths):
+    """What csrc/unpack_rows.cu computes, in numpy, walking as it walks:
+    for each item (a tile of T rows, one band of the row; the last tile
+    partial) it stages the band's bytes of each row into an image whose
+    rows are ``img_stride`` bytes apart, copies each of the band's
+    columns out of it, and turns 4 validity bytes a row (32 columns'
+    bits) into 32 words with a 32 x 32 bit transpose a group of 32 rows,
+    staged a tile at ``c * T / 32 + g`` and stored column by column.
+    Words the walk never writes keep a marker."""
+    plan = K.unpack_plan(tuple(widths))
+    n, tile, stride = rows.shape[0], plan.tile_rows, plan.img_stride
+    assert tile % 32 == 0 and stride % 16 == 8
+    assert plan.smem_bytes <= K.PACK_SMEM_ONE_BLOCK
+    k, tg = len(widths), tile // 32
+    cols = [np.zeros(n, _WIDTH_NP[w]) for w in widths]
+    valid = np.full((k, -(-n // 32)), 0xDEADBEEF, np.uint64)
+    lanes = np.arange(32, dtype=np.uint64)
+    for c0, c1, lo, hi, vc0, vc1 in plan.bands:
+        assert hi - lo <= stride
+        nvc = vc1 - vc0
+        vrel = plan.validity_offset + vc0 // 8 - lo
+        vbytes = -(-vc1 // 8) - vc0 // 8
+        for r0 in range(0, n, tile):
+            rr, groups = min(tile, n - r0), -(-min(tile, n - r0) // 32)
+            image = np.zeros((tile, stride), np.uint8)
+            image[:rr, :hi - lo] = rows[r0:r0 + rr, lo:hi]
+            for c in range(c0, c1):
+                start, width = plan.cols[c]
+                assert width == widths[c] and lo <= start <= hi - width
+                cols[c][r0:r0 + rr] = image[:rr, start - lo:start - lo
+                                            + width].copy().view(
+                    _WIDTH_NP[width])[:, 0]
+            vstage = np.zeros(plan.vstage_bytes // 4, np.uint64)
+            for q in range(-(-nvc // 32)):
+                need = min(4, vbytes - 4 * q)
+                at = vrel + 4 * q
+                for g in range(groups):
+                    x = np.zeros(32, np.uint64)
+                    live = min(32, rr - 32 * g)
+                    for j in range(need):
+                        x[:live] |= image[32 * g:32 * g + live,
+                                          at + j].astype(np.uint64) << (8 * j)
+                    bits = (x[:, None] >> lanes[None, :]) & 1  # (row, col)
+                    words = (bits << lanes[:, None]).sum(axis=0)
+                    for j in range(min(32, nvc - 32 * q)):
+                        vstage[(32 * q + j) * tg + g] = words[j]
+            for c in range(nvc):
+                valid[vc0 + c, r0 // 32:r0 // 32 + groups] = \
+                    vstage[c * tg:c * tg + groups]
+    return cols, valid
+
+
+def _random_rows(rng, widths, n):
+    """Rows of the schema's size, every byte random (padding and the
+    validity bits past the last column too)."""
+    size = fixed_width_layout(widths)[0]
+    return rng.integers(0, 256, (n, size), dtype=np.uint8)
+
+
+def _assert_unpack_equals_plain(rows, widths):
+    want_cols, want_words = K.unpack_rows_plain(_t(rows), widths)
+    got_cols, got_words = K.unpack_rows(_t(rows), widths)
+    em_cols, em_words = _emulate_unpack_kernel(rows, widths)
+    assert got_words.dtype == torch.uint32
+    assert got_words.shape == (len(widths), -(-rows.shape[0] // 32))
+    np.testing.assert_array_equal(got_words.numpy(), want_words.numpy())
+    np.testing.assert_array_equal(em_words, want_words.numpy())
+    for w, g, e, p in zip(widths, got_cols, em_cols, want_cols):
+        assert g.dtype == K._INT_OF_WIDTH[w] and g.stride() == (1,)
+        np.testing.assert_array_equal(g.numpy(), p.numpy())
+        np.testing.assert_array_equal(e, p.numpy())
+
+
+_WIDE_104 = (8, 8, 4, 1, 4, 1, 4, 8) * 13
+_BANDED = (8, 1, 8, 8, 2, 8, 4, 8) * 64
+
+
+@pytest.mark.parametrize("widths,n", [
+    (_TESTTABLES, 255), (_TESTTABLES, 256), (_TESTTABLES, 257),
+    (_NARROW, 1), (_NARROW, 256), (_NARROW, 290),
+    (_WIDE_104, 159), (_WIDE_104, 160), (_WIDE_104, 161),
+    (_BANDED, 33), ((4, 8, 1, 2) * 700, 40),
+], ids=["testtables-T-1", "testtables-T", "testtables-T+1", "narrow-1",
+        "narrow-T", "narrow-T+34", "104-T-1", "104-T", "104-T+1",
+        "banded", "banded-2800"])
+def test_unpack_rows_tile_edges_equal_plain(widths, n):
+    # random bytes everywhere: a column takes only its slot's bytes, a
+    # word only its columns' bits, the padding bits of a last word are 0
+    plan = K.unpack_plan(widths)
+    assert (plan.tile_rows, len(plan.bands) > 1) == {
+        _TESTTABLES: (256, False), _NARROW: (256, False),
+        _WIDE_104: (160, False), _BANDED: (32, True),
+        (4, 8, 1, 2) * 700: (32, True)}[widths]
+    rows = _random_rows(np.random.default_rng(n + len(widths)), widths, n)
+    _assert_unpack_equals_plain(rows, widths)
+
+
+def test_unpack_rows_decodes_convert_to_rows():
+    # rows the reference packed, nulls and an all-valid column: each valid
+    # value and every validity bit back
+    widths = (8, 4, 1, 2, 8, 1, 4, 1, 2)
+    rng = np.random.default_rng(19)
+    n = 333
+    cols = _columns(rng, widths, n)
+    valids = [rng.random(n) > 0.3 for _ in widths]
+    valids[2][:] = True
+    want, _ = _reference_rows(cols, valids)
+    rows = want.reshape(n, -1)
+    got_cols, words = K.unpack_rows(_t(rows), widths)
+    for c, v, g, w in zip(cols, valids, got_cols, words):
+        np.testing.assert_array_equal(g.numpy()[v], c[v])
+        np.testing.assert_array_equal(bitmask.unpack(w, n).numpy(), v)
+    _assert_unpack_equals_plain(rows, widths)
+
+
+def test_unpack_plan_layout():
+    # | A BOOL8 | B INT16 | C INT32 | -> 16 bytes, validity at byte 8;
+    # tiles of 256 rows, image rows 24 bytes apart (an odd number of
+    # 8-byte units), 8 words of each of 3 columns staged
+    plan = K.unpack_plan((1, 2, 4))
+    assert (plan.size_per_row, plan.validity_offset, plan.tile_rows,
+            plan.img_stride, plan.vstage_bytes) == (16, 8, 256, 24, 96)
+    assert plan.bands == ((0, 3, 0, 16, 0, 3),)
+    assert plan.cols == ((0, 1), (2, 2), (4, 4))
+    assert plan.smem_bytes == 2 * 256 * 24 + 96
+    assert plan.words() == (0, 3, 0, 16, 0, 3, 0, 0, 0, 1, 2, 2, 4, 4)
+    # TestTables.java's 200-byte rows are an odd number of 8-byte units:
+    # the image is the tile's run of rows as it stands; two blocks an SM
+    plan = K.unpack_plan(_TESTTABLES)
+    assert (plan.tile_rows, plan.img_stride, plan.vstage_bytes) == \
+        (256, 200, 32 * 8 * 4)
+    assert plan.smem_bytes <= K.PACK_SMEM_BYTES
+    # 640-byte rows: 64 rows with two blocks an SM, so one block takes the
+    # SM for 160; image rows padded to 648 bytes
+    plan = K.unpack_plan(_WIDE_104)
+    assert (plan.tile_rows, plan.img_stride) == (160, 648)
+    assert K.PACK_SMEM_BYTES < plan.smem_bytes <= K.PACK_SMEM_ONE_BLOCK
+    # 1688-byte rows still fit 32 rows in one block; 4,160-byte rows do
+    # not, and are cut into bands
+    assert len(K.unpack_plan((1,) * 1500).bands) == 1
+    assert K.unpack_plan(_BANDED).tile_rows == 32
+    assert len(K.unpack_plan(_BANDED).bands) == 5
+
+
+@pytest.mark.parametrize("widths", [_BANDED, (1,) * 20_000,
+                                    (4, 8, 1, 2) * 700])
+def test_unpack_plan_bands_partition_the_row(widths):
+    # bands cut at 16-byte boundaries own whole columns and bytes, cover
+    # the row and every validity column in order, and their images and
+    # staged words fit the block's shared memory together
+    plan = K.unpack_plan(widths)
+    size, starts, voff = fixed_width_layout(widths)
+    k = len(widths)
+    assert plan.tile_rows == 32 and len(plan.bands) > 1
+    assert plan.smem_bytes <= K.PACK_SMEM_BYTES
+    c_at, b_at, v_at = 0, 0, 0
+    for c0, c1, lo, hi, vc0, vc1 in plan.bands:
+        assert (c0, lo) == (c_at, b_at) or c0 == c1
+        assert lo % 16 == 0 and hi > lo and (hi - lo) % 8 == 0
+        assert hi - lo <= plan.img_stride
+        assert all(lo <= starts[c] and starts[c] + widths[c] <= hi
+                   for c in range(c0, c1))
+        if vc1 > vc0:
+            assert vc0 == v_at and vc0 == 8 * max(lo - voff, 0)
+            assert 4 * (plan.tile_rows // 32) * (vc1 - vc0) \
+                <= plan.vstage_bytes
+            v_at = vc1
+        c_at, b_at = max(c_at, c1), hi
+    assert (c_at, b_at, v_at) == (k, size, k)
+
+
+def test_unpack_rows_rejects_bad_inputs():
+    with pytest.raises(CudfLikeError, match="widths 1, 2, 4 or 8"):
+        K.unpack_rows(torch.zeros((4, 32), dtype=torch.uint8), [8, 16])
+    with pytest.raises(CudfLikeError, match="rows, 16"):
+        K.unpack_rows(torch.zeros((4, 24), dtype=torch.uint8), [8])
+    with pytest.raises(CudfLikeError, match="uint8"):
+        K.unpack_rows(torch.zeros((4, 16), dtype=torch.int8), [8])
+    with pytest.raises(CudfLikeError, match="dtypes"):
+        K.unpack_rows(torch.zeros((4, 16), dtype=torch.uint8), [8],
+                      [torch.float32])
+    cols, words = K.unpack_rows(torch.zeros((0, 16), dtype=torch.uint8),
+                                [8, 1])
+    assert [c.shape for c in cols] == [(0,), (0,)]
+    assert words.shape == (2, 0) and words.dtype == torch.uint32

@@ -11,6 +11,9 @@ package, on the same numpy columns (built as in ``test_torch_hashing``).
 - batches split below 2 GB in multiples of 32 rows, as
   ``tests/test_row_conversion.py`` checks it, and with a lowered cap the
   split batches carry the reference's bytes;
+- ``convert_from_rows`` of a schema of widths 1, 2, 4 and 8 goes through
+  K7 (``cuda_kernels.unpack_rows``, its plain version here) and counts
+  that route; DECIMAL128 and STRING schemas count the torch route;
 - under ``SRT_METRICS`` each conversion records its span with the step
   spans nested under it; with both switches off it builds no span.
 """
@@ -371,7 +374,21 @@ def test_conversion_spans_nest_under_the_call(monkeypatch):
     top = [r for r in recs if r.name == "row_conversion.convert_from_rows"]
     assert len(top) == 1
     assert top[0].attrs == {"rows": 54, "columns": 8,
-                            "route": "fixed_width"}
+                            "route": "unpack_rows"}
+    steps = [r for r in recs if r is not top[0]]
+    assert [r.name for r in steps] == ["row_conversion.from_rows.unpack"]
+    _under(steps, top[0])
+
+    # a DECIMAL128 column keeps the slot copies and K3: their two steps
+    _, dec = _both(_arrays(np.random.default_rng(22),
+                           [(TypeId.DECIMAL128, -2), (TypeId.INT32, 0)], 40))
+    dec_rows = rc.convert_to_rows(dec)
+    mark = port_obs.span_mark()
+    rc.convert_from_rows(dec_rows[0], dec.schema())
+    recs = port_obs.spans_since(mark)
+    top = [r for r in recs if r.name == "row_conversion.convert_from_rows"]
+    assert len(top) == 1
+    assert top[0].attrs == {"rows": 40, "columns": 2, "route": "torch"}
     steps = [r for r in recs if r is not top[0]]
     assert sorted(r.name for r in steps) == [
         "row_conversion.from_rows.decode",
@@ -393,8 +410,107 @@ def test_conversion_with_both_switches_off_builds_no_span(monkeypatch):
         rc.convert_from_rows(b, got.schema())
     assert built == [] and port_obs.span_records() == []
     # the count sees every span once a switch is on: 1 + 3 a batch to
-    # rows, 3 a batch back
+    # rows, 2 a batch back (the call and K7's step)
     monkeypatch.setenv("SRT_METRICS", "1")
     for b in rc.convert_to_rows(got):
         rc.convert_from_rows(b, got.schema())
-    assert len(built) == 7 + 2 * 3 == len(port_obs.span_records())
+    assert len(built) == 7 + 2 * 2 == len(port_obs.span_records())
+
+
+# --------------------------------------------------------------------------
+# convert_from_rows through K7 (its plain version on the CPU)
+# --------------------------------------------------------------------------
+
+_F64_SPECIALS = np.array([0x0, 0x8000000000000000, 0x7FF0000000000000,
+                          0xFFF0000000000000, 0x7FF8000000000000,
+                          0xFFF8000000000001, 0x7FF0000000000001],
+                         np.uint64)
+_F32_SPECIALS = np.array([0x0, 0x80000000, 0x7F800000, 0xFF800000,
+                          0x7FC00000, 0xFFC00001, 0x7F800001], np.uint32)
+
+
+def _specials_arrays(rng, schema, n, null_share=0.01):
+    """Host arrays with ``null_share`` of each column's rows null, every
+    float column's rows 0, 3, 6, ... cycling through +-0, +-inf and NaN
+    payloads."""
+    out = []
+    for (dtype, data, _), (tid, _) in zip(_arrays(rng, schema, n),
+                                         schema):
+        data = np.array(data)
+        if tid in (TypeId.FLOAT64, TypeId.FLOAT32):
+            bits = data.view(np.uint64 if tid == TypeId.FLOAT64
+                             else np.uint32)
+            pats = _F64_SPECIALS if tid == TypeId.FLOAT64 else _F32_SPECIALS
+            at = np.arange(0, n, 3)
+            bits[at] = pats[np.arange(at.size) % pats.size]
+        out.append((dtype, data, rng.random(n) >= null_share))
+    return out
+
+
+def _from_rows_equal_reference(schema, n, seed):
+    arrays = _specials_arrays(np.random.default_rng(seed), schema, n)
+    ref, got = _both(arrays)
+    rows = rc.convert_to_rows(got)
+    assert len(rows) == 1
+    before = kernel_stats()
+    back = rc.convert_from_rows(rows[0], got.schema())
+    assert stats_since(before) == {
+        "row_conversion.from_rows.route.unpack_rows": 1}
+    assert back.num_rows == n
+    if not n:
+        assert all(c.data.shape == (0,) and c.validity.shape == (0,)
+                   for c in back.columns)
+        return
+    _tables_equal(back, arrays)
+    # the reference decodes the same bytes: every validity word and every
+    # data byte (null slots included) equal
+    want = ref_rc.convert_from_rows(ref_rc.convert_to_rows(ref)[0],
+                                    ref.schema())
+    for pc, rcol in zip(back.columns, want.columns):
+        assert pc.data.dtype == pc.dtype.to_torch()
+        assert pc.data.stride() == (1,) and pc.validity.dtype == torch.uint32
+        np.testing.assert_array_equal(pc.validity.numpy(),
+                                      np.asarray(rcol.validity))
+        np.testing.assert_array_equal(pc.data.numpy().view(np.uint8),
+                                      np.asarray(rcol.data).view(np.uint8))
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 33, 150])
+def test_unpack_rows_route_equals_reference(n):
+    # TestTables' 32 columns, 1% nulls, NaN payloads and +-0/+-inf
+    _from_rows_equal_reference(TEST_TABLES_8 * 4, n, 1900 + n)
+
+
+@pytest.mark.parametrize("schema,n", [
+    (TEST_TABLES_8 * 13, 150),
+    ([(TypeId.INT64, 0), (TypeId.INT8, 0), (TypeId.INT64, 0),
+      (TypeId.INT64, 0), (TypeId.INT16, 0), (TypeId.INT64, 0),
+      (TypeId.INT32, 0), (TypeId.FLOAT64, 0)] * 64, 33),
+], ids=["104_columns", "banded_512_columns"])
+def test_unpack_rows_route_wide_schemas_equal_reference(schema, n):
+    # 104 columns (640-byte rows) and a schema whose 32-row tile
+    # overflows K7's shared memory, unpacked in bands on the card
+    from spark_rapids_jni_tpu_torch.ops import cuda_kernels as K
+    plan = K.unpack_plan(tuple(
+        DType(t, s).size_bytes for t, s in schema))
+    assert (len(plan.bands) > 1) == (len(schema) == 512)
+    _from_rows_equal_reference(schema, n, len(schema))
+
+
+@pytest.mark.parametrize("schema,route", [
+    ([(TypeId.INT8, 0), (TypeId.INT16, 0), (TypeId.INT32, 0),
+      (TypeId.INT64, 0), (TypeId.BOOL8, 0), (TypeId.FLOAT32, 0),
+      (TypeId.FLOAT64, 0), (TypeId.DECIMAL32, -3), (TypeId.DECIMAL64, -8),
+      (TypeId.TIMESTAMP_DAYS, 0), (TypeId.TIMESTAMP_MICROSECONDS, 0)],
+     "unpack_rows"),
+    ([(TypeId.INT64, 0), (TypeId.DECIMAL128, -2)], "torch"),
+    ([(TypeId.INT32, 0), (TypeId.STRING, 0)], "torch"),
+], ids=["widths_1_to_8", "decimal128", "string"])
+def test_from_rows_route_counter(schema, route):
+    arrays = _arrays(np.random.default_rng(len(schema)), schema, 70)
+    _, got = _both(arrays)
+    rows = rc.convert_to_rows(got)
+    before = kernel_stats()
+    _tables_equal(rc.convert_from_rows(rows[0], got.schema()), arrays)
+    assert stats_since(before) == {
+        f"row_conversion.from_rows.route.{route}": 1}
