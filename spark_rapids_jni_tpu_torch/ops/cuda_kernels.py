@@ -103,9 +103,17 @@ RAGGED_BLOCK_ROWS = 2048
 # "pack_rows", K7 "unpack_rows")
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
 
+# K1's and K2's launch shapes, summed over their calls: K1
+# "hash_join_probe.build_rows" / ".probe_rows" and the rows of the live
+# masks it was given (".build_live_rows", ".probe_live_rows"); K2
+# "ragged_groupby_sum_count.rows" / ".slots" (its output width). Counted
+# beside ``LAUNCHES``, outside graph captures.
+LAUNCH_SHAPES: "collections.Counter[str]" = collections.Counter()
+
 
 def reset_launch_counts() -> None:
     LAUNCHES.clear()
+    LAUNCH_SHAPES.clear()
 
 
 # a graph capture in progress on this thread: its launch counter
@@ -115,6 +123,12 @@ _capture_tls = threading.local()
 def _count_launch(name: str, n: int = 1) -> None:
     rec = getattr(_capture_tls, "launches", None)
     (LAUNCHES if rec is None else rec)[name] += n
+
+
+def _count_shape(name: str, **dims: int) -> None:
+    if getattr(_capture_tls, "launches", None) is None:
+        for k, v in dims.items():
+            LAUNCH_SHAPES[f"{name}.{k}"] += int(v)
 
 
 @contextlib.contextmanager
@@ -448,6 +462,9 @@ def hash_join_probe(build_keys: torch.Tensor, probe_keys: torch.Tensor,
         found.data_ptr(), _stream(dev))
     _check(rc, "hash_join_probe")
     _count_launch("hash_join_probe", 1 if shared else 2)  # build, probe
+    _count_shape("hash_join_probe", build_rows=n_build, probe_rows=n_probe,
+                 build_live_rows=0 if blive is None else n_build,
+                 probe_live_rows=0 if plive is None else n_probe)
     return idx, found
 
 
@@ -523,6 +540,7 @@ def ragged_groupby_sum_count(slots: torch.Tensor, live: torch.Tensor,
         _stream(dev))
     _check(rc, "ragged_groupby_sum_count")
     _count_launch("ragged_groupby_sum_count")
+    _count_shape("ragged_groupby_sum_count", rows=n, slots=width)
     return sums, counts
 
 

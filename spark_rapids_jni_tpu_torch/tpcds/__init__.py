@@ -1,7 +1,8 @@
-"""TPC-DS miniature q1-q20 on the port: the generator, the templates
-and their pandas oracles."""
+"""TPC-DS q1-q20 on the port: the miniature's generator, the
+specification's (``generate_spec``), the templates and their pandas
+oracles."""
 
-from .data import generate
+from .data import generate, generate_spec
 from .queries import PLANS, QUERIES
 
-__all__ = ["generate", "PLANS", "QUERIES"]
+__all__ = ["generate", "generate_spec", "PLANS", "QUERIES"]

@@ -8,13 +8,16 @@ dimensions and skewed foreign keys. The draws come from numpy
 to the reference's for the same (sf, seed). ``ingest`` turns the frames
 into rels with the schema's decimal columns typed; ``as_table`` and
 ``as_sharded_table`` build plain tables, the second one this rank's row
-chunk over a mesh.
+chunk over a mesh. ``generate_spec`` (``tpcds/spec_data.py``) makes the
+TPC-DS specification's tables on the device instead, as ingested rels.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import pandas as pd
+
+from .spec_data import generate_spec  # noqa: F401
 
 _STATES = ["CA", "TX", "NY", "WA", "GA", "OH", "MI", "IL", "NC", "TN"]
 _CATEGORIES = ["Books", "Home", "Electronics", "Music", "Shoes",

@@ -7,7 +7,18 @@ decided on the host from VERIFIED ingest stats: the dense broadcast join
 membership for semi/anti joins, and dense fixed-width groupbys
 (accumulated by ``index_add_`` or by K2). When no dense route applies, a
 fused plan raises ``FusedFallback`` and the runner re-runs it on the
-general sort-merge kernels.
+general sort-merge kernels (``rel.route.join.general.<how>``,
+``rel.route.groupby.general``).
+
+Keys may be NULL, with Spark's semantics on every route: a NULL key
+matches nothing in an inner, semi or left join (a left join keeps the
+row, its right side NULL; an anti join keeps it), and a groupby gathers
+every NULL key into one group, whose slot on the dense route lies before
+the key's values. A dense route that took a nullable key counts
+``rel.route.join.dense_nullable.<how>`` or
+``rel.route.groupby.dense_nullable``; the key's validity folds into the
+live masks, so no host sync is added. A sum or mean with no valid value
+in its group is NULL.
 
 In a partitioned run (``tpcds/dist.py``) a sharded build side takes the
 collective routes: presence-psum membership, the reduce-scatter join and
@@ -70,6 +81,17 @@ def groupby_oracle(df, keys, aggs):
 # Shared join building blocks
 # --------------------------------------------------------------------------
 
+def key_valid(col: Column):
+    """A key column's valid rows as a bool vector, or None when it has no
+    NULL."""
+    return None if col.validity is None else col.valid_bool()
+
+
+def _and(a, b):
+    """``a & b`` where either may be None (all True)."""
+    return b if a is None else a if b is None else a & b
+
+
 def null_unmatched(rt: Table, matched: torch.Tensor) -> "list[Column]":
     """Left-join null marking: right-side columns keep their gathered
     data but report null where the row had no match (one packed mask,
@@ -87,12 +109,11 @@ def presence_membership(left, right, lk: Column, rk: Column, how: str,
                         merge=None):
     """Semi/anti MEMBERSHIP via a dense presence bitmap over the LEFT
     key's trusted range: scatter the right keys into a (width,) vector,
-    probe the left keys. The right side may hold duplicates. ``merge``
-    combines the shards' presence vectors before the probe (the
-    presence-psum route); None keeps it shard-local. Returns None when
-    inapplicable."""
-    if rk.validity is not None or rk.data is None \
-            or not rk.dtype.is_integral:
+    probe the left keys. The right side may hold duplicates; a NULL key
+    on either side is never present. ``merge`` combines the shards'
+    presence vectors before the probe (the presence-psum route); None
+    keeps it shard-local. Returns None when inapplicable."""
+    if rk.data is None or not rk.dtype.is_integral:
         return None
     rng = _rel._trusted_range(lk)
     if rng is None:
@@ -103,9 +124,7 @@ def presence_membership(left, right, lk: Column, rk: Column, how: str,
         return None
     dev = rk.data.device
     k = rk.data.to(torch.int64) - lo
-    rlive = (k >= 0) & (k < width)
-    if right.mask is not None:
-        rlive = rlive & right.mask
+    rlive = _and(_and((k >= 0) & (k < width), right.mask), key_valid(rk))
     slot = torch.where(rlive, k, width)
     # index_fill_ takes the value as a kernel argument; ``present[slot] =
     # True`` would copy a host scalar to the device, a synchronising copy
@@ -116,16 +135,19 @@ def presence_membership(left, right, lk: Column, rk: Column, how: str,
         present = merge(present)
     kl = lk.data.to(torch.int64) - lo
     linb = (kl >= 0) & (kl < width)
-    found = linb & present[torch.clamp(kl, 0, width - 1)]
+    found = _and(linb & present[torch.clamp(kl, 0, width - 1)],
+                 key_valid(lk))
+    if lk.validity is not None or rk.validity is not None:
+        count(f"rel.route.join.dense_nullable.{how}")
     return left.filter(found if how == "semi" else ~found)
 
 
 def dense_key_range(key: Column):
-    """(lo, hi) of a build key that the dense path may take: non-null,
-    integral, not proven duplicate, with a trusted range no wider than
-    MAX_DENSE_WIDTH; else None. Uniqueness may still need proving."""
-    if key.validity is not None or key.data is None \
-            or not key.dtype.is_integral:
+    """(lo, hi) of a build key that the dense path may take: integral,
+    its valid values not proven duplicate, with a trusted range no wider
+    than MAX_DENSE_WIDTH; else None. Uniqueness may still need proving.
+    A NULL build key never matches: its rows stay out of the map."""
+    if key.data is None or not key.dtype.is_integral:
         return None
     if key.unique is False and not _rel._trusted_unique(key):
         return None  # ingest already proved duplicates
@@ -136,19 +158,22 @@ def dense_key_range(key: Column):
 
 
 def dense_build_map(rel, key: Column):
-    """Broadcast-map build over a rel's (possibly masked) rows; None
-    when the dense path cannot be proven applicable. Under the planner
-    flag it builds without device checks from trusted stats or gives up
-    the route, never syncing."""
+    """Broadcast-map build over a rel's (possibly masked) rows, NULL keys
+    left out; None when the dense path cannot be proven applicable.
+    Under the planner flag it builds without device checks from trusted
+    stats or gives up the route, never syncing."""
     if dense_key_range(key) is None:
         return None
+    live = _and(rel.mask, key_valid(key))
+    plain = key if key.validity is None else Column(
+        key.dtype, key.size, key.data, value_range=key.value_range)
     if _rel._trusted_unique(key):
-        return build_dense_map(key, rel.mask, check_range=False,
+        return build_dense_map(plain, live, check_range=False,
                                check_unique=False)
     if _rel._FUSED_TRACING:
         return None  # uniqueness unprovable without a device check
     try:
-        dmap = build_dense_map(key, rel.mask, check_range=False,
+        dmap = build_dense_map(plain, live, check_range=False,
                                check_unique=True)  # host sync
         count_dispatch("rel.build_map_unique_check")
         count_host_sync("rel.build_map_unique_check")
@@ -174,14 +199,14 @@ def gather_build_side(rel, idx: torch.Tensor) -> "list[Column]":
 
 def dense_join(left, right, left_on, right_on, how: str):
     """Broadcast (dense-dictionary) fast path: mask algebra only, no
-    compaction, no host sync. Returns None when inapplicable."""
+    compaction, no host sync. A NULL probe key finds nothing; a NULL
+    build key is never in the map. Returns None when inapplicable."""
     Rel = _rel.Rel
     if len(left_on) != 1 or len(right_on) != 1:
         return None
     lk = left.col(left_on[0])
     rk = right.col(right_on[0])
-    if lk.validity is not None or lk.data is None \
-            or not lk.dtype.is_integral:
+    if lk.data is None or not lk.dtype.is_integral:
         return None
     # a key proven unique from trusted stats needs no map yet: K1 builds
     # its own table, so only the gather route below builds one
@@ -197,6 +222,9 @@ def dense_join(left, right, left_on, right_on, how: str):
         return None
     lo, hi = rng if rng is not None else (dmap.lo, dmap.lo + dmap.width - 1)
     count(f"rel.route.join.dense.{how}")
+    if lk.validity is not None or rk.validity is not None:
+        count(f"rel.route.join.dense_nullable.{how}")
+    pvalid = key_valid(lk)
     # probe route (ops/join.join_probe_method): the direct-address
     # gather or K1 -- same (idx, found) contract, equal outputs
     method = join_probe_method(rk.size, lk.size, backend=lk.device.type)
@@ -205,15 +233,14 @@ def dense_join(left, right, left_on, right_on, how: str):
     if method == "cuda":
         from ...ops.cuda_kernels import hash_join_probe
         k64 = rk.data.to(torch.int64)
-        blive = (k64 >= lo) & (k64 <= hi)
-        if right.mask is not None:
-            blive = blive & right.mask
-        idx, found = hash_join_probe(rk.data, lk.data, build_live=blive)
+        blive = _and(_and((k64 >= lo) & (k64 <= hi), right.mask),
+                     key_valid(rk))
+        idx, found = hash_join_probe(rk.data, lk.data, build_live=blive,
+                                     probe_live=pvalid)
     else:
         if dmap is None:
-            dmap = build_dense_map(rk, right.mask, check_range=False,
-                                   check_unique=False)
-        idx, found = dense_lookup(dmap, lk.data)
+            dmap = dense_build_map(right, rk)
+        idx, found = dense_lookup(dmap, lk.data, pvalid)
     if how == "semi":
         return left.filter(found)
     if how == "anti":
@@ -504,6 +531,7 @@ def join(left, right, left_on, right_on, how: str = "inner"):
             f"{how} join on {left_on} needs the general kernel")
     lc = left.compact()
     rc = right.compact()
+    count(f"rel.route.join.general.{how}")
     count_dispatch(f"rel.general_join.{how}")
     count_host_sync(f"rel.general_join.{how}")
     set_attrs(route="general")
@@ -536,21 +564,23 @@ def join(left, right, left_on, right_on, how: str = "inner"):
 
 def dense_slots(rel, keys):
     """Mixed-radix dense-slot encoding over a rel's key columns, LAST key
-    least significant (ascending slot order == ascending key order).
-    Returns ``(slots int32, width, key_cols, ranges, strides)`` or None
-    when a key lacks a trusted range or the width exceeds the cap."""
-    key_cols, ranges = [], []
+    least significant (ascending slot order == ascending key order). A
+    nullable key's digit gives NULL a slot of its own, before its values
+    (digit 0; a value ``v`` is digit ``v - lo + 1``). Returns ``(slots
+    int32, width, key_cols, ranges, strides, nullable)`` or None when a
+    key lacks a trusted range or the width exceeds the cap."""
+    key_cols, ranges, nullable = [], [], []
     for k in keys:
         kc = rel.col(k)
-        if kc.validity is not None or kc.data is None \
-                or not kc.dtype.is_integral:
+        if kc.data is None or not kc.dtype.is_integral:
             return None
         rng = _rel._trusted_range(kc)
         if rng is None:
             return None
         key_cols.append(kc)
         ranges.append((int(rng[0]), int(rng[1])))
-    widths = [hi - lo + 1 for lo, hi in ranges]
+        nullable.append(kc.validity is not None)
+    widths = [hi - lo + 1 + nl for (lo, hi), nl in zip(ranges, nullable)]
     width = 1
     for w in widths:
         width *= w
@@ -561,9 +591,13 @@ def dense_slots(rel, keys):
         strides[i] = strides[i + 1] * widths[i + 1]
     slot64 = torch.zeros(rel.num_rows, dtype=torch.int64,
                          device=key_cols[0].device)
-    for kc, (lo, _), st in zip(key_cols, ranges, strides):
-        slot64 = slot64 + (kc.data.to(torch.int64) - lo) * st
-    return slot64.to(torch.int32), width, key_cols, ranges, strides
+    for kc, (lo, _), st, nl in zip(key_cols, ranges, strides, nullable):
+        digit = kc.data.to(torch.int64) - lo
+        if nl:
+            digit = torch.where(kc.valid_bool(), digit + 1, 0)
+        slot64 = slot64 + digit * st
+    return (slot64.to(torch.int32), width, key_cols, ranges, strides,
+            nullable)
 
 
 def plain_value_column(vc) -> bool:
@@ -575,7 +609,9 @@ def dense_groupby(rel, keys, aggs):
     """Dense fast path: integer keys with trusted small ranges aggregate
     into fixed (width,) slots; the present mask IS the result's row mask,
     and compaction yields the ascending-key order of the general path.
-    Float and nullable min/max stay general.
+    Float and nullable min/max stay general. A nullable key groups its
+    NULLs in a slot of their own (``dense_slots``); a sum or mean whose
+    group holds no valid value is NULL.
 
     Over sharded rows of a partitioned run the aggregation has two
     phases: each shard aggregates its local rows into the same slot
@@ -594,14 +630,14 @@ def dense_groupby(rel, keys, aggs):
     enc = dense_slots(rel, keys)
     if enc is None:
         return None
-    slots, width, key_cols, ranges, strides = enc
+    slots, width, key_cols, ranges, strides, nullable = enc
     for c, a, _ in aggs:
         vc = rel.col(c)
         if a not in ("sum", "count", "mean", "min", "max"):
             return None
         if not plain_value_column(vc):
             return None
-        if vc.validity is not None and a not in ("sum", "count"):
+        if vc.validity is not None and a not in ("sum", "count", "mean"):
             return None
         if a in ("min", "max") and vc.dtype.id in (TypeId.FLOAT32,
                                                    TypeId.FLOAT64):
@@ -611,6 +647,8 @@ def dense_groupby(rel, keys, aggs):
             if rel.mask is None else rel.mask)
     method = dense_groupby_method(width, backend=dev.type)
     count(f"rel.route.groupby.dense.{method}")
+    if any(nullable):
+        count("rel.route.groupby.dense_nullable")
     set_attrs(route="dense", method=method, width=width)
 
     merge = None
@@ -677,25 +715,39 @@ def dense_groupby(rel, keys, aggs):
     present = counts > 0
     iota = offset + torch.arange(out_width, dtype=torch.int64, device=dev)
     out_cols = []
-    for kc, (lo, hi), st in zip(key_cols, ranges, strides):
-        w = hi - lo + 1
-        decoded = ((iota // st) % w + lo).to(kc.dtype.to_torch())
+    for kc, (lo, hi), st, nl in zip(key_cols, ranges, strides, nullable):
+        digit = (iota // st) % (hi - lo + 1 + nl)
+        kvalid = None
+        if nl:
+            kvalid = bitmask.pack(digit > 0)
+            digit = torch.clamp(digit - 1, min=0)
+        decoded = (digit + lo).to(kc.dtype.to_torch())
         out_cols.append(_rel._trust(
-            Column(kc.dtype, out_width, decoded, value_range=(lo, hi)),
+            Column(kc.dtype, out_width, decoded, kvalid,
+                   value_range=(lo, hi)),
             unique=(len(key_cols) == 1)))
     for c, a, _ in aggs:
         vc = rel.col(c)
         rdt = result_dtype(a, vc.dtype)
+        valid = None
         if a == "count":
             data = pass_for(c, False)[1].to(torch.int64)
         elif a == "sum":
-            data = pass_for(c, False)[0]
+            data, n_valid = pass_for(c, False)
+            if vc.validity is not None:
+                valid = bitmask.pack(n_valid > 0)
         elif a == "mean":
-            data = pass_for(c, True)[0] / counts.to(torch.float64)
+            data, n_valid = pass_for(c, True)
+            data = data / n_valid.to(torch.float64)
+            if vc.dtype.is_decimal:
+                data = data / 10.0 ** -vc.dtype.scale
+            if vc.validity is not None:
+                valid = bitmask.pack(n_valid > 0)
         else:  # integral min/max
             data = merged(dense_groupby_extreme(slots, mask, vc.data, width,
                                                 a == "min"), op=a)
-        out_cols.append(Column(rdt, out_width, data.to(rdt.to_torch())))
+        out_cols.append(Column(rdt, out_width, data.to(rdt.to_torch()),
+                               valid))
     out = Rel(Table(out_cols), list(keys) + [o for _, _, o in aggs],
               mask=present, dicts=rel._sub_dicts(keys))
     if morsel:
@@ -729,6 +781,7 @@ def groupby(rel, keys, aggs):
                 "(DECIMAL128) is not supported: cast or rescale to "
                 "DECIMAL64 first")
     plain = rel.compact()
+    count("rel.route.groupby.general")
     count_dispatch("rel.general_groupby")
     count_host_sync("rel.general_groupby")
     set_attrs(route="general")
@@ -736,5 +789,14 @@ def groupby(rel, keys, aggs):
     out = groupby_aggregate(plain.select(*keys).table, vals,
                             [(i, a) for i, (_, a, _) in enumerate(aggs)])
     set_attrs(out_groups=out.num_rows)
+    cols = list(out.columns)
+    for i, (c, a, _) in enumerate(aggs):
+        vdt = plain.col(c).dtype
+        if a == "mean" and vdt.is_decimal:
+            # a decimal's mean in its units, as the dense route gives it
+            m = cols[len(keys) + i]
+            cols[len(keys) + i] = Column(
+                m.dtype, m.size, m.data / 10.0 ** -vdt.scale, m.validity)
+    out = Table(cols)
     return Rel(out, list(keys) + [o for _, _, o in aggs],
                dicts=plain._sub_dicts(keys))

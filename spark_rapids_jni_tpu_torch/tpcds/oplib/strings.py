@@ -30,6 +30,9 @@ with nulls: no dictionary) takes the eager ``ops/string_ops.py`` route
 
 from __future__ import annotations
 
+import functools
+import re
+
 import numpy as np
 import torch
 
@@ -73,29 +76,82 @@ def _cat_byte_matrix(cats: np.ndarray):
     return mat, lens
 
 
+@functools.lru_cache(maxsize=256)
+def _like_regex(pattern: str, escape: str) -> "re.Pattern":
+    """LIKE's token grammar (``string_ops.like_tokens``) as one compiled
+    regular expression over UTF-8 bytes: ``%`` any bytes, ``_`` a byte and
+    every continuation byte after it (possessive, as the device DP
+    consumes them), a literal its byte."""
+    parts = []
+    for t in _sops.like_tokens(pattern, escape):
+        if t[0] == "%":
+            parts.append(b"(?s:.)*")
+        elif t[0] == "_":
+            parts.append(b"[\\x00-\\xff][\\x80-\\xbf]*+")
+        else:
+            parts.append(re.escape(bytes([t[1]])))
+    return re.compile(b"".join(parts), re.DOTALL)
+
+
 def _host_like(s: str, pattern: str, escape: str = "\\") -> bool:
     """LIKE over one host string through the same token grammar as the
     device DP (``string_ops.like_tokens``); ``_`` consumes one character
-    (a lead byte and its continuation bytes), as ``like_matrix`` does."""
+    (a lead byte and its continuation bytes), as ``like_matrix`` does.
+    The pattern compiles once; a dictionary of 100,000 categories then
+    matches in C, not in a Python loop a byte."""
+    return _like_regex(pattern, escape).fullmatch(
+        s.encode("utf-8")) is not None
+
+
+def _like_dict(cats: np.ndarray, pattern: str, escape: str):
+    """LIKE over a whole unicode dictionary in numpy's string functions,
+    where the pattern is a literal with ``%`` only at its ends (``'e%'``,
+    ``'%ought%'``): equality, a prefix, a suffix or a substring, which
+    match the same strings by characters as by UTF-8 bytes. None for any
+    other pattern or dictionary (each category through the regex)."""
+    if cats.dtype.kind != "U":
+        return None
     toks = _sops.like_tokens(pattern, escape)
-    b = s.encode("utf-8")
-    starts = {0}
-    for t in toks:
-        if t[0] == "%":
-            starts = set(range(min(starts), len(b) + 1)) if starts else set()
-        elif t[0] == "_":
-            nxt = set()
-            for p in starts:
-                if p < len(b):
-                    q = p + 1
-                    while q < len(b) and (b[q] & 0xC0) == 0x80:
-                        q += 1
-                    nxt.add(q)
-            starts = nxt
-        else:
-            starts = {p + 1 for p in starts
-                      if p < len(b) and b[p] == t[1]}
-    return len(b) in starts
+    lead = 0
+    while lead < len(toks) and toks[lead][0] == "%":
+        lead += 1
+    trail = 0
+    while trail < len(toks) - lead and toks[-1 - trail][0] == "%":
+        trail += 1
+    mid = toks[lead:len(toks) - trail]
+    if any(t[0] != "lit" for t in mid):
+        return None
+    try:
+        lit = bytes(t[1] for t in mid).decode("utf-8")
+    except UnicodeDecodeError:
+        return None
+    if lead and trail:
+        return np.char.find(cats, lit) >= 0
+    if lead:
+        return np.char.endswith(cats, lit)
+    if trail:
+        return np.char.startswith(cats, lit)
+    return cats == lit
+
+
+def _dict_slice(cats: np.ndarray, start: int, length: int):
+    """``s[start:start + length]`` of every category of a unicode
+    dictionary as one strided copy of its code points. None where that
+    does not apply: another dtype, a negative ``start``, an empty slice,
+    a NUL code point inside a string (numpy strips only trailing ones)."""
+    if cats.dtype.kind != "U" or start < 0 or length <= 0 or not len(cats):
+        return None
+    width = cats.dtype.itemsize // 4
+    if start >= width:
+        return None
+    pts = np.ascontiguousarray(cats, np.dtype((np.str_, width))) \
+        .view(np.uint32).reshape(len(cats), width)
+    nul = pts == 0
+    if (nul[:, :-1] & ~nul[:, 1:]).any():
+        return None
+    end = min(start + length, width)
+    return np.ascontiguousarray(pts[:, start:end]).view(
+        np.dtype((np.str_, end - start))).reshape(-1)
 
 
 def _general(rel, col: str, opname: str):
@@ -108,11 +164,14 @@ def _general(rel, col: str, opname: str):
     return rel.col(col)
 
 
-def _predicate(rel, col: str, opname: str, host_fn, device_fn):
+def _predicate(rel, col: str, opname: str, host_fn, device_fn,
+               dict_fn=None):
     """The predicates' skeleton: the dictionary look-up table or the
     device bytes over the codes; the eager host evaluation on a STRING
-    column (nulls read False). Returns an (N,) bool vector over the
-    rel's physical rows, for ``rel.filter``."""
+    column (nulls read False). ``dict_fn(cats)``, where given, computes
+    the look-up table over the whole dictionary at once (None: category
+    by category). Returns an (N,) bool vector over the rel's physical
+    rows, for ``rel.filter``."""
     cats = _cats(rel, col)
     if cats is None:
         c = _general(rel, col, opname)
@@ -128,8 +187,10 @@ def _predicate(rel, col: str, opname: str, host_fn, device_fn):
         return device_fn(host_to_device(mat, dev)[codes],
                          host_to_device(lens, dev)[codes])
     count(f"rel.route.string.{opname}.dict")
-    lut = np.fromiter((host_fn(str(c)) for c in cats), np.bool_,
-                      count=len(cats))
+    lut = dict_fn(cats) if dict_fn is not None else None
+    if lut is None:
+        lut = np.fromiter((host_fn(str(c)) for c in cats), np.bool_,
+                          count=len(cats))
     return host_to_device(lut, dev)[codes]
 
 
@@ -197,7 +258,8 @@ def like(rel, col: str, pattern: str, escape: str = "\\"):
     character, whole-string match."""
     return _predicate(
         rel, col, "like", lambda s: _host_like(s, pattern, escape),
-        lambda mat, lens: _sops.like_matrix(mat, lens, pattern, escape))
+        lambda mat, lens: _sops.like_matrix(mat, lens, pattern, escape),
+        lambda cats: _like_dict(cats, pattern, escape))
 
 
 # -- projections -----------------------------------------------------------
@@ -224,10 +286,13 @@ def _general_codes(rel, out: str, values, validity, dev):
                                        validity=validity), cats)
 
 
-def _remap_dict(rel, col: str, out: str, transform, opname: str):
+def _remap_dict(rel, col: str, out: str, transform, opname: str,
+                dict_fn=None):
     """A dictionary-transform projection: ``transform`` the host
-    categories, sort and deduplicate them into a new dictionary (code
-    order stays string order), remap the codes with one device gather."""
+    categories (``dict_fn(cats)``, where given and not None, transforms
+    the whole dictionary at once), sort and deduplicate them into a new
+    dictionary (code order stays string order), remap the codes with one
+    device gather."""
     cats = _cats(rel, col)
     if cats is None:
         src = _general(rel, col, opname)
@@ -235,7 +300,12 @@ def _remap_dict(rel, col: str, out: str, transform, opname: str):
                                          for v in src.to_pylist()],
                               src.validity, src.device)
     count(f"rel.route.string.{opname}.dict")
-    new_cats, remap = _factorize([transform(str(c)) for c in cats])
+    values = dict_fn(cats) if dict_fn is not None else None
+    if values is None:
+        new_cats, remap = _factorize([transform(str(c)) for c in cats])
+    else:
+        new_cats, remap = np.unique(values, return_inverse=True)
+        remap = remap.astype(np.int64).reshape(-1)
     codes = rel.col(col).data
     new_codes = host_to_device(remap, codes.device)[codes]
     return _with_dict(rel, out, _code_col(rel.num_rows, new_codes,
@@ -248,7 +318,8 @@ def substr(rel, col: str, start: int, length: int, out: str):
     """Character-indexed substring projection (0-based ``start``):
     pandas ``.str.slice(start, start + length)``."""
     return _remap_dict(rel, col, out,
-                       lambda s: s[start:start + length], "substr")
+                       lambda s: s[start:start + length], "substr",
+                       lambda cats: _dict_slice(cats, start, length))
 
 
 @operator("string.upper", mask_class="rowwise", partition="local",

@@ -10,6 +10,17 @@ overflow -> NULL, and window functions. ``QUERIES[name]`` is
 columns over the same generated data. Float aggregates differ from the
 oracle's in the last bits (accumulation order), so harnesses compare
 floats with a tolerance; decimals are exact.
+
+The same templates run over the specification's tables
+(``tpcds/spec_data.py``): its column names and types (DECIMAL money,
+CHAR/VARCHAR strings, nullable foreign keys and measures) and the
+constants of ``SPEC_PARAMS`` in place of ``MINI_PARAMS``. There a
+predicate over a NULL is false, a sum or mean over no valid value is
+NULL, arithmetic over a NULL is NULL, money sums are exact decimals,
+means and ratios are float64 in the money's units, and every sort puts
+NULLs first. Over the miniature every template runs the operations it
+always ran, so its outputs are unchanged. ``tpcds/plain_reference.py``
+computes q1-q20 over the specification's tables in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -22,11 +33,118 @@ import torch
 from .oplib import decimals as D
 from .oplib import strings as S
 
+from ..columnar import Column, bitmask
 from .rel import Rel, Table, numeric, run_fused
+
+# the templates' constants: over the miniature, and over the
+# specification's tables, where each is the namesake query's
+# qualification value where the template has the namesake's predicate,
+# else a value of the miniature's selectivity
+MINI_PARAMS = {
+    "q2.years": (1998, 1999), "q2.week_shift": 52,
+    "q3.moy": 11, "q3.manufact_id": 5,
+    "q4.years": (1998, 1999),
+    "q6.year_moy": (1999, 5),
+    "q7.gender": 0, "q7.marital_status": 1, "q7.channel_off": 0,
+    "q8.zip_below": 40_000, "q8.year": 1998, "q8.moy_upto": 3,
+    "q9.buckets": ((1, 4), (5, 8), (9, 12), (13, 16), (17, 20)),
+    "q10.county_below": 8,
+    "q11.state_contains": "A",
+    "q12.name_like": "S%",
+    "q14.net_over": "100.00",
+    "q20.name_like": "%0%",
+}
+SPEC_PARAMS = {
+    "q2.years": (2001, 2002), "q2.week_shift": 53,
+    "q3.moy": 11, "q3.manufact_id": 128,
+    "q4.years": (2001, 2002),
+    "q6.year_moy": (2001, 1),
+    "q7.gender": "M", "q7.marital_status": "S", "q7.channel_off": "N",
+    "q8.zip_below": "40000", "q8.year": 1998, "q8.moy_upto": 3,
+    "q9.buckets": ((1, 20), (21, 40), (41, 60), (61, 80), (81, 100)),
+    "q10.county_below": "Green",
+    "q11.state_contains": "A",
+    "q12.name_like": "e%",
+    "q14.net_over": "100.00",
+    "q20.name_like": "%ought%",
+}
+
+
+def _spec(t) -> bool:
+    """The tables are the specification's, not the miniature's."""
+    return "ss_list_price" in t["store_sales"].names
+
+
+def _params(t) -> dict:
+    return SPEC_PARAMS if _spec(t) else MINI_PARAMS
 
 
 def _rename(rel: Rel, **renames: str) -> Rel:
     return rel.rename(**renames)
+
+
+def _valid(rel: Rel, *names: str):
+    """The rows where every named column is valid; None where none of
+    them has a NULL."""
+    out = None
+    for n in names:
+        c = rel.col(n)
+        if c.validity is not None:
+            v = c.valid_bool()
+            out = v if out is None else out & v
+    return out
+
+
+def _where(rel: Rel, pred, *names: str):
+    """A predicate over ``names``, false where any of them is NULL."""
+    v = _valid(rel, *names)
+    return pred if v is None else pred & v
+
+
+def _f64(x: torch.Tensor) -> torch.Tensor:
+    return x if x.dtype == torch.float64 else x.to(torch.float64)
+
+
+def _units(x: torch.Tensor, col: Column) -> torch.Tensor:
+    """A float64 reading of ``col``'s unscaled values in its units."""
+    return x / 10.0 ** -col.dtype.scale if col.dtype.is_decimal else x
+
+
+def _num(rel: Rel, name: str) -> torch.Tensor:
+    """A column's values as float64 in its units."""
+    c = rel.col(name)
+    return _units(_f64(c.data), c)
+
+
+def _numeric(data: torch.Tensor, valid=None, like: "Column" = None
+             ) -> Column:
+    """A computed column: of ``like``'s type where that is a decimal,
+    else ``numeric``'s, NULL where ``valid`` is False."""
+    if like is not None and like.dtype.is_decimal:
+        c = Column(like.dtype, int(data.shape[0]),
+                   data.to(like.dtype.to_torch()))
+    else:
+        c = numeric(data)
+    if valid is not None:
+        c.validity = bitmask.pack(valid)
+    return c
+
+
+def _eq(rel: Rel, name: str, value):
+    """``name = value``: a dictionary string column through the string
+    library, a number directly."""
+    if isinstance(value, str):
+        return S.like(rel, name, value)
+    return rel.data(name) == value
+
+
+def _below(rel: Rel, name: str, bound):
+    """``name < bound``. Over a dictionary string column codes are in
+    string order, so the code is compared with the bound's place in the
+    dictionary (a host look-up, no device sync)."""
+    if isinstance(bound, str):
+        bound = int(np.searchsorted(np.asarray(rel.dicts[name]), bound))
+    return rel.data(name) < bound
 
 
 # --------------------------------------------------------------------------
@@ -41,7 +159,8 @@ def _q1(t):
                               [("ctr_total", "mean", "avg_total")]),
                   sr_store_sk="store2")
     j = ctr.join(avg, ["sr_store_sk"], ["store2"])
-    f = j.filter(j.data("ctr_total") > 1.2 * j.data("avg_total"))
+    f = j.filter(_where(j, _num(j, "ctr_total") > 1.2 * j.data("avg_total"),
+                        "ctr_total", "avg_total"))
     res = f.join(t["customer"], ["sr_customer_sk"], ["c_customer_sk"])
     return (res.select("c_customer_sk", "ctr_total")
                .sort(["c_customer_sk", "ctr_total"]).head(100))
@@ -78,6 +197,9 @@ def _weekly(t, fact, datecol, extcol, year):
 
 
 def _q2(t):
+    P = _params(t)
+    (year1, year2), shift = P["q2.years"], P["q2.week_shift"]
+
     def year_total(year):
         w = _rename(_weekly(t, "web_sales", "ws_sold_date_sk",
                             "ws_ext_sales_price", year),
@@ -87,16 +209,18 @@ def _q2(t):
                     d_week_seq="cweek", total="ctot")
         j = w.join(c, ["d_week_seq"], ["cweek"])
         return j.with_column(
-            "total", numeric(j.data("wtot") + j.data("ctot")))
+            "total", _numeric(j.data("wtot") + j.data("ctot"),
+                              _valid(j, "wtot", "ctot"), j.col("wtot")))
 
-    y1 = year_total(1998).select("d_week_seq", "total")
-    y2 = _rename(year_total(1999).select("d_week_seq", "total"),
+    y1 = year_total(year1).select("d_week_seq", "total")
+    y2 = _rename(year_total(year2).select("d_week_seq", "total"),
                  d_week_seq="week2", total="total2")
     shifted = y1.with_column(
-        "next_week", numeric(y1.data("d_week_seq") + 52))
+        "next_week", numeric(y1.data("d_week_seq") + shift))
     j = shifted.join(y2, ["next_week"], ["week2"])
     out = j.with_column(
-        "ratio", numeric(j.data("total") / j.data("total2")))
+        "ratio", _numeric(_f64(j.data("total")) / _f64(j.data("total2")),
+                          _valid(j, "total", "total2")))
     return out.select("d_week_seq", "ratio").sort(["d_week_seq"])
 
 
@@ -138,8 +262,9 @@ def q2_oracle(d):
 def _q3(t):
     dd = t["date_dim"]
     it = t["item"]
-    nov = dd.filter(dd.data("d_moy") == 11)
-    manu = it.filter(it.data("i_manufact_id") == 5)
+    P = _params(t)
+    nov = dd.filter(dd.data("d_moy") == P["q3.moy"])
+    manu = it.filter(it.data("i_manufact_id") == P["q3.manufact_id"])
     j = (t["store_sales"]
          .join(nov, ["ss_sold_date_sk"], ["d_date_sk"])
          .join(manu, ["ss_item_sk"], ["i_item_sk"]))
@@ -172,6 +297,8 @@ def q3_oracle(d):
 # --------------------------------------------------------------------------
 
 def _q4(t):
+    year1, year2 = _params(t)["q4.years"]
+
     def chan_year(fact, datecol, custcol, extcol, year, out):
         dd = t["date_dim"]
         d = dd.filter(dd.data("d_year") == year)
@@ -180,19 +307,22 @@ def _q4(t):
                        **{custcol: "cust"})
 
     ss98 = chan_year("store_sales", "ss_sold_date_sk", "ss_customer_sk",
-                     "ss_ext_sales_price", 1998, "ss98")
+                     "ss_ext_sales_price", year1, "ss98")
     ss99 = chan_year("store_sales", "ss_sold_date_sk", "ss_customer_sk",
-                     "ss_ext_sales_price", 1999, "ss99")
+                     "ss_ext_sales_price", year2, "ss99")
     ws98 = chan_year("web_sales", "ws_sold_date_sk", "ws_bill_customer_sk",
-                     "ws_ext_sales_price", 1998, "ws98")
+                     "ws_ext_sales_price", year1, "ws98")
     ws99 = chan_year("web_sales", "ws_sold_date_sk", "ws_bill_customer_sk",
-                     "ws_ext_sales_price", 1999, "ws99")
+                     "ws_ext_sales_price", year2, "ws99")
     j = (ss98.join(_rename(ss99, cust="c2"), ["cust"], ["c2"])
              .join(_rename(ws98, cust="c3"), ["cust"], ["c3"])
              .join(_rename(ws99, cust="c4"), ["cust"], ["c4"]))
+    # the sums of one money type: compared unscaled, exactly
     growth_ok = (j.data("ws99") * j.data("ss98") >
                  j.data("ss99") * j.data("ws98"))
-    f = j.filter(growth_ok & (j.data("ss98") > 0) & (j.data("ws98") > 0))
+    f = j.filter(_where(j, growth_ok & (j.data("ss98") > 0)
+                        & (j.data("ws98") > 0),
+                        "ss98", "ss99", "ws98", "ws99"))
     return (f.select("cust", "ss98", "ss99", "ws98", "ws99")
              .sort(["cust"]).head(100))
 
@@ -241,10 +371,12 @@ def _q5(t):
         sr_store_sk="store2")
     j = s.join(r, ["ss_store_sk"], ["store2"], how="left")
     ret = j.col("returns_")
-    filled = torch.where(ret.valid_bool(), ret.data, 0.0)
-    out = j.with_column("returns_f", numeric(filled))
+    zero = 0.0 if ret.data.is_floating_point() else 0
+    filled = torch.where(ret.valid_bool(), ret.data, zero)
+    out = j.with_column("returns_f", _numeric(filled, like=ret))
     out = out.with_column(
-        "net", numeric(out.data("profit") - filled))
+        "net", _numeric(out.data("profit") - filled,
+                        _valid(out, "profit"), out.col("profit")))
     return (out.select("ss_store_sk", "sales", "returns_f", "net")
                .sort(["ss_store_sk"]))
 
@@ -279,11 +411,12 @@ def _q6(t):
                                   "avg_price")]),
                      i_category_id="cat2")
     pricey = it.join(avgcat, ["i_category_id"], ["cat2"])
-    pricey = pricey.filter(pricey.data("i_current_price") >
+    pricey = pricey.filter(_num(pricey, "i_current_price") >
                            1.2 * pricey.data("avg_price"))
     dd = t["date_dim"]
-    may99 = dd.filter((dd.data("d_year") == 1999) &
-                      (dd.data("d_moy") == 5))
+    year, moy = _params(t)["q6.year_moy"]
+    may99 = dd.filter((dd.data("d_year") == year) &
+                      (dd.data("d_moy") == moy))
     j = (t["store_sales"]
          .join(may99, ["ss_sold_date_sk"], ["d_date_sk"])
          .join(pricey, ["ss_item_sk"], ["i_item_sk"])
@@ -326,12 +459,14 @@ def q6_oracle(d):
 # --------------------------------------------------------------------------
 
 def _q7(t):
+    P = _params(t)
     cd = t["customer_demographics"]
-    cdf = cd.filter((cd.data("cd_gender") == 0) &
-                    (cd.data("cd_marital_status") == 1))
+    cdf = cd.filter(_eq(cd, "cd_gender", P["q7.gender"]) &
+                    _eq(cd, "cd_marital_status", P["q7.marital_status"]))
     pr = t["promotion"]
-    prf = pr.filter((pr.data("p_channel_email") == 0) |
-                    (pr.data("p_channel_event") == 0))
+    off = P["q7.channel_off"]
+    prf = pr.filter(_eq(pr, "p_channel_email", off) |
+                    _eq(pr, "p_channel_event", off))
     j = (t["store_sales"]
          .join(cdf, ["ss_cdemo_sk"], ["cd_demo_sk"])
          .join(prf, ["ss_promo_sk"], ["p_promo_sk"])
@@ -369,13 +504,14 @@ def q7_oracle(d):
 # --------------------------------------------------------------------------
 
 def _q8(t):
+    P = _params(t)
     ca = t["customer_address"]
-    preferred = ca.filter(ca.data("ca_zip") < 40_000)
+    preferred = ca.filter(_below(ca, "ca_zip", P["q8.zip_below"]))
     cust = t["customer"].join(preferred, ["c_current_addr_sk"],
                               ["ca_address_sk"], how="semi")
     dd = t["date_dim"]
-    q1_98 = dd.filter((dd.data("d_year") == 1998) &
-                      (dd.data("d_moy") <= 3))
+    q1_98 = dd.filter((dd.data("d_year") == P["q8.year"]) &
+                      (dd.data("d_moy") <= P["q8.moy_upto"]))
     j = (t["store_sales"]
          .join(q1_98, ["ss_sold_date_sk"], ["d_date_sk"])
          .join(cust, ["ss_customer_sk"], ["c_customer_sk"], how="semi")
@@ -418,16 +554,19 @@ def _q9(t):
     # single-row Rel, so the scalar math stays on the device and inside
     # the fused run. The reductions go through the Rel scalar API
     # (sum_where/count_where), which applies the row mask.
+    # an empty bucket reads NaN, as the CASE's division by a zero count
     ss = t["store_sales"]
     qty = ss.data("ss_quantity")
     ext = ss.data("ss_ext_sales_price")
     cols, names = [], []
-    for lo, hi in _Q9_BUCKETS:
-        sel = (qty >= lo) & (qty <= hi)
+    for lo, hi in _params(t)["q9.buckets"]:
+        sel = _where(ss, (qty >= lo) & (qty <= hi), "ss_quantity",
+                     "ss_ext_sales_price")
         cnt = ss.count_where(sel)
         total = ss.sum_where(ext, sel)
-        val = torch.where(cnt > 0, total / torch.clamp(cnt, min=1),
-                          float("nan"))
+        mean = _units(_f64(total) / torch.clamp(cnt, min=1),
+                      ss.col("ss_ext_sales_price"))
+        val = torch.where(cnt > 0, mean, float("nan"))
         cols.append(numeric(torch.reshape(val, (1,))))
         names.append(f"bucket_{lo}_{hi}")
     return Rel(Table(cols), names)
@@ -454,7 +593,8 @@ def q9_oracle(d):
 
 def _q10(t):
     ca = t["customer_address"]
-    counties = ca.filter(ca.data("ca_county") <= 7)
+    counties = ca.filter(_below(ca, "ca_county",
+                                _params(t)["q10.county_below"]))
     cust = (t["customer"]
             .join(counties, ["c_current_addr_sk"], ["ca_address_sk"],
                   how="semi")
@@ -470,8 +610,9 @@ def _q10(t):
     active = in_web.concat(in_cat_only)
     j = active.join(t["customer_demographics"], ["c_current_cdemo_sk"],
                     ["cd_demo_sk"])
+    education = "cd_education_status" if _spec(t) else "cd_education"
     gb = j.groupby(["cd_gender", "cd_marital_status"],
-                   [("cd_education", "count", "cnt")])
+                   [(education, "count", "cnt")])
     return gb.sort(["cd_gender", "cd_marital_status"])
 
 
@@ -508,7 +649,8 @@ def q10_oracle(d):
 
 def _q11(t):
     j = t["store_sales"].join(t["store"], ["ss_store_sk"], ["s_store_sk"])
-    f = j.filter(S.contains(j, "s_state", "A"))
+    f = j.filter(S.contains(j, "s_state",
+                            _params(t)["q11.state_contains"]))
     gb = f.groupby(["s_state"],
                    [("ss_ext_sales_price", "sum", "rev"),
                     ("ss_quantity", "count", "cnt")])
@@ -534,7 +676,8 @@ def q11_oracle(d):
 # LIKE pattern (string projection feeding a dense groupby)
 
 def _q12(t):
-    it = t["item"].filter(S.like(t["item"], "i_product_name", "S%"))
+    it = t["item"].filter(S.like(t["item"], "i_product_name",
+                                 _params(t)["q12.name_like"]))
     it = S.substr(it, "i_product_name", 0, 5, "prod5")
     j = t["store_sales"].join(it, ["ss_item_sk"], ["i_item_sk"])
     gb = j.groupby(["prod5"], [("ss_quantity", "sum", "qty")])
@@ -558,11 +701,20 @@ def q12_oracle(d):
 
 # q13: exact decimal revenue per store (decimal multiply + decimal sum)
 
+def _money(rel: Rel, name: str) -> "tuple[Rel, str]":
+    """(rel, column) of a money column: the specification's DECIMAL, or
+    the miniature's integer cents (``<name>_cents``) read as DECIMAL64 at
+    scale -2."""
+    if name in rel.names:
+        return rel, name
+    cents = f"{name}_cents"
+    return D.as_decimal(rel, cents, -2), cents
+
+
 def _q13(t):
-    ss = D.as_decimal(t["store_sales"], "ss_list_price_cents", -2)
+    ss, price = _money(t["store_sales"], "ss_list_price")
     ss = D.as_decimal(ss, "ss_quantity", 0, out="qty_dec")
-    ss = D.arith(ss, "mul", "ss_list_price_cents", "qty_dec",
-                 ("dec64", -2), "revenue")
+    ss = D.arith(ss, "mul", price, "qty_dec", ("dec64", -2), "revenue")
     gb = ss.groupby(["ss_store_sk"], [("revenue", "sum", "total")])
     return gb.sort(["ss_store_sk"])
 
@@ -586,11 +738,10 @@ def q13_oracle(d):
 # grouped decimal aggregates
 
 def _q14(t):
-    ss = D.as_decimal(t["store_sales"], "ss_list_price_cents", -2)
-    ss = D.as_decimal(ss, "ss_coupon_amt_cents", -2)
-    ss = D.arith(ss, "sub", "ss_list_price_cents",
-                 "ss_coupon_amt_cents", ("dec64", -2), "net")
-    f = ss.filter(D.cmp(ss, "net", "gt", "100.00"))
+    ss, price = _money(t["store_sales"], "ss_list_price")
+    ss, coupon = _money(ss, "ss_coupon_amt")
+    ss = D.arith(ss, "sub", price, coupon, ("dec64", -2), "net")
+    f = ss.filter(D.cmp(ss, "net", "gt", _params(t)["q14.net_over"]))
     gb = f.groupby(["ss_store_sk"], [("net", "sum", "net_total"),
                                      ("net", "count", "n_big")])
     return gb.sort(["ss_store_sk"])
@@ -618,10 +769,9 @@ def q14_oracle(d):
 # (rel.route.decimal.overflow via the runtime-counter channel)
 
 def _q15(t):
-    ss = D.as_decimal(t["store_sales"], "ss_list_price_cents", -2)
-    ss = D.as_decimal(ss, "ss_coupon_amt_cents", -2)
-    ss = D.arith(ss, "mul", "ss_list_price_cents",
-                 "ss_coupon_amt_cents", ("dec32", -4), "cross")
+    ss, price = _money(t["store_sales"], "ss_list_price")
+    ss, coupon = _money(ss, "ss_coupon_amt")
+    ss = D.arith(ss, "mul", price, coupon, ("dec32", -4), "cross")
     gb = ss.groupby(["ss_store_sk"], [("cross", "sum", "cross_sum"),
                                       ("cross", "count", "n_ok")])
     return gb.sort(["ss_store_sk"])
@@ -655,6 +805,9 @@ def _q16(t):
     gb = t["store_sales"].groupby(
         ["ss_store_sk", "ss_item_sk"],
         [("ss_ext_sales_price", "sum", "rev")])
+    v = _valid(gb, "rev")
+    if v is not None:  # items of no known revenue are not ranked
+        gb = gb.filter(v)
     w = gb.window(["ss_store_sk"], ["rev", "ss_item_sk"],
                   [("row_number", None, "rn")],
                   descending=[True, False])
@@ -718,8 +871,8 @@ def _q18(t):
     w = ss.window(["ss_store_sk"], [],
                   [("sum", "ss_quantity", "store_qty"),
                    ("count", "ss_quantity", "store_n")])
-    f = w.filter(w.data("ss_quantity") * w.data("store_n")
-                 > w.data("store_qty"))
+    f = w.filter(_where(w, w.data("ss_quantity") * w.data("store_n")
+                        > w.data("store_qty"), "ss_quantity", "store_qty"))
     gb = f.groupby(["ss_store_sk"], [("ss_quantity", "count", "n_above"),
                                      ("ss_quantity", "sum", "qty_above")])
     return gb.sort(["ss_store_sk"])
@@ -774,17 +927,20 @@ def q19_oracle(d):
 # decimal revenue, and a per-state store ranking window
 
 def _q20(t):
-    it = t["item"].filter(S.like(t["item"], "i_product_name", "%0%"))
+    it = t["item"].filter(S.like(t["item"], "i_product_name",
+                                 _params(t)["q20.name_like"]))
     j = (t["store_sales"]
          .join(it, ["ss_item_sk"], ["i_item_sk"])
          .join(t["store"], ["ss_store_sk"], ["s_store_sk"]))
-    j = D.as_decimal(j, "ss_list_price_cents", -2)
+    j, price = _money(j, "ss_list_price")
     j = D.as_decimal(j, "ss_quantity", 0, out="qty_dec")
-    j = D.arith(j, "mul", "ss_list_price_cents", "qty_dec",
-                ("dec64", -2), "revenue")
+    j = D.arith(j, "mul", price, "qty_dec", ("dec64", -2), "revenue")
     gb = j.groupby(["s_state", "ss_store_sk"],
                    [("revenue", "sum", "rev_total"),
                     ("ss_quantity", "sum", "qty_total")])
+    v = _valid(gb, "qty_total")
+    if v is not None:  # stores of no known quantity are not ranked
+        gb = gb.filter(v)
     w = gb.window(["s_state"], ["qty_total", "ss_store_sk"],
                   [("row_number", None, "rn")],
                   descending=[True, False])

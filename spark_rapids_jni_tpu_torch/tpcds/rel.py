@@ -21,7 +21,8 @@ counterpart here.
 
 **Trusted ingest stats.** ``value_range``/``unique`` are advisory;
 before a plan uses them they are verified once per column against the
-device data (memoized on the column). ``rel_from_df`` computes them
+device data, over its valid values (memoized on the column), so a
+nullable key plans as a non-null one. ``rel_from_df`` computes them
 exactly on the host and trusts them by construction.
 
 **Dictionary-encoded strings.** String columns ingest as int64 codes
@@ -208,13 +209,14 @@ def _dispatch(name: str, *args, **kwargs):
 # --------------------------------------------------------------------------
 
 def _verify_ingest_stats(col: Column) -> "tuple[bool, bool]":
-    """(range_ok, unique_ok) for a column's advisory ingest stats,
-    verified against the device data ONCE and memoized on the column."""
+    """(range_ok, unique_ok) for a column's advisory ingest stats over
+    its valid values, verified against the device data ONCE and memoized
+    on the column."""
     flags = getattr(col, "_stats_flags", None)
     if flags is not None:
         return flags
     if (col.value_range is None or col.data is None
-            or col.validity is not None or not col.dtype.is_integral):
+            or not col.dtype.is_integral):
         flags = (False, False)
     else:
         lo, hi = col.value_range
@@ -225,16 +227,22 @@ def _verify_ingest_stats(col: Column) -> "tuple[bool, bool]":
             with span("rel.verify_stats", rows=col.size, width=width):
                 count_dispatch("rel.verify_stats")
                 count_host_sync("rel.verify_stats")
+                # the stats are over the valid values: a NULL row's data
+                # is no value
                 k64 = col.data.to(torch.int64) - int(lo)
+                valid = None if col.validity is None else col.valid_bool()
                 inb = (k64 >= 0) & (k64 < width)
-                ok_r = bool(inb.all())
+                ok_r = bool(inb.all() if valid is None
+                            else (inb | ~valid).all())
                 ok_u = False
                 if col.unique and ok_r:
-                    counts = torch.zeros(width, dtype=torch.int32,
+                    slot = k64 if valid is None else torch.where(
+                        valid, k64, width)
+                    counts = torch.zeros(width + 1, dtype=torch.int32,
                                          device=k64.device)
-                    counts.index_add_(0, k64, torch.ones_like(
+                    counts.index_add_(0, slot, torch.ones_like(
                         k64, dtype=torch.int32))
-                    ok_u = bool((counts <= 1).all())
+                    ok_u = bool((counts[:width] <= 1).all())
                 flags = (ok_r, ok_u)
                 if not ok_r:
                     count("rel.stale_stats")
@@ -252,7 +260,7 @@ def _trusted_range(col: Column) -> "Optional[tuple[int, int]]":
     """value_range when it is verified (or verifiable now); None under
     the planner flag for unverified stats -- the caller falls back."""
     if (col.value_range is None or col.data is None
-            or col.validity is not None or not col.dtype.is_integral):
+            or not col.dtype.is_integral):
         return None
     flags = getattr(col, "_stats_flags", None)
     if flags is None:

@@ -69,7 +69,8 @@ def test_sources_exist():
                 "obs/history.py", "obs/rollup.py",
                 "serving/control_plane.py", "tune/__init__.py",
                 "tune/space.py", "tune/store.py", "tune/runner.py",
-                "native.py"):
+                "native.py", "tpcds/spec_data.py",
+                "tpcds/plain_reference.py"):
         assert rel in names
     for src in ("hash_join_probe.cu", "ragged_groupby.cu",
                 "bitmask_pack.cu", "murmur3.cu", "pack_rows.cu",
@@ -85,6 +86,31 @@ def test_sources_exist():
 def test_no_forbidden_import_statement(path):
     bad = [m for m in _imports(path) if _forbidden(m)]
     assert not bad, f"{path} imports {bad}"
+
+
+# the plain references of the spec's q1-q20: the port's and the
+# benchmark's copy
+REFERENCES = [PORT / "tpcds" / "plain_reference.py",
+              ROOT / "benchmarks" / "reference" / "tpcds.py"]
+
+
+@pytest.mark.parametrize("path", REFERENCES,
+                         ids=[p.relative_to(ROOT).as_posix()
+                              for p in REFERENCES])
+def test_plain_reference_imports_nothing_of_the_port(path):
+    """No JAX, no module of the JAX package and none of the port's: not
+    its kernels, not its Rel layer, nothing relative."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    relative = [node.module for node in ast.walk(tree)
+                if isinstance(node, ast.ImportFrom) and node.level > 0]
+    assert not relative, f"{path} imports {relative}"
+    names = list(_imports(path))
+    assert not [m for m in names if _forbidden(m)]
+    assert not [m for m in names
+                if m.split(".")[0] == "spark_rapids_jni_tpu_torch"]
+    assert set(m.split(".")[0] for m in names) <= {
+        "__future__", "decimal", "math", "typing", "numpy", "pandas",
+        "torch"}
 
 
 def _clean_env():
