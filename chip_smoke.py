@@ -7,7 +7,7 @@
 In order, it:
 
 1. prints the card (``nvidia-smi --query-gpu=name,power.limit``) and
-   builds the CUDA kernels K1-K7 from ``spark_rapids_jni_tpu_torch/csrc``
+   builds the CUDA kernels K1-K8 from ``spark_rapids_jni_tpu_torch/csrc``
    with ``nvcc`` (one process per source, all started together), timing
    the build;
 2. holds each kernel against its plain PyTorch version on the card at
@@ -15,7 +15,11 @@ In order, it:
    probe rows, K2 with 10M rows at widths 8192 and 10 and values near
    +-2^63, K3 with 10M + 7 rows (once from a 16-byte boundary, once 5
    bytes past one) and its table form on the validity bytes of a
-   12M-row, 32-field row matrix and of a 1M-row, 1500-field one;
+   12M-row, 32-field row matrix and of a 1M-row, 1500-field one, and K8
+   at q19's shape (28,800,991 sorted rows, partitions of about 58 rows,
+   RANK) and q16's (10,500,000 rows, partitions of about 103,000,
+   ROW_NUMBER), each under a random permutation, beside the two
+   ``torch.cummax`` calls it replaced;
 3. generates the TPC-DS miniature at sf=1000, seed 7 (a 10,000,000-row
    store_sales), ingests it on the card once and runs q1-q10
    through ``run_fused``, with every kernel launch count set to 0 just
@@ -35,7 +39,8 @@ In order, it:
    path; it also requires q15's ``rel.route.decimal.overflow`` to equal
    the oracle's count of rows whose DECIMAL32 product passes 2^31 - 1,
    and q11, q12 and q20 to equal their oracles once more on
-   ``SRT_STRING_ROUTE=bytes``;
+   ``SRT_STRING_ROUTE=bytes``, and K8 launched once for each of q16,
+   q17, q19 and q20 (their ROW_NUMBER and RANK windows);
 6. hashing (BASELINE config 1): a seeded 10,000,000-row table of int32,
    int64, float64, float32, bool, date32, decimal64, decimal128 and a
    0-32-byte UTF-8 STRING column, 10% nulls each, the floats with +-0.0,
@@ -246,21 +251,26 @@ In order, it:
    host sync and no other synchronising CUDA call, provenance
    ``warm_memory`` and ``rel.route.serving.batched == 3``; the cold
    window provenance ``cold_compile`` with one compile event (the
-   capture); q1-q10 to replay a graph (a query of q11-q20 that cannot is
-   printed with its ``BatchIncompatible`` reason, route-counted
-   ``rel.batch.fallbacks``); K1, K2 and K3 launched inside the captured
-   programs. Per query it prints the warm window's ms (median of 3)
-   beside the sum of its three slots' serial ms, the cold window's and
-   the capture's ms, the hand-kernel launches of one replay, the static
-   buffer bytes (store_sales' four slots; the shared tables are read in
-   place) and the peak memory allocated. (b) q1-q10's windows once
-   more with the batch program run eagerly (no capture), every kernel
-   call recorded and held against its plain version (exact), each slot
-   equal to the replayed one. (c) q3's window on the ragged route with
-   ``SRT_PAGE_POOL_BYTES`` 4 GiB (the three 880 MB store_sales slots need
-   3 GiB) must count ``rel.route.batch.ragged`` and report the effective
-   capacity; with a pool of one page it must count
-   ``rel.batch.pool_degraded`` and serve padded. (d) A ``FleetScheduler``
+   capture); q1-q10 and q16, q17, q19, q20 to replay a graph, the last
+   four with one K8 launch a slot in it (another query of q11-q20 that
+   cannot is printed with its ``BatchIncompatible`` reason,
+   route-counted ``rel.batch.fallbacks``); K1, K2, K3 and K8 launched
+   inside the captured programs. Each cold window starts from an empty
+   allocator cache (``torch.cuda.empty_cache``): a graph's private pool
+   cannot draw on the blocks the earlier steps left cached. Per query it
+   prints the warm window's ms (median of 3) beside the sum of its three
+   slots' serial ms, the cold window's and the capture's ms, the
+   hand-kernel launches of one replay, the static buffer bytes
+   (store_sales' four slots; the shared tables are read in place) and
+   the peak memory allocated. (b) The windows of q1-q10 and of q16, q17,
+   q19, q20 once more with the batch program run eagerly (no capture),
+   every kernel call recorded and held against its plain version
+   (exact), each slot equal to the replayed one. (c) q3's window on
+   the ragged route with ``SRT_PAGE_POOL_BYTES`` 4 GiB (the three 880
+   MB store_sales slots need 3 GiB) must count
+   ``rel.route.batch.ragged`` and report the effective capacity; with a
+   pool of one page it must count ``rel.batch.pool_degraded`` and serve
+   padded. (d) A ``FleetScheduler``
    with tenants ``gold`` (priority 1, weight 3) and ``bronze`` (0, 1), two
    workers and a 20 ms window takes bursts of 32 submissions each of q9
    and q17, half from each tenant, at ``SRT_BATCH_MAX=16`` and at 1 (two
@@ -429,17 +439,17 @@ function, and the bound: the larger of the bytes the function must move
 over the card's 3.35 TB/s and its operations over 67 T/s, or, for K2,
 the updates of its busiest slot at one shared-memory atomic per SM
 clock. The ``kernels`` line sums each kernel over its calls on its
-paths: K1-K3 over q1-q10, q11-q20, the served path's counted pass, the
+paths: K1-K3 over q1-q10, the morsel step and the tuned q3 (step 11c),
+K1-K3 and K8 over q11-q20, the served path's counted pass and the
 batched path (launches: the replayed windows of step 10c (a); calls and
-times: its recording pass (b)), the morsel step's and the tuned q3
-(step 11c), K4 and K5 over the hashing step, K3 over the roster, the
-strings step and roster II, K6, K7 and K3's table form over the
-row-conversion step, all of them over the mesh step and the mesh-served
-pass, and K1, K2, K3 and K5 over the fleet-control step's counted pass
-(its launches) and its recording pass (calls and times) (the mesh,
-serving, batched, morsel, fleet-control and tune steps time 3 runs a
-call, to keep them short). The
-morsel step's first warm run of each query and its Parquet runs turn
+times: its recording pass (b)), K4 and K5 over the hashing step, K3
+over the roster, the strings step and roster II, K6, K7 and K3's
+table form over the row-conversion step, all of them over the mesh
+step and the mesh-served pass, and K1, K2, K3, K5 and K8 over the
+fleet-control step's counted pass (its launches) and its recording
+pass (calls and times) (the mesh, serving, batched, morsel,
+fleet-control and tune steps time 3 runs a call, to keep them short).
+The morsel step's first warm run of each query and its Parquet runs turn
 ``SRT_METRICS`` on, so the overlap and io histograms record; its timed
 medians run with it off.
 
@@ -554,7 +564,10 @@ Q_NAMES = ("hash_join_probe", "ragged_groupby_sum_count", "bitmask_pack")
 HASH_NAMES = ("murmur3_int32", "murmur3_int64")
 ROW_NAMES = ("pack_rows", "unpack_rows", "bitmask_pack",
              "bitmask_pack_fields")
-NAMES = tuple(dict.fromkeys(Q_NAMES + HASH_NAMES + ROW_NAMES))
+WINDOW_NAMES = ("window_numbering",)  # K8, in q16, q17, q19 and q20
+WINDOW_QUERIES = ("q16", "q17", "q19", "q20")  # ROW_NUMBER or RANK windows
+OPLIB_NAMES = Q_NAMES + WINDOW_NAMES  # the paths that run q11-q20
+NAMES = tuple(dict.fromkeys(Q_NAMES + HASH_NAMES + ROW_NAMES + WINDOW_NAMES))
 # the kernels line: each kernel and the (path, wrapper) pairs it sums
 KERNELS = (("hash_join_probe", (("q1-q10", "hash_join_probe"),
                                  ("q11-q20", "hash_join_probe"),
@@ -607,7 +620,13 @@ KERNELS = (("hash_join_probe", (("q1-q10", "hash_join_probe"),
                           ("native", "pack_rows"))),
            ("unpack_rows", (("row conversion", "unpack_rows"),
                             ("mesh", "unpack_rows"),
-                            ("serving mesh", "unpack_rows"))))
+                            ("serving mesh", "unpack_rows"))),
+           ("window_numbering", (("q11-q20", "window_numbering"),
+                                 ("mesh", "window_numbering"),
+                                 ("serving", "window_numbering"),
+                                 ("serving mesh", "window_numbering"),
+                                 ("fleet control", "window_numbering"),
+                                 ("batched", "window_numbering"))))
 HASH_ROWS, HASH_CPU_ROWS = 10_000_000, 1_000_000
 # the wrappers as the port defines them (the recording pass swaps the
 # module's names for recorders that call these)
@@ -768,6 +787,33 @@ def k7_cost(rows, widths, dtypes=None):
             "validity words")
 
 
+def k8_cost(order, part_head, tie_head=None, want=K.WINDOW_OUTPUTS):
+    """Bytes: the permutation and each flag vector read once, each output
+    written once (a scattered int64 store moves a 32-byte sector: the
+    reachable share of this bound is near 40%); a few integer operations
+    a row."""
+    n = int(order.numel())
+    flags = 1 + ("rank" in want)
+    return (n * (8 + flags + 8 * len(want)), 8 * n, 0,
+            f"{n} sorted rows, {int(part_head.sum())} partitions, "
+            f"{'+'.join(want)}")
+
+
+def k8_library(order, part_head, tie_head=None, want=K.WINDOW_OUTPUTS):
+    """The two ``torch.cummax`` calls the window operator made before K8
+    (partition starts and tie-run starts: it computed both whatever it
+    was asked for), on their inputs."""
+    pos = torch.arange(order.numel(), dtype=torch.int64, device=order.device)
+    heads = [torch.where(f, pos, 0)
+             for f in (part_head, part_head if tie_head is None
+                       else tie_head)]
+
+    def library():
+        for h in heads:
+            torch.cummax(h, 0)
+    return library
+
+
 def k2_library(slots, live, values, width):
     """One int64 ``index_add_`` of the live in-range values (the sums
     only: no single call also counts)."""
@@ -789,7 +835,8 @@ SPECS = {
     "ragged_groupby_sum_count": dict(
         source="spark_rapids_jni_tpu_torch/csrc/ragged_groupby.cu",
         replaces=f"{PALLAS}:604", plain=K.ragged_groupby_sum_count_plain,
-        cost=k2_cost, library=k2_library, plain_reps=REPS),
+        cost=k2_cost, library=k2_library,
+        library_note="int64 index_add_, sums only", plain_reps=REPS),
     "bitmask_pack": dict(
         source="spark_rapids_jni_tpu_torch/csrc/bitmask_pack.cu",
         replaces=f"{PALLAS}:184", plain=K.bitmask_pack_plain,
@@ -815,6 +862,11 @@ SPECS = {
         replaces="none (the reference decodes rows with jnp slices)",
         plain=K.unpack_rows_plain, cost=k7_cost, library=None,
         plain_reps=3),
+    "window_numbering": dict(
+        source="spark_rapids_jni_tpu_torch/csrc/window_numbering.cu",
+        replaces="none (the reference numbers windows with jnp cummax)",
+        plain=K.window_numbering_plain, cost=k8_cost, library=k8_library,
+        library_note="the two torch.cummax calls", plain_reps=3),
 }
 
 
@@ -907,6 +959,28 @@ def stress_cases(dev, gen) -> "list[tuple[str, tuple]]":
                             device=dev, dtype=torch.uint8)
         cases.append(("bitmask_pack_fields",
                       (mat[:, voff:voff + (fields + 7) // 8], fields)))
+    return cases + window_cases(dev, gen)
+
+
+# K8 at the queries' shapes: (sorted rows, rows a partition on the
+# average, share of rows opening a tie run, outputs)
+WINDOW_SHAPES = ((28_800_991, 58, 0.1, ("rank",)),        # q19
+                 (10_500_000, 103_000, 0.0, ("row_number",)))  # q16
+
+
+def window_cases(dev, gen) -> "list[tuple[str, tuple]]":
+    """K8 at q19's shape (store_sales ranked by ss_sold_date_sk within
+    ss_customer_sk: 500,000 customers' partitions, ties on a ticket's
+    date) and q16's (the (store, item) groupby's slot rows numbered
+    within 102 stores), each under a random permutation."""
+    cases = []
+    for n, run, ties, want in WINDOW_SHAPES:
+        part = torch.rand(n, generator=gen, device=dev) < 1.0 / run
+        part[:1] = True
+        tie = part | (torch.rand(n, generator=gen, device=dev) < ties)
+        order = torch.randperm(n, generator=gen, device=dev)
+        cases.append(("window_numbering",
+                      (order, part, tie if "rank" in want else None, want)))
     return cases
 
 
@@ -1032,7 +1106,8 @@ def _count_syncs(fn):
 # profiler names them
 HAND_KERNEL = re.compile(r"(?:^|::)(?:build|probe|build_probe|"
                          r"ragged_groupby|bitmask_pack|bitmask_pack_fields|"
-                         r"murmur3_int32|murmur3_int64|pack_rows)_kernel"
+                         r"murmur3_int32|murmur3_int64|pack_rows|"
+                         r"window_numbering)_kernel"
                          r"(?:<[^>]*>)?\(")
 
 
@@ -1241,6 +1316,10 @@ def run_oplib_path(dev, rels: dict, data: dict, log,
     _require(overflow == want and want > 0,
              f"q15 counted {overflow} overflows, the oracle {want}")
     out["q15_overflow"] = {"counted": overflow, "oracle": want}
+    k8 = out["launches"].get("window_numbering", 0)
+    _require(k8 == len(WINDOW_QUERIES),
+             f"K8 launched {k8} times over q11-q20, want one for each of "
+             f"{WINDOW_QUERIES}")
     os.environ["SRT_STRING_ROUTE"] = "bytes"
     try:
         for q in BYTES_ROUTE:
@@ -3576,7 +3655,7 @@ def run_roster2(dev, gen, ss, text: Column, log, profile: bool = False):
 # The mesh: run_fused over a NCCL process group, and shuffle_table
 # --------------------------------------------------------------------------
 
-MESH_NAMES = NAMES  # K1-K7, K3 in both forms
+MESH_NAMES = NAMES  # K1-K8, K3 in both forms
 MESH_THRESHOLD = "8192"  # the reference test's: the dimensions shard too
 MESH_BUDGET = 64 << 20   # stages the 10M-row exchanges into rounds
 # (pass, env, queries): the forced passes run only the queries whose
@@ -4312,7 +4391,7 @@ def run_serving(dev, rels: dict, data: dict, oracles: dict, mesh, log,
                 served_pass.append(time.perf_counter() - t_pass)
                 if i == 0:
                     torch.cuda.synchronize()
-                    launches = {n: K.LAUNCHES[n] for n in Q_NAMES}
+                    launches = {n: K.LAUNCHES[n] for n in OPLIB_NAMES}
                 reports.append(served_reports(passes[-1]))
             calls = []
             serve_recorded(ex, rels, queries, calls, "serving")
@@ -4329,7 +4408,7 @@ def run_serving(dev, rels: dict, data: dict, oracles: dict, mesh, log,
                              f"{r and r.to_dict()}")
                     _require(r.memory["devices"]["0"]["bytes_limit"] > 0,
                              f"{q}: no device memory in its report")
-            for name in Q_NAMES:
+            for name in OPLIB_NAMES:
                 _require(launches.get(name, 0) > 0,
                          f"kernel {name} was not launched on the served path")
             log(f"serving launches: {json.dumps(launches, sort_keys=True)}")
@@ -4523,13 +4602,17 @@ def batched_queries(dev, rels: dict, rels_b: dict, oracles: dict, log,
     for q in Q1_10 + Q11_20:
         want = (serial[q][0], serial[q][1], serial[q][0])
         torch.cuda.synchronize()
+        # a graph's private pool cannot draw on the blocks the default
+        # pool caches (the earlier steps leave tens of GiB there)
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         before = kernel_stats()
         t0 = time.perf_counter()
         try:
             outs = batch_window(q, window, dev)
         except BatchIncompatible as e:
-            _require(q in Q11_20, f"{q} did not batch: {e}")
+            _require(q in Q11_20 and q not in WINDOW_QUERIES,
+                     f"{q} did not batch: {e}")
             d = stats_since(before)
             _require(d.get("rel.batch.fallbacks") == 1,
                      f"{q}: BatchIncompatible not route-counted: {d}")
@@ -4576,8 +4659,12 @@ def batched_queries(dev, rels: dict, rels_b: dict, oracles: dict, log,
                  and stats["graph"],
                  f"{q}: cold window provenance {cold.provenance}, "
                  f"captures {captures}")
-        _require(q not in Q1_10 or stats["graph"],
+        _require(q not in Q1_10 + WINDOW_QUERIES or stats["graph"],
                  f"{q} did not replay a graph")
+        k8 = stats["replay_launches"].get("window_numbering", 0)
+        _require(k8 == (stats["capacity"] if q in WINDOW_QUERIES else 0),
+                 f"{q}: {k8} K8 launches in one replay at capacity "
+                 f"{stats['capacity']}")
         r = per_query[q] = {
             "batched": True, "warm_ms": statistics.median(warm),
             "serial_sum_ms": 2 * serial_ms[q][0] + serial_ms[q][1],
@@ -4596,11 +4683,11 @@ def batched_queries(dev, rels: dict, rels_b: dict, oracles: dict, log,
             f"sync_calls={syncs_seen} [{card}]")
         clear_batch_cache()  # frees the graph, its pool and its buffers
     torch.cuda.synchronize()
-    main_launches = {n: K.LAUNCHES[n] for n in Q_NAMES}
+    main_launches = {n: K.LAUNCHES[n] for n in OPLIB_NAMES}
     in_graphs = collections.Counter()
     for r in per_query.values():
         in_graphs.update(r.get("replay_launches", {}))
-    for name in Q_NAMES:
+    for name in OPLIB_NAMES:
         _require(main_launches[name] > 0 and in_graphs[name] > 0,
                  f"kernel {name} was not launched in a captured batch "
                  f"program (main path {main_launches}, in the graphs "
@@ -4613,14 +4700,15 @@ def batched_queries(dev, rels: dict, rels_b: dict, oracles: dict, log,
 
 def batched_recorded(dev, rels: dict, rels_b: dict, replayed: dict, log
                      ) -> "tuple[list, dict]":
-    """Pass (b): q1-q10's windows once more with the batch program run
-    eagerly (no capture: a recorded clone inside a capture would hold
-    nothing), every kernel call recorded; each slot equal to the
-    replayed one. Returns the calls and this pass's launch counts."""
+    """Pass (b): the windows of q1-q10 and of the window queries once more
+    with the batch program run eagerly (no capture: a recorded clone
+    inside a capture would hold nothing), every kernel call recorded;
+    each slot equal to the replayed one. Returns the calls and this
+    pass's launch counts."""
     calls, query = [], [None]
     K.reset_launch_counts()
     with recording(calls, query):
-        for q in Q1_10:
+        for q in Q1_10 + WINDOW_QUERIES:
             query[0] = f"batched {q}"
             outs = batch_window(q, [rels, rels_b, rels], dev, graph=False)
             for i, (o, want) in enumerate(zip(outs, replayed[q])):
@@ -4628,9 +4716,10 @@ def batched_recorded(dev, rels: dict, rels_b: dict, replayed: dict, log
                                               "replayed)")
             clear_batch_cache()
     torch.cuda.synchronize()
-    launches = {n: K.LAUNCHES[n] for n in Q_NAMES}
-    log(f"batched recording pass: q1-q10 windows run eagerly equal the "
-        f"replayed ones; launches {json.dumps(launches, sort_keys=True)}")
+    launches = {n: K.LAUNCHES[n] for n in OPLIB_NAMES}
+    log(f"batched recording pass: the windows of q1-q10 and "
+        f"{', '.join(WINDOW_QUERIES)} run eagerly equal the replayed ones; "
+        f"launches {json.dumps(launches, sort_keys=True)}")
     return calls, launches
 
 
@@ -4883,7 +4972,7 @@ def run_batching(dev, rels: dict, data: dict, oracles: dict, log,
 # slice with the control plane on, its rollup and history
 # --------------------------------------------------------------------------
 
-FLEET_NAMES = Q_NAMES + ("murmur3_int64",)  # K5 on the exchange route
+FLEET_NAMES = OPLIB_NAMES + ("murmur3_int64",)  # K5 on the exchange route
 FLEET_TENANTS = (TenantConfig("gold", weight=3, priority=10),
                  TenantConfig("bronze", weight=1, priority=0))
 FLEET_DEADLINE_MS = 600_000  # the served pass: every deadline met
@@ -6273,8 +6362,8 @@ def kernel_entries(totals: dict, launches: dict, card: str, stress: list,
         out.append(entry)
         lib = ("none (no single PyTorch call computes it)"
                if entry["library_ms"] is None
-               else f"{entry['library_ms']:.4f} (int64 index_add_, sums "
-               "only)")
+               else f"{entry['library_ms']:.4f} "
+               f"({spec.get('library_note')})")
         each = "; ".join(f"{x['path']} {x['wrapper']}: calls={x['calls']} "
                          f"launches={x['launches']} ms={x['ms']:.4f}"
                          for x in entry["parts"])
@@ -6416,7 +6505,8 @@ def main(argv=None) -> int:
     del more
     log("q11-q20 kernel calls, each equal to its plain version on the "
         "inputs q11-q20 gave it:")
-    totals["q11-q20"] = path_kernels(calls, oplib["launches"], Q_NAMES, log)
+    totals["q11-q20"] = path_kernels(calls, oplib["launches"], OPLIB_NAMES,
+                                     log)
     del calls
 
     t0 = time.perf_counter()
@@ -6486,8 +6576,8 @@ def main(argv=None) -> int:
     os.remove(group[1])
     log("served kernel calls, each equal to its plain version on the "
         "inputs the served q1-q20 gave it:")
-    totals["serving"] = path_kernels(calls, serving["launches"], Q_NAMES,
-                                     log, reps=3)
+    totals["serving"] = path_kernels(calls, serving["launches"],
+                                     OPLIB_NAMES, log, reps=3)
     log("kernel calls of q1-q20 served over the mesh, each equal to its "
         "plain version:")
     totals["serving mesh"] = path_kernels(
@@ -6507,8 +6597,10 @@ def main(argv=None) -> int:
     batching, calls, batch_rec = run_batching(dev, rels, data, oracles, log,
                                               card)
     log("batched kernel calls, each equal to its plain version on the "
-        "inputs q1-q10's windows gave the eager batch program:")
-    totals["batched"] = path_kernels(calls, batch_rec, Q_NAMES, log, reps=3)
+        "inputs q1-q10's and the window queries' windows gave the eager "
+        "batch program:")
+    totals["batched"] = path_kernels(calls, batch_rec, OPLIB_NAMES, log,
+                                     reps=3)
     del calls
     log(f"batched serving step: {batching['step_s']:.3f} s [{card}]")
 

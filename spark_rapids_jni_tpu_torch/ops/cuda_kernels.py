@@ -1,4 +1,4 @@
-"""Hand-written Hopper kernels K1-K6, their wrappers and plain versions.
+"""Hand-written Hopper kernels K1-K8, their wrappers and plain versions.
 
 The reference's Pallas kernels (``spark_rapids_jni_tpu/ops/
 pallas_kernels.py``) become CUDA C++ under ``csrc/``:
@@ -19,7 +19,12 @@ pallas_kernels.py``) become CUDA C++ under ``csrc/``:
 - K7 ``unpack_rows`` (``csrc/unpack_rows.cu``), K6's inverse, replaces no
   TPU kernel (the reference decodes rows with ``jnp`` slices): it turns a
   row batch into its fixed-width columns and their validity words in one
-  pass.
+  pass;
+- K8 ``window_numbering`` (``csrc/window_numbering.cu``) replaces no TPU
+  kernel either (the reference numbers windows with ``jnp`` cummax): it
+  turns the window operator's sorted head flags into ROW_NUMBER and RANK
+  in physical row order in one launch, a single-pass scan with decoupled
+  look-back.
 
 The sources compile with ``nvcc`` for ``sm_90a`` into one shared library
 with a plain C interface, at first use, into ``target/torch_kernels/``
@@ -79,7 +84,8 @@ from .row_layout import fixed_width_layout
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("hash_join_probe.cu", "ragged_groupby.cu", "bitmask_pack.cu",
-           "murmur3.cu", "pack_rows.cu", "unpack_rows.cu")
+           "murmur3.cu", "pack_rows.cu", "unpack_rows.cu",
+           "window_numbering.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "target" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -100,14 +106,15 @@ RAGGED_BLOCK_ROWS = 2048
 # __global__ launches per kernel name (K1 "hash_join_probe", K2
 # "ragged_groupby_sum_count", K3 "bitmask_pack" and its table form
 # "bitmask_pack_fields", K4 "murmur3_int32", K5 "murmur3_int64", K6
-# "pack_rows", K7 "unpack_rows")
+# "pack_rows", K7 "unpack_rows", K8 "window_numbering")
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
 
 # K1's and K2's launch shapes, summed over their calls: K1
 # "hash_join_probe.build_rows" / ".probe_rows" and the rows of the live
 # masks it was given (".build_live_rows", ".probe_live_rows"); K2
-# "ragged_groupby_sum_count.rows" / ".slots" (its output width). Counted
-# beside ``LAUNCHES``, outside graph captures.
+# "ragged_groupby_sum_count.rows" / ".slots" (its output width); K8
+# "window_numbering.rows" / ".outputs" (ROW_NUMBER and RANK columns
+# written). Counted beside ``LAUNCHES``, outside graph captures.
 LAUNCH_SHAPES: "collections.Counter[str]" = collections.Counter()
 
 
@@ -282,11 +289,12 @@ def kernels() -> ctypes.CDLL:
     lib.srt_pack_rows.argtypes = [vp, i, i, i, i, i, i, i, vp, ll, vp, vp]
     lib.srt_unpack_rows.argtypes = [vp, i, i, i, i, i, i, i, vp, vp, ll, vp,
                                     vp]
+    lib.srt_window_numbering.argtypes = [vp, vp, vp, ll, vp, vp, vp, vp]
     for fn in (lib.srt_hash_join_probe, lib.srt_ragged_groupby_sum_count,
                lib.srt_ragged_groupby_max_blocks, lib.srt_bitmask_pack,
                lib.srt_bitmask_pack_fields, lib.srt_murmur3_int32,
                lib.srt_murmur3_int64, lib.srt_pack_rows,
-               lib.srt_unpack_rows):
+               lib.srt_unpack_rows, lib.srt_window_numbering):
         fn.restype = ctypes.c_int
     return lib
 
@@ -1068,3 +1076,89 @@ def unpack_rows(rows: torch.Tensor, widths, dtypes=None
     _check(rc, "unpack_rows")
     _count_launch("unpack_rows")
     return cols, words
+
+
+# --------------------------------------------------------------------------
+# K8: window numbering, ROW_NUMBER and RANK from sorted head flags
+# --------------------------------------------------------------------------
+
+# rows of a K8 tile (csrc/window_numbering.cu kTile); the scratch holds a
+# word a tile and the tile counter
+WINDOW_TILE_ROWS = 4096
+WINDOW_OUTPUTS = ("row_number", "rank")
+
+
+def _window_want(want, tie_head) -> Tuple[str, ...]:
+    want = tuple(want)
+    if not (want and len(set(want)) == len(want)
+            and set(want) <= set(WINDOW_OUTPUTS)):
+        expects(False, f"window_numbering computes some of {WINDOW_OUTPUTS}"
+                f", not {want}")
+    expects("rank" not in want or tie_head is not None,
+            "rank needs the tie-run heads")
+    return want
+
+
+def window_numbering_plain(order: torch.Tensor, part_head: torch.Tensor,
+                           tie_head: Optional[torch.Tensor] = None,
+                           want=WINDOW_OUTPUTS) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch K8: the cumulative algebra of the window operator.
+    ``start = cummax(part_head ? i : 0)`` and ``first = cummax(tie_head ?
+    i : 0)`` over the sorted positions, ``i - start + 1`` and ``first -
+    start + 1`` scattered back through ``order``."""
+    want = _window_want(want, tie_head)
+    n = int(order.shape[0])
+    pos = torch.arange(n, dtype=torch.int64, device=order.device)
+    start = torch.cummax(torch.where(part_head, pos, 0), 0).values
+    out = []
+    for kind in want:
+        if kind == "row_number":
+            vals = pos - start + 1
+        else:
+            vals = torch.cummax(torch.where(tie_head, pos, 0), 0).values \
+                - start + 1
+        unsorted = torch.empty_like(vals)
+        unsorted[order] = vals
+        out.append(unsorted)
+    return tuple(out)
+
+
+def _aligned_flags(t: torch.Tensor, dev: torch.device, what: str,
+                   n: int) -> torch.Tensor:
+    expects(t.dtype == torch.bool, f"{what} must be bool")
+    t = _cuda_input(t, dev, what, n)
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def window_numbering(order: torch.Tensor, part_head: torch.Tensor,
+                     tie_head: Optional[torch.Tensor] = None,
+                     want=WINDOW_OUTPUTS) -> Tuple[torch.Tensor, ...]:
+    """ROW_NUMBER and RANK of rows sorted by ``order`` (int64, the sorted
+    position's physical row): ``part_head`` (bool, sorted order) marks
+    where a partition starts, ``tie_head`` where a run of equal order
+    values starts (needed for ``rank`` only). Returns one int64 column in
+    physical row order for each name of ``want``, in its order. One
+    launch for every output."""
+    want = _window_want(want, tie_head)
+    dev = order.device
+    if dev.type == "cpu":
+        return window_numbering_plain(order, part_head, tie_head, want)
+    n = int(order.shape[0])
+    expects(n < 2**31, f"window numbering takes fewer than 2^31 rows, not {n}")
+    o = _cuda_input(order.to(torch.int64), dev, "order")
+    part = _aligned_flags(part_head, dev, "part_head", n)
+    tie = (None if "rank" not in want
+           else _aligned_flags(tie_head, dev, "tie_head", n))
+    out = {kind: torch.empty(n, dtype=torch.int64, device=dev)
+           for kind in want}
+    if n:
+        tiles = -(-n // WINDOW_TILE_ROWS)
+        scratch = torch.zeros(tiles + 1, dtype=torch.int64, device=dev)
+        rc = kernels().srt_window_numbering(
+            o.data_ptr(), part.data_ptr(), _ptr(tie), n,
+            _ptr(out.get("row_number")), _ptr(out.get("rank")),
+            scratch.data_ptr(), _stream(dev))
+        _check(rc, "window_numbering")
+        _count_launch("window_numbering")
+        _count_shape("window_numbering", rows=n, outputs=len(want))
+    return tuple(out[kind] for kind in want)

@@ -15,9 +15,11 @@ Numbering over the sorted rows is cumulative algebra: with ``new_part``
 marking partition starts, ``start = cummax(new_part ? i : 0)`` is each
 row's partition start and ``row_number = i - start + 1``; ``rank`` puts
 the start of the row's tie run in place of ``i``. One scatter through
-the permutation puts the results back in physical row order. Ties keep
-physical order (the sort is stable), and dead rows sort last, so they
-never shift live numbering.
+the permutation puts the results back in physical row order. On the card
+the scans and the scatter are one launch of K8
+(``cuda_kernels.window_numbering``), on the CPU its plain version. Ties
+keep physical order (the sort is stable), and dead rows sort last, so
+they never shift live numbering.
 
 A partition key without a trusted dense range takes the eager route:
 the rel is compacted and its key tuples factorized on the host
@@ -41,6 +43,7 @@ import torch
 
 from ...columnar import Column
 from ...obs import count, set_attrs
+from ...ops import cuda_kernels
 from ...ops.fused_pipeline import (dense_groupby_method,
                                    dense_groupby_sum_count)
 from ...ops.groupby import result_dtype
@@ -177,7 +180,10 @@ def window(rel, partition_by: Sequence[str], order_by: Sequence[str],
     slots = torch.where(live, slots, 0)
     method = dense_groupby_method(width, backend=dev.type)
 
-    if any(kind in ("row_number", "rank") for kind, _, _ in funcs):
+    kinds = {kind for kind, _, _ in funcs}
+    want = tuple(k for k in cuda_kernels.WINDOW_OUTPUTS if k in kinds)
+    numbers = {}
+    if want:
         # one stable sort: dead rows last, then the slot (slots lie in
         # [0, width), so the two make one key), then the order columns
         keys = [slots.to(torch.int64) + (~live).to(torch.int64) * width]
@@ -188,20 +194,17 @@ def window(rel, partition_by: Sequence[str], order_by: Sequence[str],
             keys.extend(_order_keys(oc, d))
         order = stable_lexsort(keys)
         sslot = slots[order]
-        pos = torch.arange(n, dtype=torch.int64, device=dev)
         new_part = torch.ones(n, dtype=torch.bool, device=dev)
         new_part[1:] = sslot[1:] != sslot[:-1]
-        start = torch.cummax(torch.where(new_part, pos, 0), 0).values
-        # a tie run starts where the partition or any order value changes
-        changed = new_part.clone()
-        for name in order_by:
-            changed[1:] |= _changed(rel.col(name), order)
-        first = torch.cummax(torch.where(changed, pos, 0), 0).values
-
-        def unsort(vals: torch.Tensor) -> torch.Tensor:
-            out = torch.empty_like(vals)
-            out[order] = vals
-            return out
+        changed = None
+        if "rank" in want:
+            # a tie run starts where the partition or any order value
+            # changes
+            changed = new_part.clone()
+            for name in order_by:
+                changed[1:] |= _changed(rel.col(name), order)
+        numbers = dict(zip(want, cuda_kernels.window_numbering(
+            order, new_part, changed, want)))
 
     passes = {}  # one (sums, counts) pass per value column
 
@@ -219,10 +222,8 @@ def window(rel, partition_by: Sequence[str], order_by: Sequence[str],
 
     out_rel = rel
     for kind, vcol, out_name in funcs:
-        if kind == "row_number":
-            col = Column(INT64, n, unsort(pos - start + 1))
-        elif kind == "rank":
-            col = Column(INT64, n, unsort(first - start + 1))
+        if kind in numbers:
+            col = Column(INT64, n, numbers[kind])
         else:  # sum / count over the whole partition
             sums, counts = pass_for(vcol)
             if kind == "sum":

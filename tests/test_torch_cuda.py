@@ -1,4 +1,4 @@
-"""K1-K7 on the card: each hand-written CUDA kernel of the PyTorch/CUDA
+"""K1-K8 on the card: each hand-written CUDA kernel of the PyTorch/CUDA
 port against its plain PyTorch version on the same CUDA tensors, and the
 hashing and row-conversion entry points on the card against the same
 calls on the CPU.
@@ -1148,6 +1148,196 @@ def test_cuda_get_json_object_and_maps_equal_cpu(cuda_device):
             map_utils.map_to_pylist(m),
             map_utils.get_map_value(m, "k").to_pylist()]
     assert out["cuda"] == out["cpu"]
+
+
+# --------------------------------------------------------------------------
+# K8: window numbering
+# --------------------------------------------------------------------------
+
+def _numbering_case(dev, n, run, tie_share, seed):
+    """(order, part_head, tie_head) as the window operator makes them:
+    partitions of about ``run`` rows, tie heads a superset of the
+    partition heads at about ``tie_share`` of the rows."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    part = torch.rand(n, generator=g, device=dev) < 1.0 / run
+    part[:1] = True
+    tie = part | (torch.rand(n, generator=g, device=dev) < tie_share)
+    return torch.randperm(n, generator=g, device=dev), part, tie
+
+
+def _assert_numbering_equals_plain(order, part, tie, want):
+    n = int(order.shape[0])
+    before = K.LAUNCHES["window_numbering"]
+    shapes = dict(K.LAUNCH_SHAPES)
+    got = K.window_numbering(order, part, tie, want)
+    assert K.LAUNCHES["window_numbering"] == before + (1 if n else 0)
+    assert K.LAUNCH_SHAPES["window_numbering.rows"] == \
+        shapes.get("window_numbering.rows", 0) + n
+    assert K.LAUNCH_SHAPES["window_numbering.outputs"] == \
+        shapes.get("window_numbering.outputs", 0) + (len(want) if n else 0)
+    plain = K.window_numbering_plain(order, part, tie, want)
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    for name, g, w in zip(want, got, plain):
+        assert g.dtype == torch.int64 and g.device == order.device
+        assert torch.equal(g, w), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("want", [("row_number",), ("rank",),
+                                  ("row_number", "rank")],
+                         ids=lambda w: "+".join(w))
+@pytest.mark.parametrize("n", [0, 1, 4095, 4096, 4097, 8191, 8193,
+                               1_000_003])
+@pytest.mark.parametrize("run", [1, 58, 100_000])
+def test_cuda_window_numbering_equals_plain(cuda_device, n, run, want):
+    # sizes on both sides of a 4096-row tile's edge; partitions of one
+    # row, of q19's size and longer than many tiles (the look-back walks)
+    args = _numbering_case(cuda_device, n, run, 0.05, n + run)
+    _assert_numbering_equals_plain(*args, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge", [4095, 4096, 8192])
+def test_cuda_window_numbering_heads_at_tile_edges(cuda_device, edge):
+    n = 3 * 4096 + 5
+    order = torch.randperm(n, device=cuda_device)
+    for at in (edge, edge - 1, edge + 1):
+        part = torch.zeros(n, dtype=torch.bool, device=cuda_device)
+        part[[0, at]] = True
+        tie = part.clone()
+        tie[at + 2::4000] = True
+        _assert_numbering_equals_plain(order, part, tie,
+                                       ("row_number", "rank"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("want,n,run,ties", [
+    (("rank",), 28_800_991, 58, 0.4),           # q19: store_sales by customer
+    (("row_number",), 10_500_000, 103_000, 0.0),  # q16: slots by store
+    (("row_number", "rank"), 28_800_991, 58, 0.4)])
+def test_cuda_window_numbering_at_query_shapes(cuda_device, want, n, run,
+                                               ties):
+    args = _numbering_case(cuda_device, n, run, ties, 19)
+    _assert_numbering_equals_plain(*args, want)
+
+
+@pytest.mark.cuda
+def test_cuda_window_numbering_unaligned_and_empty(cuda_device):
+    order, part, tie = _numbering_case(cuda_device, 100_001, 30, 0.2, 3)
+    # flags 1 byte off a 16-byte boundary are copied to an aligned buffer
+    big_part = torch.zeros(100_002, dtype=torch.bool, device=cuda_device)
+    big_tie = big_part.clone()
+    big_part[1:] = part
+    big_tie[1:] = tie
+    _assert_numbering_equals_plain(order, big_part[1:], big_tie[1:],
+                                   ("row_number", "rank"))
+    e = torch.zeros(0, dtype=torch.bool, device=cuda_device)
+    before = dict(K.LAUNCHES)
+    got = K.window_numbering(torch.zeros(0, dtype=torch.int64,
+                                         device=cuda_device), e, e)
+    assert [g.shape for g in got] == [(0,), (0,)]
+    assert dict(K.LAUNCHES) == before
+
+
+@pytest.mark.cuda
+def test_cuda_window_numbering_in_graph_capture(cuda_device):
+    order, part, tie = _numbering_case(cuda_device, 2_000_003, 200, 0.1, 5)
+    want = K.window_numbering_plain(order, part, tie)
+    K.window_numbering(order, part, tie)  # built and warm
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    before = dict(K.LAUNCHES)
+    with torch.cuda.stream(side):
+        with K.capture_launches() as rec:
+            graph.capture_begin()
+            got = K.window_numbering(order, part, tie)
+            graph.capture_end()
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    assert rec == {"window_numbering": 1}
+    assert dict(K.LAUNCHES) == before
+    for _ in range(2):  # the scratch is zeroed again on every replay
+        for g in got:
+            g.fill_(-1)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_cuda_window_goes_through_k8(cuda_device):
+    # q16, q17, q19 and q20 number their windows through one K8 launch
+    # each, q18's sum/count window through none. q19's frame is the one
+    # the miniature has always given. q16 ranks float64 revenues, which
+    # the card sums by atomics in another order than the CPU (so its
+    # digest is the CPU's alone): its keys and row numbers equal the
+    # CPU run's, its revenues within the repo's oracle bound
+    import numpy as np
+    from test_torch_tpcds_spec import MINI_DIGESTS, _digest
+    from spark_rapids_jni_tpu_torch.tpcds import PLANS, generate
+    from spark_rapids_jni_tpu_torch.tpcds.data import ingest
+    from spark_rapids_jni_tpu_torch.tpcds.rel import run_fused
+    data = generate(sf=0.5, seed=7)
+    rels = ingest(data, device=cuda_device)
+    frames = {}
+    for q, launches in (("q16", 1), ("q17", 1), ("q18", 0), ("q19", 1),
+                        ("q20", 1)):
+        before = K.LAUNCHES["window_numbering"]
+        frames[q] = run_fused(PLANS[q], rels, device=cuda_device,
+                              skip_result_cache=True).to_df()
+        assert K.LAUNCHES["window_numbering"] == before + launches, q
+    assert _digest(frames["q19"]) == MINI_DIGESTS["q19"]
+    got = frames["q16"]
+    cpu = run_fused(PLANS["q16"], ingest(data, device="cpu"), device="cpu",
+                    skip_result_cache=True).to_df()
+    assert list(got.columns) == list(cpu.columns)
+    for c in ("ss_store_sk", "ss_item_sk", "rn"):
+        np.testing.assert_array_equal(got[c].to_numpy(), cpu[c].to_numpy(),
+                                      err_msg=c)
+    np.testing.assert_allclose(got["rev"].to_numpy(np.float64),
+                               cpu["rev"].to_numpy(np.float64), rtol=1e-9,
+                               atol=1e-9)
+
+
+@pytest.mark.cuda
+def test_cuda_batched_window_goes_through_k8(cuda_device):
+    # q16 and q19 batched over three submissions, the second with its
+    # sale dates and prices rotated (the same fingerprint, other
+    # answers): the batch program captures into a CUDA graph whose replay
+    # launches K8 once a slot of the capacity (the padded slot too), and
+    # every slot, captured and replayed, equals run_fused on its tables
+    import numpy as np
+    from spark_rapids_jni_tpu_torch.tpcds import PLANS, generate
+    from spark_rapids_jni_tpu_torch.tpcds.rel import (
+        batch_cache_stats, clear_batch_cache, rel_from_df, run_fused,
+        run_fused_batched)
+    data = generate(sf=0.5, seed=7)
+    a = {n: rel_from_df(df, device=cuda_device) for n, df in data.items()}
+    ss = data["store_sales"].copy()
+    for c in ("ss_sold_date_sk", "ss_ext_sales_price"):
+        ss[c] = np.roll(ss[c].to_numpy(), 333)
+    b = dict(a, store_sales=rel_from_df(ss, device=cuda_device))
+    window = [a, b, a]
+    for q in ("q16", "q19"):
+        want = [run_fused(PLANS[q], r, device=cuda_device,
+                          skip_result_cache=True).to_df() for r in (a, b)]
+        assert not want[0].equals(want[1]), q
+        clear_batch_cache()
+        try:
+            for run in ("captured", "replayed"):
+                outs = run_fused_batched(PLANS[q], window,
+                                         device=cuda_device, _graph=True)
+                for i, o in enumerate(outs):
+                    _frames_equal(o.to_df(), want[i % 2],
+                                  f"{q} {run} slot {i}")
+            (st,) = batch_cache_stats()
+            assert st["graph"] and st["fallback"] is None, st
+            assert st["replay_launches"].get("window_numbering") == \
+                st["capacity"], st
+        finally:
+            clear_batch_cache()
 
 
 # --------------------------------------------------------------------------

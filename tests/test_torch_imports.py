@@ -74,6 +74,7 @@ def test_sources_exist():
         assert rel in names
     for src in ("hash_join_probe.cu", "ragged_groupby.cu",
                 "bitmask_pack.cu", "murmur3.cu", "pack_rows.cu",
+                "unpack_rows.cu", "window_numbering.cu",
                 "native/c_api.cpp", "native/device_engine.hpp",
                 "native/cuda_engine.cu", "native/cuda_sort.cu",
                 "native/no_device_engine.cpp", "native/pack_plan.hpp",

@@ -1,4 +1,4 @@
-"""K1-K6 of the PyTorch/CUDA port against the JAX package's Pallas kernels.
+"""K1-K8 of the PyTorch/CUDA port against the JAX package's Pallas kernels.
 
 On the CPU each wrapper in ``spark_rapids_jni_tpu_torch.ops.cuda_kernels``
 runs its plain PyTorch version; here those are held against
@@ -8,7 +8,9 @@ runs its plain PyTorch version; here those are held against
 interpret mode, as ``tests/test_pallas_kernels.py`` and
 ``tests/test_pallas.py`` run them, on the same numpy inputs. K6's word
 plan, which only the CUDA kernel reads, is checked here by a numpy
-model of the kernel's loop.
+model of the kernel's loop. K8 replaces no Pallas kernel: its plain
+version is held against a Python loop, and its tiled look-back by a
+model of the kernel's tiles run in interleaved order.
 Results must be equal. The route policies are checked with
 ``backend="cuda"`` and the forcing knobs. The kernels themselves run on
 the card in ``tests/test_torch_cuda.py``.
@@ -454,6 +456,8 @@ def test_wrappers_do_not_count_cpu_calls():
     K.murmur3_int64(torch.arange(4), seeds)
     K.pack_rows([torch.arange(4)], [8])
     K.unpack_rows(torch.zeros((4, 16), dtype=torch.uint8), [8])
+    K.window_numbering(torch.arange(4), torch.ones(4, dtype=torch.bool),
+                       torch.ones(4, dtype=torch.bool))
     assert dict(K.LAUNCHES) == before
 
 
@@ -1007,3 +1011,171 @@ def test_unpack_rows_rejects_bad_inputs():
                                 [8, 1])
     assert [c.shape for c in cols] == [(0,), (0,)]
     assert words.shape == (2, 0) and words.dtype == torch.uint32
+
+
+# --------------------------------------------------------------------------
+# K8: window numbering
+# --------------------------------------------------------------------------
+
+def _numbering_loop(order, part, tie):
+    """ROW_NUMBER and RANK by a walk over the sorted rows."""
+    n = len(order)
+    rn, rk = np.zeros(n, np.int64), np.zeros(n, np.int64)
+    start = first = 0
+    for i in range(n):
+        if part[i]:
+            start = i
+        if tie[i]:
+            first = i
+        rn[order[i]] = i - start + 1
+        rk[order[i]] = first - start + 1
+    return {"row_number": rn, "rank": rk}
+
+
+def _numbering_case(kind, seed):
+    """(order, part_head, tie_head) as the window operator makes them:
+    the first row a partition head, tie heads a superset of them."""
+    rng = np.random.default_rng(seed)
+    t = K.WINDOW_TILE_ROWS
+    n = {"empty": 0, "one_row": 1, "one_partition": 5000,
+         "every_row": 3000, "long_ties": 9000, "spans_tiles": 3 * t + 17,
+         "tile_edges": 3 * t + 1, "q19_like": 20_000}[kind]
+    part = np.zeros(n, bool)
+    tie = np.zeros(n, bool)
+    if kind == "every_row":
+        part[:] = True
+    elif kind == "long_ties":
+        part[rng.choice(n, 5, replace=False)] = True
+        tie[rng.choice(n, 12, replace=False)] = True
+    elif kind == "spans_tiles":
+        part[[t // 2, 2 * t + 5]] = True
+        tie[rng.random(n) < 0.01] = True
+    elif kind == "tile_edges":
+        edges = [t - 1, t, 2 * t - 1, 2 * t, 3 * t - 1, 3 * t]
+        part[edges[::2]] = True
+        tie[edges[1::2]] = True
+    elif kind == "q19_like":
+        part[rng.random(n) < 1 / 58] = True
+        tie[rng.random(n) < 0.2] = True
+    else:
+        tie[rng.random(n) < 0.3] = True
+    if n:
+        part[0] = True
+    tie |= part
+    return rng.permutation(n), part, tie
+
+
+@pytest.mark.parametrize("want", [("row_number",), ("rank",),
+                                  ("row_number", "rank"),
+                                  ("rank", "row_number")],
+                         ids=lambda w: "+".join(w))
+@pytest.mark.parametrize("kind", ["empty", "one_row", "one_partition",
+                                  "every_row", "long_ties", "spans_tiles",
+                                  "tile_edges", "q19_like"])
+def test_window_numbering_plain_equals_loop(kind, want):
+    order, part, tie = _numbering_case(kind, len(kind))
+    got = K.window_numbering(_t(order), _t(part), _t(tie), want)
+    loop = _numbering_loop(order, part, tie)
+    assert len(got) == len(want)
+    for name, col in zip(want, got):
+        assert col.dtype == torch.int64
+        np.testing.assert_array_equal(col.numpy(), loop[name])
+
+
+def _look_back_model(part, tie, ranks, tile, items, seed):
+    """csrc/window_numbering.cu's algorithm in numpy: tiles of ``tile``
+    rows, threads of ``items`` rows (their head masks and exclusive
+    maxima), words of status and last heads, the warp's look-back over 32
+    words at a time. Tiles start in order and finish their look-back in a
+    random order, so a look-back meets aggregates and inclusive prefixes
+    alike. Returns the sorted rows' (start, first)."""
+    rng = np.random.default_rng(seed)
+    n = len(part)
+    tiles = -(-n // tile)
+    words = [None] * tiles  # (status, p, q): 1 aggregate, 2 inclusive
+    start, first = np.zeros(n, np.int64), np.zeros(n, np.int64)
+    local = {}
+
+    def last(flags, lo, hi):
+        hits = np.flatnonzero(flags[lo:hi])
+        return lo + int(hits[-1]) if hits.size else 0
+
+    def look_back(t, need_p, need_q):
+        p = q = 0
+        base = t - 1
+        while (need_p or need_q) and base >= 0:
+            window = [words[i] if i >= 0 else (2, 0, 0)
+                      for i in range(base, base - 32, -1)]
+            assert all(w is not None for w in window)
+            for need, at in ((need_p, 1), (need_q, 2)):
+                stop = [j for j, w in enumerate(window)
+                        if w[0] == 2 or w[at] != 0]
+                if need and stop:
+                    if at == 1:
+                        p, need_p = window[stop[0]][1], False
+                    else:
+                        q, need_q = window[stop[0]][2], False
+            base -= 32
+        return p, q
+
+    def begin(t):
+        lo, hi = t * tile, min(n, (t + 1) * tile)
+        bp = last(part, lo, hi)
+        bq = last(tie, lo, hi) if ranks else 0
+        known = t == 0 or (bp != 0 and (not ranks or bq != 0))
+        words[t] = (2 if known else 1, bp, bq)
+        local[t] = (bp, bq, known)
+
+    def finish(t):
+        lo, hi = t * tile, min(n, (t + 1) * tile)
+        bp, bq, known = local.pop(t)
+        pp, pq = look_back(t, not part[lo], ranks and not tie[lo])
+        if not known:
+            words[t] = (2, max(pp, bp), max(pq, bq) if ranks else 0)
+        for i in range(lo, hi):
+            o0 = lo + (i - lo) // items * items  # the owning thread's rows
+            ep = last(part, lo, o0) if o0 > lo else 0
+            eq = last(tie, lo, o0) if o0 > lo else 0
+            hp = last(part, o0, i + 1) if part[o0:i + 1].any() else None
+            hq = last(tie, o0, i + 1) if tie[o0:i + 1].any() else None
+            start[i] = hp if hp is not None else max(pp, ep)
+            first[i] = hq if hq is not None else max(pq, eq)
+
+    started = 0
+    while started < tiles or local:
+        if started < tiles and (not local or rng.random() < 0.6):
+            begin(started)
+            started += 1
+        else:
+            finish(int(rng.choice(sorted(local))))
+    return start, first
+
+
+@pytest.mark.parametrize("kind,tile,items", [
+    ("spans_tiles", 16, 4), ("tile_edges", 64, 8), ("q19_like", 32, 4),
+    ("long_ties", 8, 2), ("every_row", 16, 16), ("one_row", 16, 4)])
+def test_window_numbering_look_back_model(kind, tile, items):
+    # a partition spans hundreds of tiles in the smaller tilings, so the
+    # look-back walks past its 32-word window
+    order, part, tie = _numbering_case(kind, 7)
+    want = _numbering_loop(order, part, tie)
+    for ranks in (False, True):
+        start, first = _look_back_model(part, tie, ranks, tile, items,
+                                        seed=tile + items)
+        pos = np.arange(len(order))
+        rn = np.zeros(len(order), np.int64)
+        rn[order] = pos - start + 1
+        np.testing.assert_array_equal(rn, want["row_number"])
+        if ranks:
+            rk = np.zeros(len(order), np.int64)
+            rk[order] = first - start + 1
+            np.testing.assert_array_equal(rk, want["rank"])
+
+
+def test_window_numbering_rejects_bad_inputs():
+    order, part = torch.arange(4), torch.ones(4, dtype=torch.bool)
+    with pytest.raises(CudfLikeError, match="tie-run heads"):
+        K.window_numbering(order, part, None, ("rank",))
+    for want in ((), ("row_number", "row_number"), ("dense_rank",)):
+        with pytest.raises(CudfLikeError, match="computes some of"):
+            K.window_numbering(order, part, part, want)
