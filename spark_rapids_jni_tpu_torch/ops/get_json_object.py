@@ -18,10 +18,10 @@ max and min are log-step scans (``_running``: log2(L) shifted
 ``maximum``/``minimum`` passes, the same positions as ``torch.cummax``
 without its int64 index grid), and the running counts a triangular
 matmul (``_running_sum``, exact), where torch's inner-dimension scans
-were slower on the card (``tools/torch_json_scans.py``). Rows go through in chunks of
-``CHUNK_CELLS`` // L rows, so that one chunk's grids bound the memory. The
-result is assembled on the device by ``strings_from_matrix`` (its
-validity through K3).
+were slower on the card (PERF.md, the kernel table's notes). Rows go
+through in chunks of ``CHUNK_CELLS`` // L rows, so that one chunk's
+grids bound the memory. The result is assembled on the device by
+``strings_from_matrix`` (its validity through K3).
 
 Host routes, the reference's own: a string value holding an escape is
 unescaped on the host (the byte length changes),

@@ -19,8 +19,9 @@ predicate over a NULL is false, a sum or mean over no valid value is
 NULL, arithmetic over a NULL is NULL, money sums are exact decimals,
 means and ratios are float64 in the money's units, and every sort puts
 NULLs first. Over the miniature every template runs the operations it
-always ran, so its outputs are unchanged. ``tpcds/plain_reference.py``
-computes q1-q20 over the specification's tables in plain PyTorch.
+always ran, so its outputs are unchanged. The benchmark's
+``benchmarks/reference/tpcds.py`` computes q1-q20 over the
+specification's tables in plain PyTorch.
 """
 
 from __future__ import annotations

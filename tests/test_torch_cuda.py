@@ -1,13 +1,17 @@
-"""K1-K8 on the card: each hand-written CUDA kernel of the PyTorch/CUDA
-port against its plain PyTorch version on the same CUDA tensors, and the
-hashing and row-conversion entry points on the card against the same
-calls on the CPU.
+"""The port's on-card check. K1-K8: each hand-written CUDA kernel of the
+PyTorch/CUDA port against its plain PyTorch version on the same CUDA
+tensors. The entry points on the card against the same calls on the
+CPU, the oracle or their serial runs: hashing and rows, the roster,
+strings, roster II, the one-rank NCCL mesh, the morsel pump, serving and
+the result cache's tiers, batched CUDA graphs, the warm-disk restart,
+the fleet scheduler over a replica slice, the native engine and its JNI
+face.
 
 These tests need a CUDA device and ``nvcc``; they carry the ``cuda``
-marker and skip elsewhere. The file imports no JAX, so it runs on a
-machine that has only PyTorch:
+marker and skip elsewhere (each decides in a fixture). The file imports
+no JAX, so it runs on a machine that has only PyTorch:
 
-    python -m pytest --noconftest -q tests/test_torch_cuda.py
+    python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 """
 
 import pytest
@@ -1301,13 +1305,39 @@ def test_cuda_window_goes_through_k8(cuda_device):
                                atol=1e-9)
 
 
+WINDOW_QS = ("q16", "q17", "q19", "q20")  # ROW_NUMBER or RANK: K8
+# the queries that may decline a batch (q11-q20 without a window): only
+# with a counted BatchIncompatible
+MAY_DECLINE = tuple(f"q{i}" for i in range(11, 21) if f"q{i}" not in
+                    WINDOW_QS)
+
+
+def _count_syncs(fn):
+    """``fn()`` under ``set_sync_debug_mode("warn")``: (its result, the
+    synchronising CUDA calls it made)."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    # (the mode's own notice, "Synchronization debug mode is a prototype
+    # feature", is not a synchronising call)
+    return out, sum("called a synchronizing" in str(w.message)
+                    for w in caught)
+
+
 @pytest.mark.cuda
 def test_cuda_batched_window_goes_through_k8(cuda_device):
-    # q16 and q19 batched over three submissions, the second with its
-    # sale dates and prices rotated (the same fingerprint, other
-    # answers): the batch program captures into a CUDA graph whose replay
-    # launches K8 once a slot of the capacity (the padded slot too), and
-    # every slot, captured and replayed, equals run_fused on its tables
+    # q16, q17, q19 and q20 batched over three submissions, the second
+    # with its sale dates, prices and quantities rotated and a third of
+    # its item keys taken from the next row (the same fingerprint, other
+    # answers for all four): the batch program captures into a CUDA
+    # graph whose replay launches K8 once a slot of the capacity (the
+    # padded slot too), and every slot, captured and replayed, equals
+    # run_fused on its tables
     import numpy as np
     from spark_rapids_jni_tpu_torch.tpcds import PLANS, generate
     from spark_rapids_jni_tpu_torch.tpcds.rel import (
@@ -1316,11 +1346,14 @@ def test_cuda_batched_window_goes_through_k8(cuda_device):
     data = generate(sf=0.5, seed=7)
     a = {n: rel_from_df(df, device=cuda_device) for n, df in data.items()}
     ss = data["store_sales"].copy()
-    for c in ("ss_sold_date_sk", "ss_ext_sales_price"):
+    for c in ("ss_sold_date_sk", "ss_ext_sales_price", "ss_quantity"):
         ss[c] = np.roll(ss[c].to_numpy(), 333)
+    item = ss["ss_item_sk"].to_numpy().copy()
+    item[:-1:3] = item[1::3]  # q17 counts rows an item
+    ss["ss_item_sk"] = item
     b = dict(a, store_sales=rel_from_df(ss, device=cuda_device))
     window = [a, b, a]
-    for q in ("q16", "q19"):
+    for q in WINDOW_QS:
         want = [run_fused(PLANS[q], r, device=cuda_device,
                           skip_result_cache=True).to_df() for r in (a, b)]
         assert not want[0].equals(want[1]), q
@@ -1338,6 +1371,150 @@ def test_cuda_batched_window_goes_through_k8(cuda_device):
                 st["capacity"], st
         finally:
             clear_batch_cache()
+
+
+@pytest.fixture(scope="module")
+def batched_tables(request):
+    """The miniature at ``request.param`` (2, or 1000: 10,000,000
+    store_sales rows) on the card, and the same tables with store_sales'
+    profits rotated: the same fingerprint (schema, stats, sizes), other
+    answers wherever a query reads the profits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the batch program is captured "
+                    "into a CUDA graph on the card")
+    import numpy as np
+    from spark_rapids_jni_tpu_torch.tpcds import generate
+    from spark_rapids_jni_tpu_torch.tpcds.rel import rel_from_df
+    data = generate(sf=request.param, seed=7)
+    a = {n: rel_from_df(df, device="cuda") for n, df in data.items()}
+    ss = data["store_sales"].copy()
+    ss["ss_net_profit"] = np.roll(ss["ss_net_profit"].to_numpy(),
+                                  len(ss) // 3)
+    yield a, dict(a, store_sales=rel_from_df(ss, device="cuda"))
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qname", [f"q{i}" for i in range(1, 21)])
+@pytest.mark.parametrize("route,batched_tables", [
+    ("padded", 2), ("ragged", 2), ("padded", 1000)],
+    indirect=["batched_tables"], ids=["padded-sf2", "ragged-sf2",
+                                      "padded-sf1000"])
+def test_cuda_batched_q1_q20_replay_a_graph_a_rung(batched_tables, route,
+                                                   qname, monkeypatch):
+    # windows of two and of three submissions, each captured into a CUDA
+    # graph on its first window and replayed on its second: every slot
+    # equals run_fused on its own tables; a replay is one batch program
+    # with one host sync and one synchronising CUDA call, and launches K8
+    # once a slot of the capacity for a window query and never for
+    # another. Padded, the windows take capacity rungs 2 and 4; ragged,
+    # the page pool's lease sizes them (k <= capacity <= rung). A query
+    # of q11-q20 without a window may decline the batch, counted
+    from spark_rapids_jni_tpu_torch import obs
+    from spark_rapids_jni_tpu_torch.obs import (dispatch_counts,
+                                                kernel_stats, stats_since)
+    from spark_rapids_jni_tpu_torch.obs import report as obs_report
+    from spark_rapids_jni_tpu_torch.tpcds import PLANS
+    from spark_rapids_jni_tpu_torch.tpcds.rel import (
+        BatchIncompatible, batch_cache_stats, clear_batch_cache, run_fused,
+        run_fused_batched)
+    monkeypatch.setenv("SRT_METRICS", "1")
+    monkeypatch.setenv("SRT_BATCH_ROUTE", route)
+    a, b = batched_tables
+    want = [run_fused(PLANS[qname], r, device="cuda",
+                      skip_result_cache=True).to_df() for r in (a, b)]
+    clear_batch_cache()
+    try:
+        for window in ([a, b], [a, b, a]):
+            # a graph's private pool cannot draw on the blocks the
+            # default pool caches
+            torch.cuda.empty_cache()
+            before = kernel_stats()
+            try:
+                outs = run_fused_batched(PLANS[qname], window, device="cuda")
+            except BatchIncompatible as e:
+                d = stats_since(before)
+                assert qname in MAY_DECLINE, (qname, str(e))
+                assert d.get("rel.batch.fallbacks") == 1, (str(e), d)
+                return
+            rep = obs.last_report(qname)
+            assert rep.provenance == obs_report.PROVENANCE_COLD_COMPILE \
+                and rep.batch == len(window), rep.provenance
+            for i, o in enumerate(outs):
+                _frames_equal(o.to_df(), want[i % 2],
+                              f"{qname} captured slot {i} of {len(window)}")
+            before = kernel_stats()
+            outs, syncs = _count_syncs(
+                lambda: run_fused_batched(PLANS[qname], window,
+                                          device="cuda"))
+            d = stats_since(before)
+            rep = obs.last_report(qname)
+            assert rep.provenance == obs_report.PROVENANCE_WARM_MEMORY \
+                and rep.batch == len(window), rep.provenance
+            _, host = dispatch_counts(d)
+            assert d.get("rel.dispatches.rel.fused_batch_program") == 1, d
+            assert host == 1 and syncs == 1, (host, syncs, d)
+            for i, o in enumerate(outs):
+                _frames_equal(o.to_df(), want[i % 2],
+                              f"{qname} replayed slot {i} of {len(window)}")
+        stats = sorted(batch_cache_stats(), key=lambda st: st["capacity"])
+        caps = [st["capacity"] for st in stats]
+        if route == "padded":
+            assert caps == [2, 4], stats
+        else:
+            assert caps[0] == 2 and caps[1] in (3, 4), stats
+        assert all(st["route"] == route and st["graph"]
+                   and st["fallback"] is None for st in stats), stats
+        for st in stats:
+            k8 = st["replay_launches"].get("window_numbering", 0)
+            assert k8 == (st["capacity"] if qname in WINDOW_QS else 0), st
+    finally:
+        clear_batch_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batched_tables", [1000], indirect=True,
+                         ids=["sf1000"])
+def test_cuda_batched_eager_kernel_calls_equal_plain(batched_tables):
+    # q1-q20 in windows of three run eagerly (no capture: a copy taken
+    # inside a capture holds nothing) with every hand-kernel call
+    # recorded, each call then held against its plain version on the
+    # recorded inputs; each slot equals run_fused on its own tables. K1,
+    # K2, K3 and K8 are each called somewhere on the batched path
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke as cs
+    from spark_rapids_jni_tpu_torch.tpcds import PLANS
+    from spark_rapids_jni_tpu_torch.tpcds.rel import (
+        BatchIncompatible, clear_batch_cache, run_fused, run_fused_batched)
+    a, b = batched_tables
+    seen = set()
+    for qname in [f"q{i}" for i in range(1, 21)]:
+        want = [run_fused(PLANS[qname], r, device="cuda",
+                          skip_result_cache=True).to_df() for r in (a, b)]
+        calls: list = []
+        clear_batch_cache()
+        try:
+            with cs.recording(calls, [qname]):
+                outs = run_fused_batched(PLANS[qname], [a, b, a],
+                                         device="cuda", _graph=False)
+        except BatchIncompatible as e:
+            assert qname in MAY_DECLINE, (qname, str(e))
+            continue
+        finally:
+            clear_batch_cache()
+        for i, o in enumerate(outs):
+            _frames_equal(o.to_df(), want[i % 2], f"{qname} eager slot {i}")
+        for _, name, args in calls:
+            got = cs._outputs(cs.WRAPPERS[name](*args))
+            plain = cs._outputs(cs.SPECS[name]["plain"](*args))
+            assert all(torch.equal(g, w) for g, w in zip(got, plain)), \
+                (qname, name, cs.SPECS[name]["cost"](*args)[3])
+            seen.add(name)
+        del calls
+    assert {"hash_join_probe", "ragged_groupby_sum_count", "bitmask_pack",
+            "window_numbering"} <= seen, seen
 
 
 # --------------------------------------------------------------------------
@@ -1476,6 +1653,42 @@ def test_cuda_nccl_shuffle_table_keeps_every_row(nccl_mesh, strings):
             assert a.to_pylist() == b.to_pylist()
 
 
+@pytest.mark.cuda
+def test_cuda_fleet_scheduler_serves_through_a_replica_slice(nccl_mesh,
+                                                             monkeypatch):
+    # a two-tenant FleetScheduler over a replica x part mesh of one NCCL
+    # rank (one slice): q1-q20 at the reference test's threshold on the
+    # exchange join route, each a Rel of this slice equal to the one-device
+    # run; K5 hashes the shuffle-hash joins' keys
+    from spark_rapids_jni_tpu_torch.parallel import make_mesh_2d
+    from spark_rapids_jni_tpu_torch.serving import (FleetScheduler,
+                                                    TenantConfig)
+    from spark_rapids_jni_tpu_torch.tpcds import PLANS
+    from spark_rapids_jni_tpu_torch.tpcds.rel import Rel, run_fused
+    _, rels = nccl_mesh
+    monkeypatch.setenv("SRT_BROADCAST_THRESHOLD", "8192")
+    monkeypatch.setenv("SRT_SHUFFLE_JOIN_ROUTE", "exchange")
+    want = {q: run_fused(PLANS[q], rels, device="cuda",
+                         skip_result_cache=True).to_df() for q in MESH_QS}
+    tenants = (TenantConfig("gold", weight=3, priority=10),
+               TenantConfig("bronze", weight=1, priority=0))
+    mesh2d = make_mesh_2d(n_part=1, n_replica=1, device_type="cuda")
+    K.reset_launch_counts()
+    sched = FleetScheduler(tenants=tenants, mesh=mesh2d)
+    try:
+        pend = {q: sched.submit(PLANS[q], rels, tenant=tenants[i % 2].name,
+                                deadline_ms=600_000)
+                for i, q in enumerate(MESH_QS)}
+        for q, p in pend.items():
+            assert isinstance(p.result(timeout=300), Rel), q
+            _frames_equal(p.to_df(timeout=300), want[q], f"{q} fleet")
+    finally:
+        sched.close()
+    for name in ("hash_join_probe", "ragged_groupby_sum_count",
+                 "bitmask_pack", "murmur3_int64", "window_numbering"):
+        assert K.LAUNCHES[name] > 0, name
+
+
 # --------------------------------------------------------------------------
 # The morsel pump on the card: pinned, double-buffered staging
 # --------------------------------------------------------------------------
@@ -1596,6 +1809,30 @@ def test_cuda_morsel_pump_adds_no_sync(morsel_tables):
     assert streamed <= incore, (streamed, incore)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("qname", [f"q{i}" for i in range(11, 21)])
+def test_cuda_morsel_q11_q20_equal_incore(morsel_tables, qname):
+    # the string, decimal and window queries with the facts streamed:
+    # each equals its in-core run, whether it streams or falls back
+    # in-core (route-counted), with at most one counted host sync
+    from spark_rapids_jni_tpu_torch.exec import reset_standing_state
+    from spark_rapids_jni_tpu_torch.exec.runner import run_morsels
+    from spark_rapids_jni_tpu_torch.obs import kernel_stats, stats_since
+    from spark_rapids_jni_tpu_torch.tpcds import PLANS
+    from spark_rapids_jni_tpu_torch.tpcds.rel import run_fused
+    rels, host = morsel_tables
+    reset_standing_state()
+    want = run_fused(PLANS[qname], rels, skip_result_cache=True).to_df()
+    before = kernel_stats()
+    info = {}
+    got = run_morsels(PLANS[qname], host, info, morsels=8).to_df()
+    st = stats_since(before)
+    _frames_equal(got, want, f"{qname} streamed")
+    assert st.get("rel.host_syncs", 0) <= 1, st
+    if not st.get("rel.morsel_fallbacks", 0):
+        assert st.get("exec.morsel.folded", 0) >= 1, st
+
+
 # --------------------------------------------------------------------------
 # The serving path on the card: QueryExecutor, reports, result cache
 # --------------------------------------------------------------------------
@@ -1706,6 +1943,173 @@ def test_cuda_result_cache_keys_apart_across_devices(cuda_device,
             assert obs.stats_since(st).get("serving.result_cache.hits") == 1
     finally:
         result_cache.reset()
+
+
+@pytest.mark.cuda
+def test_cuda_paged_result_cache_pins_pages_and_evicts(cuda_device,
+                                                       monkeypatch):
+    """The paged tier on the card: its pages pinned host memory and no
+    CUDA tensor held; a hit launches nothing, makes no synchronising
+    call and hands back new CUDA tensors, equal to the oracle even with
+    the cache dropped and pinned memory written over during the upload;
+    at half the bytes q1-q10 charge, admission strips pages and only the
+    live entries hit; one large result (store_sales) comes back whole."""
+    from spark_rapids_jni_tpu_torch.exec.pages import page_bytes
+    from spark_rapids_jni_tpu_torch.obs import kernel_stats, stats_since
+    from spark_rapids_jni_tpu_torch.serving import result_cache
+    from spark_rapids_jni_tpu_torch.tpcds import PLANS, QUERIES, generate
+    from spark_rapids_jni_tpu_torch.tpcds.rel import (rel_from_df,
+                                                      result_cache_token,
+                                                      run_fused)
+    queries = [f"q{i}" for i in range(1, 11)]
+    monkeypatch.setenv("SRT_RESULT_CACHE_BYTES", str(1 << 30))
+    monkeypatch.setenv("SRT_PAGE_POOL_BYTES", str(1 << 30))
+    result_cache.reset()
+    try:
+        data = generate(sf=2, seed=7)
+        rels = {n: rel_from_df(df, device=cuda_device)
+                for n, df in data.items()}
+        oracles = {q: QUERIES[q][1](data) for q in queries}
+        for q in queries:
+            run_fused(PLANS[q], rels, device=cuda_device)
+        torch.cuda.synchronize()
+        cache = result_cache.result_cache()
+        assert isinstance(cache, result_cache.PagedResultCache)
+        pages = cache.resident_pages()
+        assert pages and all(p.device.type == "cpu"
+                             and (p.numel() == 0 or p.is_pinned())
+                             for p in pages)
+        del pages
+        assert not any(t.is_cuda for t in cache.resident_tensors())
+        sizes = [t.nbytes for t in cache.resident_tensors()]
+        charged = cache.resident_bytes
+        launches, st = dict(K.LAUNCHES), kernel_stats()
+        first = {q: run_fused(PLANS[q], rels, device=cuda_device)
+                 for q in queries}
+        hits, syncs = _count_syncs(lambda: {
+            q: run_fused(PLANS[q], rels, device=cuda_device)
+            for q in queries})
+        d = stats_since(st)
+        assert dict(K.LAUNCHES) == launches
+        assert syncs == 0
+        assert d.get("serving.result_cache.hits") == 2 * len(queries), d
+        assert not d.get("rel.host_syncs"), d
+        for q, rel in hits.items():
+            held = {c.data.data_ptr() for c in first[q].table.columns}
+            assert all(c.data.is_cuda and c.data.data_ptr() not in held
+                       for c in rel.table.columns), q
+        # drop every page while the uploads may be in flight, and write
+        # over fresh pinned buffers of their sizes (the caching host
+        # allocator's next blocks): the hits must not see it
+        cache.clear()
+        junk = [torch.full((max(1, n),), 0xA5, dtype=torch.uint8,
+                           pin_memory=True) for n in sizes for _ in range(2)]
+        for q, rel in hits.items():
+            _served_frames_equal(rel.to_df(), oracles[q], f"{q} paged hit")
+        del junk, first, hits
+        # half the charged bytes: admission strips the oldest pages
+        monkeypatch.setenv("SRT_RESULT_CACHE_BYTES", str(charged // 2))
+        cache = result_cache.result_cache()
+        assert isinstance(cache, result_cache.PagedResultCache)
+        assert len(cache) == 0
+        st = kernel_stats()
+        for q in queries:
+            run_fused(PLANS[q], rels, device=cuda_device)
+        filled = stats_since(st)
+        assert filled.get("serving.result_cache.page_evictions", 0) > 0
+        assert cache.resident_bytes <= charged // 2
+        tokens = {q: result_cache_token(PLANS[q], rels, device=cuda_device)
+                  for q in queries}
+        with cache._lock:
+            live = {q for q, t in tokens.items() if t in cache._entries
+                    and not cache._entries[t].stripped}
+        assert live and len(live) < len(queries), live
+        for q, tok in tokens.items():
+            got = cache.get(tok)
+            assert (got is not None) == (q in live), q
+            if got is not None:
+                _served_frames_equal(got.to_df(), oracles[q],
+                                     f"{q} after eviction")
+        # one large result through a paged cache of its own
+        big = result_cache.PagedResultCache(1 << 40, page_bytes())
+        ss = rels["store_sales"]
+        assert big.put("large", ss)
+        got = big.get("large")
+        for a, b in zip(ss.table.columns, got.table.columns, strict=True):
+            assert torch.equal(a.data, b.data)
+            assert (a.validity is None) == (b.validity is None)
+            assert a.validity is None or torch.equal(a.validity, b.validity)
+        big.clear()
+    finally:
+        result_cache.reset()
+
+
+_WARM_CHILD = r"""
+import json, sys
+import pandas as pd
+from spark_rapids_jni_tpu_torch import obs
+from spark_rapids_jni_tpu_torch.obs import kernel_stats
+from spark_rapids_jni_tpu_torch.ops import cuda_kernels as K
+from spark_rapids_jni_tpu_torch.serving import aot_cache
+from spark_rapids_jni_tpu_torch.tpcds import PLANS, generate
+from spark_rapids_jni_tpu_torch.tpcds.rel import (rel_from_df, run_fused,
+                                                  run_fused_batched)
+mode = sys.argv[1]
+if mode == "warm":  # a build would fail: the library must be bound
+    def _no_nvcc():
+        raise RuntimeError("the warm process has no nvcc")
+    K._nvcc = _no_nvcc
+K.kernels()
+data = generate(sf=2, seed=7)
+rels = {n: rel_from_df(df, device="cuda") for n, df in data.items()}
+want = {q: run_fused(PLANS[q], rels, device="cuda",
+                     skip_result_cache=True).to_df() for q in ("q3", "q9")}
+out = {"warmed": aot_cache.warm_disk(rels, device="cuda")
+       if mode == "warm" else [], "first": {}}
+for q in ("q3", "q9"):
+    for slot in run_fused_batched(PLANS[q], [rels] * 3, device="cuda"):
+        pd.testing.assert_frame_equal(slot.to_df(), want[q], rtol=1e-9,
+                                      atol=1e-9)
+    out["first"][q] = obs.last_report(q).provenance
+out["aot"] = {k: v for k, v in kernel_stats().items()
+              if k.startswith("aot.")}
+out["builds"] = [r.site for r in obs.recompile_records()
+                 if r.site == "ops.cuda_kernels.build"]
+print(json.dumps(out))
+"""
+
+
+@pytest.mark.cuda
+def test_cuda_warm_disk_restart_binds_the_library_without_nvcc(cuda_device,
+                                                              tmp_path):
+    # two processes sharing SRT_AOT_CACHE_DIR: the cold one builds the
+    # kernel library into the disk tier and captures q3's and q9's first
+    # windows; the warm one, whose nvcc lookup raises, binds the library
+    # from the tier, captures the manifest's windows ahead (warm_disk),
+    # and its first windows report provenance warm_disk
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    env = dict(os.environ, SRT_AOT_CACHE_DIR=str(tmp_path / "cache"),
+               SRT_METRICS="1",
+               PYTHONPATH=str(Path(__file__).resolve().parents[1]))
+    got = {}
+    for mode in ("cold", "warm"):
+        proc = subprocess.run([sys.executable, "-c", _WARM_CHILD, mode],
+                              env=env, capture_output=True, text=True,
+                              timeout=600)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        got[mode] = json.loads(proc.stdout.strip().splitlines()[-1])
+    cold, warm = got["cold"], got["warm"]
+    assert cold["first"] == {"q3": "cold_compile", "q9": "cold_compile"}
+    assert cold["builds"] and cold["aot"].get("aot.saves", 0) >= 2, cold
+    assert sorted(warm["warmed"]) == ["q3", "q9"], warm
+    assert warm["first"] == {"q3": "warm_disk", "q9": "warm_disk"}, warm
+    assert not warm["builds"], warm
+    assert warm["aot"].get("aot.disk_hits", 0) >= 3, warm
+    assert not warm["aot"].get("aot.fallback"), warm
 
 
 @pytest.mark.cuda
@@ -1956,3 +2360,28 @@ def test_cuda_native_wide_and_unsigned_shapes(cuda_device):
     for x in (t, h, s, lt, rt, kt, vt):
         x.close()
     assert native.live_handles() == 0 and native.live_device_handles() == 0
+
+
+@pytest.mark.cuda
+def test_cuda_jni_driver_routes_murmur3_to_the_card(cuda_device):
+    """The JVM's face, as a Spark executor starts: the mock-JNIEnv driver
+    (tests/torch_jni_engine_driver.cpp, built with the host's C++
+    compiler against the library) hashes before PjrtEngine.init on the
+    host route, starts the engine on device 0, is refused a program
+    registration, and hashes again on the card, equal to the host."""
+    import json
+    import subprocess
+    from pathlib import Path
+    from spark_rapids_jni_tpu_torch import native
+    lib = native.build()
+    driver = native.build_jni_driver(
+        lib, Path(__file__).resolve().parent / "torch_jni_engine_driver.cpp")
+    proc = subprocess.run([str(driver), "cuda: ", "1000000"],
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, (proc.stdout[-2000:], proc.stderr[-2000:])
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["init_error"] == "" and got["available"], got
+    assert got["device_count"] >= 1 and got["platform"].startswith("cuda: ")
+    assert "StableHLO" in got["register_refused"] and not got["registered"]
+    assert got["host_sentinel"] == 0 and got["device_sentinel"] == 1, got
+    assert got["equal"] and got["failures"] == 0, got

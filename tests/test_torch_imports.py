@@ -69,8 +69,7 @@ def test_sources_exist():
                 "obs/history.py", "obs/rollup.py",
                 "serving/control_plane.py", "tune/__init__.py",
                 "tune/space.py", "tune/store.py", "tune/runner.py",
-                "native.py", "tpcds/spec_data.py",
-                "tpcds/plain_reference.py"):
+                "native.py", "tpcds/spec_data.py"):
         assert rel in names
     for src in ("hash_join_probe.cu", "ragged_groupby.cu",
                 "bitmask_pack.cu", "murmur3.cu", "pack_rows.cu",
@@ -89,10 +88,9 @@ def test_no_forbidden_import_statement(path):
     assert not bad, f"{path} imports {bad}"
 
 
-# the plain references of the spec's q1-q20: the port's and the
-# benchmark's copy
-REFERENCES = [PORT / "tpcds" / "plain_reference.py",
-              ROOT / "benchmarks" / "reference" / "tpcds.py"]
+# the plain reference of the spec's q1-q20: the benchmark's, which the
+# port's tests load by path
+REFERENCES = [ROOT / "benchmarks" / "reference" / "tpcds.py"]
 
 
 @pytest.mark.parametrize("path", REFERENCES,

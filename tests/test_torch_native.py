@@ -10,8 +10,7 @@ adaptor's retry escalation and hand-off (raising the port's
 route, and every device entry point failing cleanly with no engine. Then
 the port's own: K6's C++ plan (``csrc/native/pack_plan.hpp``) equal to
 ``ops.cuda_kernels.pack_plan`` and the JNI bridge's symbols in the
-library. The device routes run on the card (``tests/test_torch_cuda.py``
-and ``chip_smoke.py``).
+library. The device routes run on the card (``tests/test_torch_cuda.py``).
 """
 
 import re

@@ -5,15 +5,18 @@ counts as data, the divided counts, the columns' types and domains, the
 tickets' structure and the NULL shares. The null-aware routes: joins
 (inner, left, semi, anti) and groupbys over nullable keys agree on the
 fused dense route, the eager general route and the plain reference
-(``tpcds/plain_reference.py``). q1-q20 over the spec's tables through
-``run_fused`` equal the plain reference, fused wherever a nullable key
-was the only obstacle. Over the miniature, q1-q20 give what they gave
+(the benchmark's ``benchmarks/reference/tpcds.py``, loaded by path).
+q1-q20 over the spec's tables through ``run_fused`` equal the plain
+reference, fused wherever a nullable key was the only obstacle. Over the miniature, q1-q20 give what they gave
 before the spec's tables came (digests of their frames).
 """
 
 import decimal
 import hashlib
+import importlib.util
 import math
+import sys
+from pathlib import Path
 
 import numpy as np
 import pandas as pd
@@ -23,11 +26,18 @@ import torch
 from spark_rapids_jni_tpu_torch.columnar import Column, Table, bitmask
 from spark_rapids_jni_tpu_torch.obs import kernel_stats, stats_since
 from spark_rapids_jni_tpu_torch.tpcds import PLANS, generate
-from spark_rapids_jni_tpu_torch.tpcds import plain_reference as R
 from spark_rapids_jni_tpu_torch.tpcds import spec_data as SD
 from spark_rapids_jni_tpu_torch.tpcds.data import ingest
 from spark_rapids_jni_tpu_torch.tpcds.rel import Rel, run_fused
 from spark_rapids_jni_tpu_torch.types import INT32, INT64, TypeId
+
+_REFERENCE = (Path(__file__).resolve().parents[1] / "benchmarks"
+              / "reference" / "tpcds.py")
+_spec = importlib.util.spec_from_file_location("benchmark_reference_tpcds",
+                                               _REFERENCE)
+R = importlib.util.module_from_spec(_spec)
+sys.modules[_spec.name] = R
+_spec.loader.exec_module(R)
 
 SEED = 2**31 + 11
 DIVISOR = 2000

@@ -3,8 +3,8 @@
 
     python3 tools/torch_profile_from_rows.py [--tree DIR] [--out FILE]
 
-Builds the row-conversion tables of ``chip_smoke.ROW_CASES`` (the 12M-row
-32-column case and the 1M-row 104-column case by default) on the card,
+Builds the row-conversion tables of ``ROW_CASES`` (the 12M-row 32-column
+case and the 1M-row 104-column case by default) on the card,
 converts them to rows, and profiles one warm ``convert_from_rows`` of
 every batch under ``torch.profiler`` with Python stacks. Each CUDA
 kernel is charged to the PyTorch operator that launched it, under the
@@ -18,10 +18,15 @@ It prints, per case, the warm wall time (median of 3, ending in a
 synchronise), the device busy time and the split, largest first, with
 each entry's launches.
 
+The fixed-width columns come from ``chip_smoke.rows_table`` (the
+timer's K6/K7 stress table), the STRING columns from ``string_column``
+here, drawn after them from the same generator.
+
 ``--tree DIR`` imports ``chip_smoke.py`` and the port from another
 checkout (for example an older commit unpacked beside this one), so two
-trees are profiled by one script. It needs a CUDA device and imports no
-JAX.
+trees are profiled by one script; that tree's ``rows_table`` must take
+(device, generator, rows, null share, repeats). It needs a CUDA device
+and imports no JAX.
 """
 
 from __future__ import annotations
@@ -34,7 +39,58 @@ import sys
 import time
 
 PORT = "spark_rapids_jni_tpu_torch"
+# (label, rows, null share per column, STRING columns, repeats of the
+# 8-type schema); the third is chip_smoke.ROWS_32COL
+ROW_CASES = [("1M rows, all valid", 1_000_000, 0.0, 0, 4),
+             ("1M rows, 1% nulls", 1_000_000, 0.01, 0, 4),
+             ("12M rows, 1% nulls", 12_000_000, 0.01, 0, 4),
+             ("1M rows + 2 STRING columns", 1_000_000, 0.01, 2, 4),
+             ("1M rows x 104 columns, 1% nulls", 1_000_000, 0.01, 0, 13)]
 DEFAULT_CASES = ("12M rows, 1% nulls", "1M rows x 104 columns, 1% nulls")
+# 2-byte UTF-8 units of the STRING column (ASCII pairs and é ü ж ß)
+UTF8_UNITS = [b"ab", b"Zq", b"09", b"  ", "é".encode(), "ü".encode(),
+              "ж".encode(), "ß".encode()]
+
+
+def string_column(dev, gen, n: int, null_share: float):
+    """0-32 bytes of UTF-8 a row (2-byte units, odd lengths end in an
+    ASCII byte); a null row holds no bytes."""
+    import torch
+    from spark_rapids_jni_tpu_torch import types as T
+    from spark_rapids_jni_tpu_torch.columnar import Column, bitmask
+    valid = torch.rand(n, generator=gen, device=dev) >= null_share
+    lens = torch.where(valid, torch.randint(0, 33, (n,), generator=gen,
+                                            device=dev), 0)
+    offsets = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(lens, 0, out=offsets[1:])
+    chars = torch.empty(int(offsets[-1]), dtype=torch.uint8, device=dev)
+    units = lens // 2
+    row = torch.repeat_interleave(torch.arange(n, device=dev), units)
+    first = torch.cumsum(units, 0) - units
+    pos = offsets[row] + 2 * (torch.arange(row.numel(), device=dev)
+                              - first[row])
+    table = torch.tensor([list(u) for u in UTF8_UNITS], dtype=torch.uint8,
+                         device=dev)
+    pick = table[torch.randint(0, len(UTF8_UNITS), (row.numel(),),
+                               generator=gen, device=dev)]
+    chars[pos], chars[pos + 1] = pick[:, 0], pick[:, 1]
+    odd = torch.nonzero(lens % 2 == 1)[:, 0]
+    chars[offsets[odd + 1] - 1] = torch.randint(
+        0x61, 0x7B, (odd.numel(),), generator=gen, device=dev,
+        dtype=torch.uint8)
+    return Column(T.STRING, n, None, bitmask.pack(valid), children=(
+        Column(T.INT32, n + 1, offsets.to(torch.int32)),
+        Column(T.UINT8, int(chars.numel()), chars)))
+
+
+def rows_table(cs, dev, gen, n: int, null_share: float, strings: int,
+               repeats: int):
+    """``cs.rows_table``'s fixed-width columns plus ``strings`` STRING
+    columns (10% null)."""
+    from spark_rapids_jni_tpu_torch.columnar import Table
+    t = cs.rows_table(dev, gen, n, null_share, repeats)
+    return Table(list(t.columns) + [string_column(dev, gen, n, 0.1)
+                                    for _ in range(strings)])
 
 
 def _port_frame(name: str):
@@ -104,7 +160,7 @@ def main(argv=None) -> int:
     ap.add_argument("--tree", default=None,
                     help="checkout whose chip_smoke.py and port to import")
     ap.add_argument("--cases", nargs="*", default=list(DEFAULT_CASES),
-                    help="labels of chip_smoke.ROW_CASES")
+                    help="labels of ROW_CASES")
     ap.add_argument("--out", default=None, help="also write JSON here")
     args = ap.parse_args(argv)
     tree = os.path.abspath(args.tree or os.path.join(
@@ -123,11 +179,11 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(cs.SEED)
     report = {"tree": tree, "card": card, "cases": []}
-    for case in cs.ROW_CASES:
+    for case in ROW_CASES:
         if case[0] not in args.cases:
             continue
         label = case[0]
-        t = cs.rows_table(dev, gen, *case[1:])
+        t = rows_table(cs, dev, gen, *case[1:])
         schema = t.schema()
         batches = rc.convert_to_rows(t)
         del t
